@@ -1,0 +1,51 @@
+"""Core configuration dataclasses (PyTorch port of
+efficient_llm_inference_tpu/core/config.py).
+
+The device is explicit and defaults to "cuda": nothing falls back to the CPU
+when no card is present. The dtype policy mirrors the JAX package's
+(bf16 on the accelerator, fp32 on the CPU). Seeding is an explicit
+`torch.Generator` built from `seed`; no global RNG is touched.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+def default_dtype(device: str) -> torch.dtype:
+    """bfloat16 on CUDA, float32 on the CPU."""
+    return torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
+
+
+@dataclass
+class Config:
+    """Main configuration for inference benchmarking.
+
+    Attributes:
+        model_name: model identifier ("gpt2", "gpt2-medium", "gpt2-tiny", ...).
+        device: torch device string; "cuda" unless the caller asks otherwise.
+        dtype: compute dtype of weights and activations; None picks
+            :func:`default_dtype` for the device.
+        seed: seed of the generator that initialises random weights.
+        batch_size: batch size for inference (the quantized cache takes 1).
+        prompt_cap: prompt-length cap of the truncating methods.
+    """
+
+    model_name: str = "gpt2"
+    device: str = "cuda"
+    dtype: Optional[torch.dtype] = None
+    seed: int = 42
+    batch_size: int = 1
+    prompt_cap: int = 1024
+
+    def __post_init__(self):
+        if self.dtype is None:
+            self.dtype = default_dtype(self.device)
+
+    def generator(self) -> torch.Generator:
+        """A CPU generator seeded from `seed` (weights are drawn on the host,
+        so the same seed gives the same weights on every device)."""
+        return torch.Generator(device="cpu").manual_seed(self.seed)

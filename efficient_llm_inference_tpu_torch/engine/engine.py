@@ -1,0 +1,288 @@
+"""Inference engine (PyTorch port of efficient_llm_inference_tpu/engine/
+engine.py, the full_cache and quant_* methods).
+
+`InferenceEngine` owns a GPT-2 model as a dict of tensors and exposes the
+JAX package's generation API and `benchmark_method` metric-dict schema.
+Generation runs prefill over the bucket-padded prompt, then a greedy decode
+loop over a static-capacity cache.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..cache.kvcache import DenseKV, QuantizedKV
+from ..core.config import Config
+from ..core.utils import (
+    DeviceTimer,
+    get_cpu_mem_mb,
+    get_device_peak_mb,
+    mb,
+    reset_device_peak,
+)
+from ..data.tokenizer import ByteTokenizer, load_tokenizer
+from ..models import gpt2 as gpt2_mod
+from ..models.registry import ModelSpec, spec_by_name
+from .generate import SamplingParams, bucket_for, make_generate
+
+VALID_METHODS = [
+    "no_cache",
+    "full_cache",
+    "sliding_window",
+    "quant_int8",
+    "quant_int4",
+    "quant_mixed",
+    "paged_attention",
+    "chunked_cache",
+    "prefix_window",
+    "strided_cache",
+    "block_cache",
+    "budget_cache",
+]
+PORTED_METHODS = ("full_cache", "quant_int8", "quant_int4", "quant_mixed")
+
+# Paths where the reference truncates prompts at prompt_cap.
+_TRUNCATING_METHODS = {
+    "no_cache",
+    "full_cache",
+    "prefix_window",
+    "strided_cache",
+    "block_cache",
+    "budget_cache",
+}
+
+
+def _check_method(method: str) -> None:
+    if method not in VALID_METHODS:
+        raise ValueError(f"Invalid method: {method}")
+    if method not in PORTED_METHODS:
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet: the eviction policies and "
+            "the rest of the 12-method registry are ROADMAP.md Queue 1 item 6")
+
+
+class InferenceEngine:
+    """Generation engine over a functional PyTorch model."""
+
+    def __init__(self, model: ModelSpec, params: dict, tokenizer=None,
+                 config: Optional[Config] = None):
+        self.model = model
+        self.params = params
+        self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
+        self.config = config or Config()
+        self._fns: Dict = {}
+
+    @classmethod
+    def from_model_name(cls, name: str = "gpt2", tokenizer=None,
+                        config: Optional[Config] = None,
+                        params: Optional[dict] = None) -> "InferenceEngine":
+        """Random-init (from `config.seed`) or given params, on
+        `config.device` (CUDA unless the config says otherwise)."""
+        config = config or Config(model_name=name)
+        spec = spec_by_name(name)
+        if params is None:
+            params = gpt2_mod.init_gpt2_params(
+                config.generator(), spec.config, config.dtype, config.device)
+        if tokenizer is None:
+            tokenizer = load_tokenizer(name)
+        return cls(spec, params, tokenizer, config)
+
+    # ------------------------------------------------------------------
+    def _dense_kw(self, capacity: int) -> dict:
+        m = self.model
+        return dict(
+            n_layer=m.n_layer,
+            n_head=m.n_kv_head,
+            head_dim=m.head_dim,
+            capacity=capacity,
+            batch=self.config.batch_size,
+            dtype=self.config.dtype,
+            device=self.config.device,
+        )
+
+    def _build(self, method: str, bucket: int, max_new: int, kw: dict,
+               sampling: Optional[SamplingParams] = None):
+        """Build (and cache) the generate function of one configuration."""
+        _check_method(method)
+        if sampling is not None and not sampling.greedy:
+            raise NotImplementedError(
+                "sampled decoding is not ported yet (ROADMAP.md Queue 1 "
+                "item 5); pass sampling=None for greedy")
+        key = (method, bucket, max_new, tuple(sorted(kw.items())))
+        if key in self._fns:
+            return self._fns[key]
+        cap = bucket + max_new
+        if method == "full_cache":
+            strategy = DenseKV(**self._dense_kw(cap))
+        else:
+            strategy = QuantizedKV(
+                **self._dense_kw(cap), mode=method.replace("quant_", ""),
+                granularity=kw.get("granularity", "per_token"))
+        built = (make_generate(self.model, strategy, max_new), strategy)
+        self._fns[key] = built
+        return built
+
+    def _encode(self, prompt: str, method: str) -> List[int]:
+        ids = self.tokenizer.encode(prompt)
+        cap = (
+            min(self.config.prompt_cap, self.model.n_positions)
+            if method in _TRUNCATING_METHODS
+            else self.model.n_positions
+        )
+        return list(ids[:cap])
+
+    def _generate(self, prompt: str, method: str, max_new_tokens: int,
+                  sampling=None, forced=None, **kw):
+        ids = self._encode(prompt, method)
+        true_len = len(ids)
+        if true_len == 0:
+            raise ValueError("empty prompt")
+        bucket = min(bucket_for(true_len), self.model.n_positions)
+        generate, strategy = self._build(method, bucket, max_new_tokens, kw,
+                                         sampling)
+        buf = torch.zeros((self.config.batch_size, bucket), dtype=torch.long)
+        buf[0, :true_len] = torch.tensor(ids, dtype=torch.long)
+        if forced is not None:
+            forced = forced.to(self.config.device)
+        toks, final_len, step_logits = generate(
+            self.params, buf.to(self.config.device), true_len, forced)
+        return ids, toks, final_len, step_logits, strategy
+
+    def _run(self, prompt: str, method: str, max_new_tokens: int,
+             sampling: Optional[SamplingParams] = None, **kw
+             ) -> Tuple[str, int, object, int]:
+        """One generation: returns (text, n_new, strategy, final_length)."""
+        ids, toks, final_len, _, strategy = self._generate(
+            prompt, method, max_new_tokens, sampling, **kw)
+        out_ids = ids + toks[0].tolist()  # the one host sync of a generation
+        self.last_generation_ids = out_ids
+        return (
+            self.tokenizer.decode(out_ids, skip_special_tokens=True),
+            max_new_tokens,
+            strategy,
+            final_len,
+        )
+
+    def generate(self, prompt: str, method: str = "full_cache",
+                 max_new_tokens: int = 32,
+                 sampling: Optional[SamplingParams] = None, **kw) -> str:
+        """Greedy generation with a cache method; `kw` reaches the strategy
+        (e.g. granularity="per_head" for the quant_* methods)."""
+        text, _, _, _ = self._run(prompt, method, max_new_tokens,
+                                  sampling=sampling, **kw)
+        return text
+
+    def generate_ids(self, prompt: str, method: str = "full_cache",
+                     max_new_tokens: int = 32, **kw) -> List[int]:
+        """Raw token ids (prompt + generation)."""
+        self._run(prompt, method, max_new_tokens, **kw)
+        return list(self.last_generation_ids)
+
+    def generate_logits(self, prompt: str, method: str = "full_cache",
+                        max_new_tokens: int = 32,
+                        forced: Optional[List[int]] = None, **kw
+                        ) -> Tuple[List[int], torch.Tensor]:
+        """(new token ids, fp32 logits [N, V] that chose them). With `forced`
+        the N tokens are fed instead of the argmax (teacher forcing)."""
+        forced_t = None
+        if forced is not None:
+            if len(forced) != max_new_tokens:
+                raise ValueError(f"{len(forced)} forced tokens for "
+                                 f"max_new_tokens={max_new_tokens}")
+            forced_t = torch.tensor([list(forced)], dtype=torch.long)
+        _, toks, _, step_logits, _ = self._generate(
+            prompt, method, max_new_tokens, forced=forced_t, **kw)
+        return toks[0].tolist(), torch.cat(step_logits, dim=0)
+
+    # ------------------------------------------------------------------
+    def generate_with_cache(self, prompt: str, max_new_tokens: int = 32):
+        text, n_new, _, _ = self._run(prompt, "full_cache", max_new_tokens)
+        return text, n_new
+
+    def generate_with_quantized_kv(self, prompt: str, max_new_tokens: int = 32,
+                                   mode: str = "int8"):
+        text, n_new, strategy, final_len = self._run(
+            prompt, f"quant_{mode}", max_new_tokens)
+        return text, n_new, mb(strategy.est_bytes(final_len))
+
+    def estimate_kv_bytes(self, method: str, length: int, **kw) -> float:
+        """Estimated KV-cache bytes `method` holds at sequence `length`
+        (quantized methods count packed codes plus scales)."""
+        _, strategy = self._build(method, 1, max(length - 1, 1), dict(kw))
+        return float(strategy.est_bytes(length))
+
+    # ------------------------------------------------------------------
+    def benchmark_method(
+        self,
+        prompts: List[str],
+        method: str = "full_cache",
+        max_new_tokens: int = 32,
+        window_size: int = 256,
+        block_size: int = 64,
+        chunk_size: int = 64,
+        keep_last: int = 256,
+        mode: str = "int8",
+        prefix_len: int = 32,
+        stride: int = 4,
+        keep_per_block: int = 8,
+        old_budget: int = 64,
+        warmup: bool = True,
+    ) -> dict:
+        """Run one method over a list of prompts; the JAX package's
+        metric-dict schema. `warmup=True` runs each prompt bucket once
+        before timing, so first-use costs (kernel build and load, allocator
+        growth) stay out of the throughput."""
+        _check_method(method)
+
+        def run_one(prompt):
+            if method == "full_cache":
+                _, n_new = self.generate_with_cache(prompt, max_new_tokens)
+                return n_new, float("nan")
+            _, n_new, est = self.generate_with_quantized_kv(
+                prompt, max_new_tokens, mode=method.replace("quant_", ""))
+            return n_new, est
+
+        if warmup and prompts:
+            seen = set()
+            for p in prompts:
+                b = bucket_for(len(self._encode(p, method)))
+                if b not in seen:
+                    seen.add(b)
+                    run_one(p)
+
+        device = self.config.device
+        reset_device_peak(device)
+        start_cpu = get_cpu_mem_mb()
+        timer = DeviceTimer(device).start()
+        total_new_tokens = 0
+        est_cache_mbs = []
+        for prompt in prompts:
+            n_new, est = run_one(prompt)
+            total_new_tokens += n_new
+            est_cache_mbs.append(est)
+        elapsed = timer.stop()
+        cpu_used = get_cpu_mem_mb() - start_cpu
+        dev_peak = get_device_peak_mb(device)
+        tps = total_new_tokens / elapsed if elapsed > 0 else float("inf")
+
+        finite = [x for x in est_cache_mbs if not math.isnan(x)]
+        est_cache_mb_avg = sum(finite) / len(finite) if finite else float("nan")
+        return {
+            "method": method,
+            "elapsed_sec": elapsed,
+            "total_new_tokens": total_new_tokens,
+            "tokens_per_sec": tps,
+            "cpu_mem_used_mb": cpu_used,
+            "gpu_peak_mb": dev_peak,
+            "window_size": None,
+            "block_size": None,
+            "chunk_size": None,
+            "est_kv_cache_mb_avg": est_cache_mb_avg,
+            "prefix_len": None,
+            "stride": None,
+            "keep_per_block": None,
+            "old_budget": None,
+        }

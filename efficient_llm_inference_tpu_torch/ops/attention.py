@@ -1,0 +1,171 @@
+"""Fused decode attention over a quantized KV cache.
+
+Port of efficient_llm_inference_tpu/ops/pallas/attention.py:
+fused_quant_attention_batched. On a CUDA tensor the wrapper launches the
+kernel of `csrc/fused_quant_attention.cu`; on a CPU tensor it runs the plain
+PyTorch version beside it. Launches are counted in
+`fused_quant_attention_batched.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .quantization import unpack_int4
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("fused_quant_attention")
+        fn = lib.elit_fused_quant_attention
+        fn.restype = ctypes.c_int
+        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [
+            i, i, i, i, i, i, i, i,  # q_dtype, k_bits, v_bits, B, Hq, Hkv, C, D
+            p, ll, ll,  # q, strides b, h
+            p, p,  # k codes, v codes
+            p, ll, ll,  # k scales, strides b, h
+            p, ll, ll,  # v scales
+            p, ll, ll, ll,  # k extra, strides b, h, s
+            p, ll, ll, ll,  # v extra
+            p, i, ctypes.c_float, p, p,  # lengths, n_extra, sm_scale, out, stream
+        ]
+        _lib = lib
+    return _lib
+
+
+def _codes_as_float(x: torch.Tensor, bits: int) -> torch.Tensor:
+    return unpack_int4(x).float() if bits == 4 else x.float()
+
+
+def fused_quant_attention_batched_plain(
+    q, k_q, k_scale, v_q, v_scale, k_extra, v_extra, lengths, n_extra: int,
+    k_bits: int = 8, v_bits: int = 8,
+):
+    """Plain PyTorch version: the same function in fp32 on any device."""
+    B, Hq, D = q.shape
+    Hkv, C = k_q.shape[1], k_q.shape[2]
+    S = k_extra.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Hkv, G, D)
+
+    s_past = torch.einsum("bhgd,bhcd->bhgc", qg, _codes_as_float(k_q, k_bits))
+    if k_bits != 16:
+        s_past = s_past * k_scale.float()[:, :, None, :]
+    t = torch.arange(C, device=q.device)
+    visible = t[None, :] < lengths.to(q.device)[:, None]  # [B, C]
+    s_past = torch.where(visible[:, None, None, :], s_past * scale, NEG_INF)
+
+    s_ex = torch.einsum("bhgd,bhsd->bhgs", qg, k_extra.float()) * scale
+    j = torch.arange(S, device=q.device)
+    s_ex = torch.where(j < n_extra, s_ex, NEG_INF)
+
+    m = torch.maximum(s_past.amax(-1, keepdim=True), s_ex.amax(-1, keepdim=True))
+    p_past = torch.exp(s_past - m)
+    p_ex = torch.exp(s_ex - m)
+    denom = p_past.sum(-1, keepdim=True) + p_ex.sum(-1, keepdim=True)
+    if v_bits != 16:
+        p_past = p_past * v_scale.float()[:, :, None, :]
+    out = torch.einsum("bhgc,bhcd->bhgd", p_past, _codes_as_float(v_q, v_bits))
+    out = out + torch.einsum("bhgs,bhsd->bhgd", p_ex, v_extra.float())
+    return (out / denom).to(q.dtype).reshape(B, Hq, D)
+
+
+def _check_inner(name: str, x: torch.Tensor, ndim: int):
+    if x.dim() != ndim or x.stride(-1) != 1:
+        raise ValueError(f"{name}: expected {ndim} dims with unit inner stride, "
+                         f"got shape {tuple(x.shape)} strides {x.stride()}")
+
+
+def fused_quant_attention_batched(
+    q,  # [B, Hq, D] fp queries (one decode row per slot)
+    k_q,  # [B, Hkv, C, D] int8, [B, Hkv, C, D//2] uint8, or fp (16 bits)
+    k_scale,  # [B, Hkv, C] f32 (ignored at 16 bits)
+    v_q,
+    v_scale,
+    k_extra,  # [B, Hkv, S, D] fp region (the current token at decode)
+    v_extra,
+    lengths,  # [B] int32: past rows t < lengths[b] are visible
+    n_extra: int,  # extra rows j < n_extra are visible
+    k_bits: int = 8,
+    v_bits: int = 8,
+):
+    """Returns [B, Hq, D] in q's dtype: softmax attention of each query over
+    the visible quantized past rows and the visible extra rows together.
+
+    k_bits/v_bits: 8 = int8 codes with per-row scales, 4 = packed int4 codes
+    with per-row scales, 16 = raw fp rows in q's dtype (both or neither).
+    The quantized rows are read at their compressed size; no dequantized
+    copy is made.
+    """
+    if q.device.type == "cpu":
+        return fused_quant_attention_batched_plain(
+            q, k_q, k_scale, v_q, v_scale, k_extra, v_extra, lengths, n_extra,
+            k_bits, v_bits)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, Hq, D = q.shape
+    Hkv, C = k_q.shape[1], k_q.shape[2]
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported query dtype {q.dtype}")
+    if (k_bits == 16) != (v_bits == 16) or k_bits not in (4, 8, 16) \
+            or v_bits not in (4, 8, 16):
+        raise NotImplementedError(f"k_bits={k_bits}, v_bits={v_bits}")
+    if D not in (64, 128):
+        raise NotImplementedError(f"head dim {D} (the kernel takes 64 or 128)")
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group onto {Hkv} kv heads")
+    want = {8: (torch.int8, D), 4: (torch.uint8, D // 2), 16: (q.dtype, D)}
+    for name, codes, bits in (("k_q", k_q, k_bits), ("v_q", v_q, v_bits)):
+        dt, width = want[bits]
+        if codes.dtype != dt or tuple(codes.shape) != (B, Hkv, C, width) \
+                or not codes.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dt} "
+                             f"{(B, Hkv, C, width)}, got {codes.dtype} "
+                             f"{tuple(codes.shape)}")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check_inner(name, s, 3)
+        if s.dtype != torch.float32 or tuple(s.shape) != (B, Hkv, C):
+            raise ValueError(f"{name}: expected float32 {(B, Hkv, C)}")
+    for name, x in (("k_extra", k_extra), ("v_extra", v_extra)):
+        _check_inner(name, x, 4)
+        if x.dtype != q.dtype or tuple(x.shape[:2]) != (B, Hkv) \
+                or x.shape[3] != D or not 0 <= n_extra <= x.shape[2]:
+            raise ValueError(f"{name}: expected {q.dtype} [{B}, {Hkv}, S, {D}] "
+                             f"with n_extra={n_extra} <= S")
+    _check_inner("q", q, 3)
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,) \
+            or not lengths.is_contiguous():
+        raise ValueError("lengths: expected contiguous int32 [B]")
+    tensors = (q, k_q, k_scale, v_q, v_scale, k_extra, v_extra, lengths)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _kernel()
+    rc = lib.elit_fused_quant_attention(
+        _DTYPE_CODE[q.dtype], k_bits, v_bits, B, Hq, Hkv, C, D,
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_q.data_ptr(), v_q.data_ptr(),
+        k_scale.data_ptr(), k_scale.stride(0), k_scale.stride(1),
+        v_scale.data_ptr(), v_scale.stride(0), v_scale.stride(1),
+        k_extra.data_ptr(), k_extra.stride(0), k_extra.stride(1), k_extra.stride(2),
+        v_extra.data_ptr(), v_extra.stride(0), v_extra.stride(1), v_extra.stride(2),
+        lengths.data_ptr(), n_extra, 1.0 / math.sqrt(D), out.data_ptr(), stream)
+    _build.check(lib, rc, "fused_quant_attention_batched")
+    fused_quant_attention_batched.launches += 1
+    return out
+
+
+fused_quant_attention_batched.launches = 0
