@@ -7,28 +7,42 @@ Phases (each prints one line with its seconds):
 
 1. build: compile every CUDA kernel of the port with nvcc (one process per
    source, all at once) and print the card's name and power limit;
-2. kernels: at the main path's shapes (GPT-2 small: H=12, D=64, C=320 = a
-   256-token prompt + 64 new tokens), hold each kernel against its plain
-   PyTorch version on the same inputs on the card (quantize: bit-exact;
-   attention: fp32 atol 1e-4, bf16 atol 2e-2) and time kernel, plain
-   version, library yardstick and bound;
-3. main path: InferenceEngine.from_model_name("gpt2") on CUDA in bf16 (random
-   weights from a seed), benchmark_method over 2 prompts of 256 tokens with
-   64 new tokens for full_cache, quant_int8, quant_int4 and quant_mixed. The
-   launch counters are zeroed just before and read just after each method,
-   and each quant_* method must launch the attention kernel exactly
-   layers x decode steps times and the rows kernels once per layer, K and V
-   and forward pass;
-4. fp32 hold: the same model in fp32 on the card; its greedy tokens,
-   teacher-forced through the plain versions on the CPU, must give every
-   step's logits within 1e-3 (and the same argmax wherever the top two are
-   more than 1e-3 apart).
+2. kernels: at the main path's shapes (GPT-2 small: L=12, E=768, H=12, D=64,
+   V=50257, C=320 = a 256-token prompt + 64 new tokens), hold each kernel
+   against its plain PyTorch version on the same inputs on the card and time
+   kernel, plain version, library yardstick and bound:
+   - quantize rows: bit-exact;
+   - fused attention: fp32 atol 1e-4, bf16 atol 2e-2, also on a row with no
+     visible position (length 0, no extra row: the uniform average);
+   - whole-step megakernels (fp, int8, int4 and mixed panes, bf16 and fp32,
+     length 319): the token (fp32: equal unless the plain top-2 gap is under
+     1e-4; bf16: a token whose plain logit is within 2e-2 of the maximum),
+     the new K/V rows (fp32: 1e-5, bf16: 1.6e-2, relative to the row's
+     largest value), quantized rows within one quantization step (fp32) or
+     two (bf16) after decoding, and every other row untouched;
+3. main path: InferenceEngine.from_model_name("gpt2") on CUDA in bf16
+   (random weights from a seed), benchmark_method over 2 prompts of 256
+   tokens with 64 new tokens for full_cache, quant_int8, quant_int4 and
+   quant_mixed, first with the megakernel off (Config(megakernel=False):
+   each quant_* decode step launches the attention kernel once per layer and
+   the rows kernels once per layer, K and V and forward pass), then with the
+   default config (megakernel on: every decode step is one launch of the
+   whole-step kernel chain, replayed from a CUDA graph, and the attention
+   kernel runs on no decode step). The launch counters are zeroed just
+   before and read just after each run;
+4. fp32 hold: the same model in fp32 on the card. Megakernel off: its greedy
+   tokens, teacher-forced through the plain versions on the CPU, must give
+   every step's logits within 1e-3. Megakernel on: 64 teacher-forced steps
+   of the kernel beside the plain step on the card; the tokens must be equal
+   wherever the plain step's top-2 logit gap is at least 1e-4.
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero without that line. Float32 matrix products run in full fp32 (TF32
 off). Kernel times are device times per call from CUDA-graph replay (warm
-L2); the eager time per call, host enqueue included, is printed beside them.
+L2 for the small kernels; a whole step streams 247 MB of weights, more than
+L2 holds); the eager time per call, host enqueue included, is printed beside
+them.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12  # bf16, dense
 PROMPT_TOKENS, NEW_TOKENS, N_PROMPTS, SEED = 256, 64, 2, 0
 METHODS = ("full_cache", "quant_int8", "quant_int4", "quant_mixed")
 
@@ -101,9 +116,10 @@ def device_ms(fn, calls: int = 50, replays: int = 5) -> float:
     return e0.elapsed_time(e1) / (calls * replays)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple:
+def bound_ms(n_bytes: float, n_flops: float,
+             flop_rate: float = H100_FP32_FLOP_PER_S) -> tuple:
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_FP32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -206,13 +222,20 @@ def check_attention() -> dict:
             got = a.fused_quant_attention_batched(*args, 1, k_bits=k_bits, v_bits=v_bits)
             want = a.fused_quant_attention_batched_plain(*args, 1, k_bits=k_bits,
                                                          v_bits=v_bits)
+            # and a row with no visible position: length 0, no extra row
+            none = args[:7] + [torch.zeros_like(args[7])]
+            got0 = a.fused_quant_attention_batched(*none, 0, k_bits=k_bits, v_bits=v_bits)
+            want0 = a.fused_quant_attention_batched_plain(*none, 0, k_bits=k_bits,
+                                                          v_bits=v_bits)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
+            err0 = (got0.float() - want0.float()).abs().max().item()
             tol = 1e-4 if dtype == torch.float32 else 2e-2
-            if not err <= tol:
+            if not max(err, err0) <= tol:
                 raise AssertionError(f"attention k{k_bits}/v{v_bits} {dtype}: "
-                                     f"max |kernel - plain| {err} > {tol}")
-            worst[dtype] = max(worst[dtype], err)
+                                     f"max |kernel - plain| {err}, with no visible "
+                                     f"row {err0}, > {tol}")
+            worst[dtype] = max(worst[dtype], err, err0)
             if k_bits == 16 or dtype != torch.bfloat16:
                 continue
             q, kq, ks, vq, vs, ke, ve, lengths = args
@@ -250,10 +273,174 @@ def check_attention() -> dict:
                 f"max|kernel-plain| {err:.2e}")
             if (k_bits, v_bits) == (8, 8):
                 report = entry
-    log(f"  attention max|kernel-plain|: fp32 {worst[torch.float32]:.2e} (tol 1e-4), "
-        f"bf16 {worst[torch.bfloat16]:.2e} (tol 2e-2)")
+    log(f"  attention max|kernel-plain| (visible rows, and no visible row): "
+        f"fp32 {worst[torch.float32]:.2e} (tol 1e-4), bf16 {worst[torch.bfloat16]:.2e} "
+        f"(tol 2e-2)")
     report["max_abs_err"] = max(worst.values())
     return report
+
+
+MEGA_C, MEGA_LEN = PROMPT_TOKENS + NEW_TOKENS, PROMPT_TOKENS + NEW_TOKENS - 1
+
+
+def _mega_state(mode, dtype, seed):
+    """A decode state at the main path's last step: random panes (codes and
+    scales for quantized modes) of C=320 rows and an embedding."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    g = torch.Generator().manual_seed(seed)
+    L, E = 12, 768
+    x = (torch.randn((1, E), generator=g) * 0.3).to(dtype).cuda()
+    if mode == "fp":
+        return [(torch.randn((L, MEGA_C, E), generator=g) * 0.5).to(dtype).cuda()
+                for _ in range(2)], x
+
+    def pane(kind):
+        lo = -127 if kind == "int8" else -128
+        width = E if kind == "int8" else E // 2
+        return torch.randint(lo, 128, (L, MEGA_C, width), generator=g,
+                             dtype=torch.int32).to(torch.int8).cuda()
+
+    def scales():
+        return (torch.rand((L, MEGA_C), generator=g) * 0.02 + 1e-3).cuda()
+
+    k_kind, v_kind = mq._kv_kinds(mode)
+    return [pane(k_kind), pane(v_kind), scales(), scales()], x
+
+
+def _mega_step(mode, packed, cfg, state, length, x, plain=False):
+    """The kernel (length: a device int32 tensor, so the call can be
+    captured) or, with `plain`, the plain step (length: an int), which then
+    returns its logits last."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    kw = {"return_logits": True} if plain else {}
+    if mode == "fp":
+        fn = mk.gpt2_megastep_plain if plain else mk.gpt2_megastep
+        return fn(packed, *state, length, x, cfg=cfg, **kw)
+    fn = mq.gpt2_megastep_quant_plain if plain else mq.gpt2_megastep_quant
+    return fn(packed, *state, length, x, cfg=cfg, kv_mode=mode, **kw)
+
+
+def _token_ok(tok: int, logits: torch.Tensor, dtype) -> bool:
+    """fp32: the plain argmax unless its top-2 gap is under 1e-4; bf16: any
+    token whose plain logit is within 2e-2 of the maximum (the kernel and
+    the plain step round to bf16 at the same points, in other sum orders)."""
+    top2 = logits.topk(2).values
+    if dtype == torch.float32:
+        return tok == int(logits.argmax()) or float(top2[0] - top2[1]) < 1e-4
+    return float(logits[tok]) >= float(top2[0]) - 2e-2
+
+
+def _new_row_err(mode, dtype, got, want, before) -> float:
+    """Max |kernel - plain| of the new rows (dequantized for quantized
+    panes), after checking them against the tolerances and checking that no
+    other row moved."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    others = torch.arange(MEGA_C, device=before[0].device) != MEGA_LEN
+    for g_, w_, b_ in zip(got, want, before):
+        if not (torch.equal(g_[:, others], b_[:, others])
+                and torch.equal(w_[:, others], b_[:, others])):
+            raise AssertionError(f"megastep {mode} {dtype}: a row other than "
+                                 f"{MEGA_LEN} changed")
+    if mode == "fp":
+        err, scale = 0.0, 0.0
+        for g_, w_ in zip(got, want):
+            g_, w_ = g_[:, MEGA_LEN].float(), w_[:, MEGA_LEN].float()
+            err = max(err, (g_ - w_).abs().max().item())
+            scale = max(scale, w_.abs().max().item())
+        tol = (1e-5 if dtype == torch.float32 else 1.6e-2) * max(scale, 1.0)
+    else:
+        err, tol = 0.0, float("inf")
+        steps = 1 if dtype == torch.float32 else 2
+        for kind, g_, w_, gs, ws in zip(mq._kv_kinds(mode), got[:2], want[:2],
+                                        got[2:], want[2:]):
+            gv = mq.pane_values(g_[:, MEGA_LEN], kind) * gs[:, MEGA_LEN, None]
+            wv = mq.pane_values(w_[:, MEGA_LEN], kind) * ws[:, MEGA_LEN, None]
+            d = (gv - wv).abs().max().item()
+            step_tol = steps * max(gs[:, MEGA_LEN].max().item(),
+                                   ws[:, MEGA_LEN].max().item()) * 1.01
+            if not d <= step_tol:
+                raise AssertionError(f"megastep {mode} {dtype}: new {kind} row "
+                                     f"off by {d} > {step_tol}")
+            err, tol = max(err, d), min(tol, step_tol)
+    if not err <= tol:
+        raise AssertionError(f"megastep {mode} {dtype}: new rows off by {err} > {tol}")
+    return err
+
+
+def _mega_bound(mode, dtype) -> tuple:
+    """Least time of one step on the card: every weight read once (layer
+    weights, the LM head = wte, one wte and one wpe row), the visible KV rows
+    and their scales read once, the new rows written once; two operations
+    per weight element."""
+    L, E, V, P, D = 12, 768, 50257, 1024, 64
+    item = 2 if dtype == torch.bfloat16 else 4
+    weights = L * 12 * E * E + V * E + 2 * E
+    smalls = (L * 13 * E + 2 * E) * 4
+    if mode == "fp":
+        row = 2 * E * item
+    else:
+        from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+        row = sum(E if k == "int8" else E // 2 for k in mq._kv_kinds(mode)) + 8
+    n_bytes = weights * item + smalls + L * (MEGA_LEN + 1) * row
+    flops = 2 * weights + L * 4 * (MEGA_LEN + 1) * E
+    rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def check_megasteps() -> dict:
+    """#9 and #11 at GPT-2 small's full width against their plain steps."""
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+
+    cfg = gpt2_mod.GPT2Config.small()
+    reports = {}
+    dev_len = torch.tensor([MEGA_LEN], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
+                                           dtype, "cuda")
+        packed = mk.pack_gpt2_mega(params, cfg)
+        for i, mode in enumerate(("fp", "int8", "int4", "mixed")):
+            state, x = _mega_state(mode, dtype, seed=100 + i)
+            got = [t.clone() for t in state]
+            want = [t.clone() for t in state]
+            tok = int(_mega_step(mode, packed, cfg, got, dev_len, x)[0])
+            logits = _mega_step(mode, packed, cfg, want, MEGA_LEN, x, plain=True)[-1]
+            torch.cuda.synchronize()
+            if not _token_ok(tok, logits, dtype):
+                raise AssertionError(f"megastep {mode} {dtype}: token {tok}, plain "
+                                     f"argmax {int(logits.argmax())}")
+            err = _new_row_err(mode, dtype, got, want, state)
+            b, by = _mega_bound(mode, dtype)
+            entry = {
+                "ms": device_ms(lambda: _mega_step(mode, packed, cfg, got, dev_len, x),
+                                calls=20),
+                "plain_ms": device_ms(lambda: _mega_step(mode, packed, cfg, want,
+                                                         MEGA_LEN, x, plain=True),
+                                      calls=3),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "max_abs_err": err,
+            }
+            eager = eager_ms(lambda: _mega_step(mode, packed, cfg, got, dev_len, x),
+                             iters=20)
+            log(f"  megastep {mode} {str(dtype)[6:]} L=12 E=768 V=50257 C=320 "
+                f"len={MEGA_LEN}: token {tok} (plain {int(logits.argmax())}), new rows "
+                f"max|kernel-plain| {err:.2e}; device ms kernel {entry['ms']:.5f}, "
+                f"plain {entry['plain_ms']:.5f}, bound {b:.5f} ({by}); eager kernel "
+                f"call {eager:.5f} ms")
+            reports[(mode, dtype)] = entry
+        del params, packed
+    worst = {m: max(reports[(m, d)]["max_abs_err"]
+                    for d in (torch.float32, torch.bfloat16))
+             for m in ("fp", "int8", "int4", "mixed")}
+    fp = dict(reports[("fp", torch.bfloat16)], max_abs_err=worst["fp"])
+    quant = dict(reports[("int8", torch.bfloat16)],
+                 max_abs_err=max(worst[m] for m in ("int8", "int4", "mixed")))
+    return {"gpt2_megastep": fp, "gpt2_megastep_quant": quant}
 
 
 def _prompts(n: int, seed: int):
@@ -269,55 +456,81 @@ def _prompts(n: int, seed: int):
 
 
 def counters():
-    from efficient_llm_inference_tpu_torch.ops import attention, quantize
+    from efficient_llm_inference_tpu_torch.ops import (
+        attention, megakernel, megakernel_quant, quantize)
 
     return {
         "fused_quant_attention_batched": attention.fused_quant_attention_batched,
         "quantize_int8_rows": quantize.quantize_int8_rows,
         "quantize_int4_rows": quantize.quantize_int4_rows,
+        "gpt2_megastep": megakernel.gpt2_megastep,
+        "gpt2_megastep_quant": megakernel_quant.gpt2_megastep_quant,
     }
 
 
-def phase_main_path(launches: dict) -> None:
-    from efficient_llm_inference_tpu_torch import InferenceEngine
+def _expected_launches(method: str, mega: bool, L: int, n_gen: int) -> dict:
+    want = {name: 0 for name in counters()}
+    if method == "full_cache":
+        if mega:
+            want["gpt2_megastep"] = NEW_TOKENS * n_gen
+        return want
+    mode = method.replace("quant_", "")
+    k8, v8 = mode in ("int8", "mixed"), mode == "int8"
+    # the rows kernels quantize K and V per layer and forward pass: the
+    # prefill and, megakernel off, every decode step
+    per_pass = L * n_gen * (1 if mega else NEW_TOKENS + 1)
+    want["quantize_int8_rows"] = per_pass * (k8 + v8)
+    want["quantize_int4_rows"] = per_pass * ((not k8) + (not v8))
+    if mega:
+        want["gpt2_megastep_quant"] = NEW_TOKENS * n_gen
+    else:
+        want["fused_quant_attention_batched"] = L * NEW_TOKENS * n_gen
+    return want
 
-    eng = InferenceEngine.from_model_name("gpt2")  # CUDA, bf16, seed 42
-    assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
-    assert eng.params["wte"].is_cuda
+
+def phase_main_path(launches: dict) -> None:
+    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+
     prompts = _prompts(N_PROMPTS, SEED)
-    assert all(len(eng.tokenizer.encode(p)) == PROMPT_TOKENS for p in prompts)
-    L = eng.model.n_layer
     n_gen = N_PROMPTS + 1  # benchmark_method warms up once (one bucket)
+    tps = {}
+    for mega in (False, None):  # megakernel off, then the default (on)
+        eng = InferenceEngine.from_model_name(
+            "gpt2", config=Config(model_name="gpt2", megakernel=mega))
+        assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
+        assert eng.params["wte"].is_cuda
+        assert eng.config.resolved_megakernel() == (mega is None)
+        assert all(len(eng.tokenizer.encode(p)) == PROMPT_TOKENS for p in prompts)
+        L = eng.model.n_layer
+        for method in METHODS:
+            for fn in counters().values():
+                fn.launches = 0
+            res = eng.benchmark_method(prompts, method=method, max_new_tokens=NEW_TOKENS)
+            got = {name: fn.launches for name, fn in counters().items()}
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+            ids = eng.last_generation_ids
+            new = ids[-NEW_TOKENS:]
+            assert len(ids) == PROMPT_TOKENS + NEW_TOKENS, len(ids)
+            assert all(0 <= t < eng.model.vocab_size for t in new)
+            assert res["total_new_tokens"] == N_PROMPTS * NEW_TOKENS
+            assert math.isfinite(res["tokens_per_sec"]) and res["tokens_per_sec"] > 0
+            want = _expected_launches(method, mega is None, L, n_gen)
+            if got != want:
+                raise AssertionError(f"{method} megakernel={mega}: launches {got}, "
+                                     f"expected {want}")
+            tps[(method, mega)] = res["tokens_per_sec"]
+            log(f"  {method} megakernel {'on' if mega is None else 'off'}: "
+                f"{res['tokens_per_sec']:.1f} tokens/s ({res['total_new_tokens']} new "
+                f"tokens in {res['elapsed_sec']:.3f} s, peak {res['gpu_peak_mb']} MB, "
+                f"est KV {res['est_kv_cache_mb_avg']:.3f} MB), launches "
+                f"{json.dumps({k: v for k, v in got.items() if v})}, last tokens {new[:8]}")
+        del eng
+        torch.cuda.empty_cache()
     for method in METHODS:
-        for fn in counters().values():
-            fn.launches = 0
-        res = eng.benchmark_method(prompts, method=method, max_new_tokens=NEW_TOKENS)
-        got = {name: fn.launches for name, fn in counters().items()}
-        for name, n in got.items():
-            launches[name] = launches.get(name, 0) + n
-        ids = eng.last_generation_ids
-        new = ids[-NEW_TOKENS:]
-        assert len(ids) == PROMPT_TOKENS + NEW_TOKENS, len(ids)
-        assert all(0 <= t < eng.model.vocab_size for t in new)
-        assert res["total_new_tokens"] == N_PROMPTS * NEW_TOKENS
-        assert math.isfinite(res["tokens_per_sec"]) and res["tokens_per_sec"] > 0
-        if method == "full_cache":
-            want = {name: 0 for name in got}
-        else:
-            mode = method.replace("quant_", "")
-            per_pass = L * n_gen * (NEW_TOKENS + 1)  # prefill + each decode step
-            k8, v8 = mode in ("int8", "mixed"), mode == "int8"
-            want = {
-                "fused_quant_attention_batched": L * NEW_TOKENS * n_gen,
-                "quantize_int8_rows": per_pass * (k8 + v8),
-                "quantize_int4_rows": per_pass * ((not k8) + (not v8)),
-            }
-        if got != want:
-            raise AssertionError(f"{method}: launches {got}, expected {want}")
-        log(f"  {method}: {res['tokens_per_sec']:.1f} tokens/s "
-            f"({res['total_new_tokens']} new tokens in {res['elapsed_sec']:.3f} s, "
-            f"peak {res['gpu_peak_mb']} MB, est KV {res['est_kv_cache_mb_avg']:.3f} MB), "
-            f"launches {json.dumps(got)}, last tokens {new[:8]}")
+        log(f"  {method}: megakernel on {tps[(method, None)]:.1f} tokens/s, "
+            f"off {tps[(method, False)]:.1f} tokens/s "
+            f"({tps[(method, None)] / tps[(method, False)]:.1f}x)")
 
 
 def phase_fp32_hold() -> None:
@@ -350,6 +563,53 @@ def phase_fp32_hold() -> None:
             f"clear steps")
 
 
+def phase_fp32_mega_hold() -> None:
+    """64 teacher-forced steps of each megakernel beside its plain step on
+    the card in fp32, from the same prefill: both get the kernel's token."""
+    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+    from efficient_llm_inference_tpu_torch.engine.generate import (
+        _mega_panes, bucket_for, make_prefill)
+
+    eng = InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32))
+    wte, wpe = eng.params["wte"], eng.params["wpe"]
+    ids = eng.tokenizer.encode(_prompts(1, SEED + 2)[0])
+    bucket = bucket_for(len(ids))
+    buf = torch.zeros((1, bucket), dtype=torch.long)
+    buf[0, :len(ids)] = torch.tensor(ids)
+    buf = buf.cuda()
+    for method in METHODS:
+        _, strategy = eng._build(method, bucket, NEW_TOKENS, {})
+        kv_mode = None if method == "full_cache" else method.replace("quant_", "")
+        mode = kv_mode or "fp"
+        mega = eng._mega_spec if kv_mode is None else eng._mega_quant_spec
+        assert (mega(bucket + NEW_TOKENS, None) if kv_mode is None else
+                mega(bucket + NEW_TOKENS, None, kv_mode, {})) is not None
+        cache, last = make_prefill(eng.model, strategy)(eng.params, buf, len(ids))
+        kern = list(_mega_panes(cache, kv_mode).values())
+        plain = [t.clone() for t in kern]
+        tok, length, clear, gaps = int(last[0].argmax()), len(ids), 0, []
+        for _ in range(NEW_TOKENS):
+            x = (wte[tok] + wpe[min(length, eng.model.n_positions - 1)])[None]
+            got = int(_mega_step(mode, eng._mega_packed, eng.model.config, kern,
+                                 length, x)[0])
+            logits = _mega_step(mode, eng._mega_packed, eng.model.config, plain,
+                                length, x, plain=True)[-1]
+            top2 = logits.topk(2).values
+            gap = float(top2[0] - top2[1])
+            gaps.append(gap)
+            if gap >= 1e-4:
+                clear += 1
+                if got != int(logits.argmax()):
+                    raise AssertionError(f"fp32 megakernel {method}: token {got}, "
+                                         f"plain {int(logits.argmax())} (gap {gap})")
+            assert torch.isfinite(logits).all()
+            tok, length = got, length + 1
+        log(f"  fp32 megakernel {method}: kernel token == plain argmax at {clear} of "
+            f"{NEW_TOKENS} teacher-forced steps (the rest have a top-2 gap under "
+            f"1e-4; smallest gap {min(gaps):.2e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -365,6 +625,7 @@ def main() -> int:
         "fused_quant_attention_batched": check_attention(),
         "quantize_int8_rows": check_quantize(8),
         "quantize_int4_rows": check_quantize(4),
+        **check_megasteps(),
     }
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
@@ -378,6 +639,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_fp32_hold()
+    phase_fp32_mega_hold()
     log(f"phase fp32 hold: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
@@ -391,6 +653,12 @@ def main() -> int:
         "quantize_int4_rows": (
             "efficient_llm_inference_tpu_torch/csrc/quantize_rows.cu",
             "efficient_llm_inference_tpu/ops/pallas/quantize.py:60"),
+        "gpt2_megastep": (
+            "efficient_llm_inference_tpu_torch/csrc/gpt2_megastep.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel.py:332"),
+        "gpt2_megastep_quant": (
+            "efficient_llm_inference_tpu_torch/csrc/gpt2_megastep.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_quant.py:244"),
     }
     kernels = []
     for name, (source, replaces) in where.items():

@@ -32,6 +32,12 @@ class Config:
         seed: seed of the generator that initialises random weights.
         batch_size: batch size for inference (the quantized cache takes 1).
         prompt_cap: prompt-length cap of the truncating methods.
+        megakernel: run eligible greedy batch-1 decode (full_cache, and
+            quant_* at per_token granularity) as one chain of hand-written
+            CUDA kernels per step, captured in a CUDA graph
+            (ops/megakernel.py, ops/megakernel_quant.py). None = on for a
+            CUDA device, off on the CPU; False disables; True forces (on the
+            CPU the steps then run the kernels' plain PyTorch versions).
     """
 
     model_name: str = "gpt2"
@@ -40,10 +46,16 @@ class Config:
     seed: int = 42
     batch_size: int = 1
     prompt_cap: int = 1024
+    megakernel: Optional[bool] = None
 
     def __post_init__(self):
         if self.dtype is None:
             self.dtype = default_dtype(self.device)
+
+    def resolved_megakernel(self) -> bool:
+        if self.megakernel is not None:
+            return self.megakernel
+        return torch.device(self.device).type == "cuda"
 
     def generator(self) -> torch.Generator:
         """A CPU generator seeded from `seed` (weights are drawn on the host,

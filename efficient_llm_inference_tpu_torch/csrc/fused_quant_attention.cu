@@ -13,6 +13,11 @@
 // in the high nibble, offset +8), or raw fp in the query's type ("16" bits);
 // the scales are per row (one float per token, or per (head, token)).
 //
+// A slot with no visible row (lengths[b] == 0 and n_extra == 0) follows the
+// JAX kernel: every score is masked to the same value, so the softmax is
+// uniform over all C stored rows and all S extra rows, and the output is
+// their plain average (V scales applied).
+//
 // Bound: bytes. One decode step reads every visible K/V row once and does
 // ~4 operations per byte read, far below the ~300 per byte at which the
 // H100's compute would limit it. So the kernel reads the codes at their
@@ -146,7 +151,7 @@ fused_quant_attention_kernel(
     const float* __restrict__ vs, long long vs_sb, long long vs_sh,
     const T* __restrict__ ke, long long ke_sb, long long ke_sh, long long ke_ss,
     const T* __restrict__ ve, long long ve_sb, long long ve_sh, long long ve_ss,
-    const int* __restrict__ lengths, int n_extra, int Hq, int Hkv, int C,
+    const int* __restrict__ lengths, int n_extra, int S, int Hq, int Hkv, int C,
     float sm_scale, T* __restrict__ out) {
   constexpr int DPL = D / 32;
   constexpr int KW = KB == 4 ? D / 2 : D;  // elements per stored K row
@@ -170,7 +175,13 @@ fused_quant_attention_kernel(
   const char* v_stripe = static_cast<const char*>(vq) + head * C * VW * VSZ;
   const float* ksr = ks + b * ks_sb + hk * ks_sh;
   const float* vsr = vs + b * vs_sb + hk * vs_sh;
-  const int len = min(max(lengths[b], 0), C);
+  int len = min(max(lengths[b], 0), C);
+  int n_ex = n_extra;
+  if (len == 0 && n_ex == 0) {  // no visible row: uniform weights, as JAX
+    len = C;
+    n_ex = S;
+    sm_scale = 0.0f;
+  }
 
   fold_region<DPL>(
       st, qr, len, warp, sm_scale,
@@ -182,7 +193,7 @@ fused_quant_attention_kernel(
   const T* ker = ke + b * ke_sb + hk * ke_sh;
   const T* ver = ve + b * ve_sb + hk * ve_sh;
   fold_region<DPL>(
-      st, qr, n_extra, warp, sm_scale,
+      st, qr, n_ex, warp, sm_scale,
       [&](int r, float (&o)[DPL]) { load_row<16, T, D>(ker + r * ke_ss, 0, lane, o); },
       [&](int r, float (&o)[DPL]) { load_row<16, T, D>(ver + r * ve_ss, 0, lane, o); },
       [](int) { return 1.0f; }, [](int) { return 1.0f; });
@@ -211,7 +222,7 @@ fused_quant_attention_kernel(
         o = fmaf(sm_acc[w][d], f, o);
       }
     }
-    // A row with no visible position has no softmax; it is written as zeros.
+    // L > 0 always: a slot with no visible row was given uniform weights.
     store(out + ((long long)b * Hq + hq) * D + d, L > 0.0f ? o / L : 0.0f);
   }
 }
@@ -223,7 +234,7 @@ struct Args {
   const float* vs; long long vs_sb, vs_sh;
   const void* ke; long long ke_sb, ke_sh, ke_ss;
   const void* ve; long long ve_sb, ve_sh, ve_ss;
-  const int* lengths; int n_extra, B, Hq, Hkv, C; float sm_scale; void* out;
+  const int* lengths; int n_extra, S, B, Hq, Hkv, C; float sm_scale; void* out;
 };
 
 template <typename T, int KB, int VB, int D>
@@ -232,7 +243,7 @@ int launch(const Args& a, cudaStream_t stream) {
   fused_quant_attention_kernel<T, KB, VB, D><<<grid, 32 * kWarps, 0, stream>>>(
       static_cast<const T*>(a.q), a.q_sb, a.q_sh, a.kq, a.vq, a.ks, a.ks_sb, a.ks_sh,
       a.vs, a.vs_sb, a.vs_sh, static_cast<const T*>(a.ke), a.ke_sb, a.ke_sh, a.ke_ss,
-      static_cast<const T*>(a.ve), a.ve_sb, a.ve_sh, a.ve_ss, a.lengths, a.n_extra,
+      static_cast<const T*>(a.ve), a.ve_sb, a.ve_sh, a.ve_ss, a.lengths, a.n_extra, a.S,
       a.Hq, a.Hkv, a.C, a.sm_scale, static_cast<T*>(a.out));
   return (int)cudaGetLastError();
 }
@@ -264,11 +275,11 @@ extern "C" int elit_fused_quant_attention(
     const float* vs, long long vs_sb, long long vs_sh,
     const void* ke, long long ke_sb, long long ke_sh, long long ke_ss,
     const void* ve, long long ve_sb, long long ve_sh, long long ve_ss,
-    const int* lengths, int n_extra, float sm_scale, void* out, void* stream) {
+    const int* lengths, int n_extra, int S, float sm_scale, void* out, void* stream) {
   if (B == 0 || Hq == 0) return (int)cudaGetLastError();
   const Args a{q, q_sb, q_sh, kq, vq, ks, ks_sb, ks_sh, vs, vs_sb, vs_sh,
                ke, ke_sb, ke_sh, ke_ss, ve, ve_sb, ve_sh, ve_ss,
-               lengths, n_extra, B, Hq, Hkv, C, sm_scale, out};
+               lengths, n_extra, S, B, Hq, Hkv, C, sm_scale, out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return dispatch_d<float>(D, k_bits, v_bits, a, st);
   if (q_dtype == 1) return dispatch_d<__nv_bfloat16>(D, k_bits, v_bits, a, st);

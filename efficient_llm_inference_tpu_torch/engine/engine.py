@@ -4,7 +4,10 @@ engine.py, the full_cache and quant_* methods).
 `InferenceEngine` owns a GPT-2 model as a dict of tensors and exposes the
 JAX package's generation API and `benchmark_method` metric-dict schema.
 Generation runs prefill over the bucket-padded prompt, then a greedy decode
-loop over a static-capacity cache.
+loop over a static-capacity cache. Eligible greedy batch-1 decode (full_cache,
+and quant_* at per_token granularity) runs the whole-step megakernel when
+`Config.resolved_megakernel()` is on (the default on a CUDA device), as the
+JAX engine does on a TPU (`_mega_spec`, `_mega_quant_spec`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from ..core.utils import (
 from ..data.tokenizer import ByteTokenizer, load_tokenizer
 from ..models import gpt2 as gpt2_mod
 from ..models.registry import ModelSpec, spec_by_name
+from ..ops.megakernel import mega_supported, pack_gpt2_mega
+from ..ops.megakernel_quant import mega_quant_supported
 from .generate import SamplingParams, bucket_for, make_generate
 
 VALID_METHODS = [
@@ -74,6 +79,7 @@ class InferenceEngine:
         self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
         self.config = config or Config()
         self._fns: Dict = {}
+        self._mega_packed: Optional[dict] = None
 
     @classmethod
     def from_model_name(cls, name: str = "gpt2", tokenizer=None,
@@ -104,26 +110,86 @@ class InferenceEngine:
         )
 
     def _build(self, method: str, bucket: int, max_new: int, kw: dict,
-               sampling: Optional[SamplingParams] = None):
-        """Build (and cache) the generate function of one configuration."""
+               sampling: Optional[SamplingParams] = None,
+               allow_mega: bool = True):
+        """Build (and cache) the generate function of one configuration.
+        `allow_mega=False` keeps the megakernel-off path (teacher forcing
+        needs the logits the megakernel does not return)."""
         _check_method(method)
         if sampling is not None and not sampling.greedy:
             raise NotImplementedError(
                 "sampled decoding is not ported yet (ROADMAP.md Queue 1 "
                 "item 5); pass sampling=None for greedy")
-        key = (method, bucket, max_new, tuple(sorted(kw.items())))
+        key = (method, bucket, max_new, tuple(sorted(kw.items())), allow_mega)
         if key in self._fns:
             return self._fns[key]
         cap = bucket + max_new
+        mega = None
         if method == "full_cache":
+            if allow_mega:
+                mega = self._mega_spec(cap, sampling)
+            if mega is not None:
+                cap = mega["capacity"]  # rounded up to a multiple of 8
             strategy = DenseKV(**self._dense_kw(cap))
         else:
+            kv_mode = method.replace("quant_", "")
+            if allow_mega:
+                mega = self._mega_quant_spec(cap, sampling, kv_mode, kw)
+            if mega is not None:
+                cap = mega["capacity"]
             strategy = QuantizedKV(
-                **self._dense_kw(cap), mode=method.replace("quant_", ""),
+                **self._dense_kw(cap), mode=kv_mode,
                 granularity=kw.get("granularity", "per_token"))
-        built = (make_generate(self.model, strategy, max_new), strategy)
+            if mega is not None:
+                mega["eps"] = strategy.eps
+        built = (make_generate(self.model, strategy, max_new, mega=mega),
+                 strategy)
         self._fns[key] = built
         return built
+
+    def _mega_eligible(self, sampling: Optional[SamplingParams]) -> bool:
+        return (self.config.resolved_megakernel()
+                and self.config.batch_size == 1
+                and (sampling is None or sampling.greedy)
+                and self.model.name == "gpt2")
+
+    def _packed(self) -> Optional[dict]:
+        if self._mega_packed is None:
+            self._mega_packed = pack_gpt2_mega(self.params, self.model.config)
+        return self._mega_packed
+
+    def _mega_spec(self, cap: int, sampling: Optional[SamplingParams]
+                   ) -> Optional[dict]:
+        """Whole-step megakernel eligibility for full_cache decode (greedy,
+        batch 1, GPT-2, weights packable; ops/megakernel.py)."""
+        if not self._mega_eligible(sampling):
+            return None
+        cap8 = -(-cap // 8) * 8  # capacity % 8 == 0, as the JAX engine
+        if not mega_supported(self.model.config, cap8, self.params):
+            return None
+        packed = self._packed()
+        if packed is None:
+            return None
+        return {"packed": packed, "cfg": self.model.config, "capacity": cap8}
+
+    def _mega_quant_spec(self, cap: int, sampling: Optional[SamplingParams],
+                         kv_mode: str, kw: dict) -> Optional[dict]:
+        """Quantized-KV megakernel eligibility for quant_int8/int4/mixed
+        decode (greedy, batch 1, GPT-2, per_token scales;
+        ops/megakernel_quant.py). per_head keeps the megakernel-off path."""
+        if not self._mega_eligible(sampling):
+            return None
+        if kw.get("granularity", "per_token") != "per_token":
+            return None
+        cap8 = -(-cap // 8) * 8
+        if not mega_quant_supported(self.model.config, cap8, self.params,
+                                    kv_mode):
+            return None
+        packed = self._packed()
+        if packed is None:
+            return None
+        return {"packed": packed, "cfg": self.model.config, "capacity": cap8,
+                "kv_mode": kv_mode}
 
     def _encode(self, prompt: str, method: str) -> List[int]:
         ids = self.tokenizer.encode(prompt)
@@ -135,14 +201,14 @@ class InferenceEngine:
         return list(ids[:cap])
 
     def _generate(self, prompt: str, method: str, max_new_tokens: int,
-                  sampling=None, forced=None, **kw):
+                  sampling=None, forced=None, allow_mega: bool = True, **kw):
         ids = self._encode(prompt, method)
         true_len = len(ids)
         if true_len == 0:
             raise ValueError("empty prompt")
         bucket = min(bucket_for(true_len), self.model.n_positions)
         generate, strategy = self._build(method, bucket, max_new_tokens, kw,
-                                         sampling)
+                                         sampling, allow_mega)
         buf = torch.zeros((self.config.batch_size, bucket), dtype=torch.long)
         buf[0, :true_len] = torch.tensor(ids, dtype=torch.long)
         if forced is not None:
@@ -186,7 +252,8 @@ class InferenceEngine:
                         forced: Optional[List[int]] = None, **kw
                         ) -> Tuple[List[int], torch.Tensor]:
         """(new token ids, fp32 logits [N, V] that chose them). With `forced`
-        the N tokens are fed instead of the argmax (teacher forcing)."""
+        the N tokens are fed instead of the argmax (teacher forcing). Always
+        the megakernel-off path: the megakernel returns tokens, not logits."""
         forced_t = None
         if forced is not None:
             if len(forced) != max_new_tokens:
@@ -194,7 +261,8 @@ class InferenceEngine:
                                  f"max_new_tokens={max_new_tokens}")
             forced_t = torch.tensor([list(forced)], dtype=torch.long)
         _, toks, _, step_logits, _ = self._generate(
-            prompt, method, max_new_tokens, forced=forced_t, **kw)
+            prompt, method, max_new_tokens, forced=forced_t, allow_mega=False,
+            **kw)
         return toks[0].tolist(), torch.cat(step_logits, dim=0)
 
     # ------------------------------------------------------------------
@@ -211,7 +279,8 @@ class InferenceEngine:
     def estimate_kv_bytes(self, method: str, length: int, **kw) -> float:
         """Estimated KV-cache bytes `method` holds at sequence `length`
         (quantized methods count packed codes plus scales)."""
-        _, strategy = self._build(method, 1, max(length - 1, 1), dict(kw))
+        _, strategy = self._build(method, 1, max(length - 1, 1), dict(kw),
+                                  allow_mega=False)
         return float(strategy.est_bytes(length))
 
     # ------------------------------------------------------------------

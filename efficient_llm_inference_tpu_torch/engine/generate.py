@@ -1,12 +1,24 @@
 """Prefill and greedy decode loops (PyTorch port of
-efficient_llm_inference_tpu/engine/generate.py, without the megakernel).
+efficient_llm_inference_tpu/engine/generate.py).
 
-The decode loop is a Python loop over steps. Tokens stay on the device
-between steps (argmax feeds the next embedding lookup), so a generation
-synchronises with the host only when its caller reads the tokens.
+Two decode loops, as in the JAX package:
 
-Positional quirk kept for parity: the new token's position is the current
-cache length.
+* the model's forward pass step by step (`make_decode`), a Python loop
+  whose tokens stay on the device between steps (argmax feeds the next
+  embedding lookup);
+* the whole-step megakernel (`make_generate(..., mega=...)`, JAX
+  `_mega_decode_body` / `_mega_quant_decode_body`): after the prefill the
+  cache converts once to the kernels' [L, C, E] panes, and each step is one
+  launch of ops/megakernel.py's kernel chain that embeds the token at
+  position min(length, n_positions - 1), runs the step, clamps the token to
+  [0, V-1] and increments `length`, all on the device. On a card the N steps
+  are captured once per built configuration as a CUDA graph and replayed
+  per generation (the port's counterpart of the JAX `jax.lax.scan` under
+  `jax.jit`); on the CPU the steps run the plain versions in a loop.
+
+Either way a generation synchronises with the host only when its caller
+reads the tokens. Positional quirk kept for parity: the new token's
+position is the current cache length.
 """
 
 from __future__ import annotations
@@ -17,6 +29,18 @@ from typing import List, Optional
 import torch
 
 from ..models.registry import ModelSpec
+from ..ops.megakernel import (
+    MegaDecodeGraph,
+    gpt2_megastep,
+    gpt2_megastep_plain,
+    to_mega_layout,
+)
+from ..ops.megakernel_quant import (
+    _kv_kinds,
+    gpt2_megastep_quant,
+    gpt2_megastep_quant_plain,
+    to_mega_quant_layout,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +106,30 @@ def make_decode(model: ModelSpec, strategy, max_new_tokens: int):
     return decode
 
 
-def make_generate(model: ModelSpec, strategy, max_new_tokens: int):
+def make_generate(model: ModelSpec, strategy, max_new_tokens: int,
+                  mega: Optional[dict] = None):
     """generate(params, tokens, true_len, forced=None)
-    -> (tokens [B, N], final cache length, step_logits)."""
+    -> (tokens [B, N], final cache length, step_logits).
+
+    With `mega` (engine._mega_spec / _mega_quant_spec: "packed" weights,
+    "cfg", "capacity", and "kv_mode" + "eps" for quantized panes) the decode
+    runs the whole-step megakernel, which returns no logits: step_logits is
+    empty and teacher forcing (`forced`) is refused.
+    """
     prefill = make_prefill(model, strategy)
+    if mega is not None:
+        decode = _mega_decode(model, max_new_tokens, mega)
+
+        def generate(params, tokens, true_len: int, forced=None):
+            if forced is not None:
+                raise ValueError("the megakernel decode takes no forced "
+                                 "tokens; use the megakernel-off path")
+            cache, last = prefill(params, tokens, true_len)
+            toks = decode(params, cache, last)
+            return toks[None, :], cache["length"] + max_new_tokens, []
+
+        return generate
+
     decode = make_decode(model, strategy, max_new_tokens)
 
     def generate(params, tokens, true_len: int, forced=None):
@@ -94,6 +138,68 @@ def make_generate(model: ModelSpec, strategy, max_new_tokens: int):
         return toks, cache["length"], step_logits
 
     return generate
+
+
+def _mega_panes(cache: dict, kv_mode: Optional[str]) -> dict:
+    """The prefill's cache in the kernels' layout: K/V panes converted, the
+    per-token scale tables ([L, C]) as they are."""
+    if not kv_mode:
+        return {"k": to_mega_layout(cache["k"]), "v": to_mega_layout(cache["v"])}
+    k_kind, v_kind = _kv_kinds(kv_mode)
+    return {
+        "k": to_mega_quant_layout(cache["k"], k_kind),
+        "v": to_mega_quant_layout(cache["v"], v_kind),
+        "ks": cache["k_scale"],
+        "vs": cache["v_scale"],
+    }
+
+
+def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
+    """decode(params, cache, last_logits) -> tokens [N] over megakernel
+    steps (greedy, batch 1). The tokens emitted are the prefill's argmax and
+    the N - 1 that follow, as the JAX scan emits them; N steps run, so the
+    cache ends at length + N."""
+    cfg, packed = mega["cfg"], mega["packed"]
+    kv_mode = mega.get("kv_mode")
+    eps = mega.get("eps", 1e-8)
+    V = model.vocab_size
+    graph = None  # the captured loop (the configuration's device is fixed)
+
+    def step_plain(panes, length, x):
+        if kv_mode:
+            return gpt2_megastep_quant_plain(
+                packed, panes["k"], panes["v"], panes["ks"], panes["vs"],
+                length, x, cfg=cfg, kv_mode=kv_mode, eps=eps)[0]
+        return gpt2_megastep_plain(packed, panes["k"], panes["v"], length, x,
+                                   cfg=cfg)[0]
+
+    def decode(params, cache, last_logits):
+        nonlocal graph
+        tok0 = torch.argmax(last_logits[0]).clamp(0, V - 1).to(torch.int32)
+        length = cache["length"]
+        panes = _mega_panes(cache, kv_mode)
+        if tok0.device.type == "cuda":
+            if graph is None:
+                k_kind, v_kind = _kv_kinds(kv_mode) if kv_mode else ("fp", "fp")
+                static = {n: torch.empty_like(t) for n, t in panes.items()}
+                graph = MegaDecodeGraph(
+                    packed, cfg, max_new_tokens, static,
+                    gpt2_megastep_quant if kv_mode else gpt2_megastep,
+                    k_kind=k_kind, v_kind=v_kind, quant_eps=eps)
+            for name, t in panes.items():
+                graph.panes[name].copy_(t)
+            return graph.run(tok0, length).clone()
+        wte, wpe = params["wte"], params["wpe"]
+        toks, tok = [], tok0
+        for _ in range(max_new_tokens):
+            toks.append(tok)
+            pos = min(length, model.n_positions - 1)
+            x = (wte[tok.long()] + wpe[pos])[None].to(wte.dtype)
+            tok = step_plain(panes, length, x).clamp(0, V - 1)
+            length += 1
+        return torch.stack(toks)
+
+    return decode
 
 
 def bucket_for(

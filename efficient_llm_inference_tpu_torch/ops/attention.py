@@ -37,7 +37,7 @@ def _kernel():
             p, ll, ll,  # v scales
             p, ll, ll, ll,  # k extra, strides b, h, s
             p, ll, ll, ll,  # v extra
-            p, i, ctypes.c_float, p, p,  # lengths, n_extra, sm_scale, out, stream
+            p, i, i, ctypes.c_float, p, p,  # lengths, n_extra, S, sm_scale, out, stream
         ]
         _lib = lib
     return _lib
@@ -106,7 +106,9 @@ def fused_quant_attention_batched(
     k_bits/v_bits: 8 = int8 codes with per-row scales, 4 = packed int4 codes
     with per-row scales, 16 = raw fp rows in q's dtype (both or neither).
     The quantized rows are read at their compressed size; no dequantized
-    copy is made.
+    copy is made. A slot with no visible row (lengths[b] == 0 and
+    n_extra == 0) gets the JAX kernel's result: the uniform average of all
+    C stored rows and all S extra rows.
     """
     if q.device.type == "cpu":
         return fused_quant_attention_batched_plain(
@@ -162,7 +164,8 @@ def fused_quant_attention_batched(
         v_scale.data_ptr(), v_scale.stride(0), v_scale.stride(1),
         k_extra.data_ptr(), k_extra.stride(0), k_extra.stride(1), k_extra.stride(2),
         v_extra.data_ptr(), v_extra.stride(0), v_extra.stride(1), v_extra.stride(2),
-        lengths.data_ptr(), n_extra, 1.0 / math.sqrt(D), out.data_ptr(), stream)
+        lengths.data_ptr(), n_extra, k_extra.shape[2], 1.0 / math.sqrt(D),
+        out.data_ptr(), stream)
     _build.check(lib, rc, "fused_quant_attention_batched")
     fused_quant_attention_batched.launches += 1
     return out

@@ -1,0 +1,449 @@
+"""Whole-step GPT-2 decode: one chain of CUDA kernels per batch-1 step.
+
+Port of efficient_llm_inference_tpu/ops/pallas/megakernel.py
+(gpt2_megastep, to_mega_layout, mega_supported, pack_gpt2_mega). The TPU
+program streams every weight through a VMEM ring; on the H100 the step is a
+fixed chain of hand-written kernels from `csrc/gpt2_megastep.cu`, launched by
+one host call (`gpt2_megastep`) and, in the engine's decode loop, captured
+once into a CUDA graph (`MegaDecodeGraph`) that replays all N steps of a
+generation. The quantized-KV variant (ops/megakernel_quant.py) shares this
+module's packing, launcher and graph.
+
+Layouts:
+
+* KV panes are [L, C, E] (`to_mega_layout` converts the prefill's
+  [L, 1, H, C, D] buffer once per generation), so a cache row of one layer is
+  one contiguous E-vector.
+* `pack_gpt2_mega` stores every weight as [out, in] row-major (the transpose
+  of the HF Conv1D [in, out] layout), so one warp reads one output's whole
+  input row with 16-byte loads; the LM head is `wte` itself ([V, E] is
+  already [out, in]). Per-layer biases and layer-norm parameters are the JAX
+  package's fp32 `smalls` [L, 13, E] (rows: 0 ln1_g, 1 ln1_b, 2 ln2_g,
+  3 ln2_b, 4-6 attn_b, 7 proj_b, 8-11 fc_b, 12 fc_proj_b) and `lnf` [2, E].
+
+Numerics follow the JAX kernel's rounding points: layer-norm statistics in
+fp32; the LN output, q, k, v, the attention output, the GELU output and each
+residual add in the model dtype; matmuls accumulate in fp32 with the bias
+added in fp32 before the cast; fp32 softmax with the current token merged
+into the same softmax as the cached rows t < length; greedy argmax over the
+fp32 logits, first maximum wins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+GELU_C = 0.7978845608028654
+WEIGHT_NAMES = ("attn_w", "attn_proj_w", "fc_w", "fc_proj_w")
+# Kernel limits beyond the JAX package's eligibility: the attention kernel's
+# head templates, and the scores of one head (32 KB) in shared memory.
+HEAD_DIMS = (64, 128)
+MAX_CAPACITY = 8192
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# KV storage kinds as the kernels name them: 0 = the model dtype, 8 = int8
+# codes, 4 = int4 codes packed in half-split pairs.
+KIND_CODE = {"fp": 0, "int8": 8, "int4": 4}
+_THREADS_WARPS = 8  # warps per block of the GEMV kernels
+_LM_MAX_BLOCKS = 1056  # 132 SMs x 8 resident blocks
+
+
+def to_mega_layout(buf: torch.Tensor) -> torch.Tensor:
+    """[L, 1, H, C, D] cache pane -> [L, C, E] kernel layout (a copy)."""
+    L, B, H, C, D = buf.shape
+    if B != 1:
+        raise ValueError("the megakernel is single-stream (batch 1)")
+    return buf[:, 0].permute(0, 2, 1, 3).reshape(L, C, H * D)
+
+
+def _full_precision_dtype(params: dict) -> Optional[torch.dtype]:
+    """The weights' dtype when every block weight is one full-precision
+    tensor type the kernels take, else None (the JAX package's "f" weight
+    mode; the port has no quantized weights yet)."""
+    b = params.get("blocks", {})
+    dts = set()
+    for n in WEIGHT_NAMES:
+        w = b.get(n)
+        if not isinstance(w, torch.Tensor):
+            return None
+        dts.add(w.dtype)
+    wte = params.get("wte")
+    if not isinstance(wte, torch.Tensor):
+        return None
+    dts.add(wte.dtype)
+    if len(dts) != 1:
+        return None
+    dt = dts.pop()
+    return dt if dt in _DTYPE_CODE else None
+
+
+def mega_supported(cfg, capacity: int, params: dict) -> bool:
+    """Can the megakernel run this geometry? The JAX package's eligibility
+    (uniform full-precision weights, E % 128 == 0, capacity % 8 == 0) plus
+    the kernels' own limits: head_dim 64 or 128 and capacity <= 8192. The
+    JAX package's VMEM budget is a TPU limit and is not carried over."""
+    return _full_precision_dtype(params) is not None and _geometry_ok(cfg, capacity)
+
+
+def _geometry_ok(cfg, capacity: int) -> bool:
+    return (cfg.n_embd % 128 == 0 and capacity % 8 == 0
+            and cfg.head_dim in HEAD_DIMS and 0 < capacity <= MAX_CAPACITY)
+
+
+def pack_gpt2_mega(params: dict, cfg) -> Optional[dict]:
+    """Re-layout GPT-2 params for the kernels (once per engine); None when
+    the params are not packable (see `mega_supported`)."""
+    if _full_precision_dtype(params) is None or cfg.n_embd % 128 != 0:
+        return None
+    E, L = cfg.n_embd, cfg.n_layer
+    b = params["blocks"]
+
+    def t(name):  # [L, in, out] -> [L, out, in] row-major
+        return b[name].transpose(1, 2).contiguous()
+
+    def rows(x, n):
+        return x.float().reshape(L, n, E)
+
+    smalls = torch.cat([
+        rows(b["ln1_g"], 1), rows(b["ln1_b"], 1),
+        rows(b["ln2_g"], 1), rows(b["ln2_b"], 1),
+        rows(b["attn_b"], 3), rows(b["attn_proj_b"], 1),
+        rows(b["fc_b"], 4), rows(b["fc_proj_b"], 1),
+    ], dim=1).contiguous()
+    lnf = torch.stack([params["lnf_g"].float(), params["lnf_b"].float()])
+    return {
+        "attn_w": t("attn_w"),  # [L, 3E, E]
+        "proj_w": t("attn_proj_w"),  # [L, E, E]
+        "fc_w": t("fc_w"),  # [L, 4E, E]
+        "fcp_w": t("fc_proj_w"),  # [L, E, 4E]
+        "wte": params["wte"].contiguous(),  # [V, E]: the LM head too
+        "wpe": params["wpe"].contiguous(),
+        "smalls": smalls,
+        "lnf": lnf.contiguous(),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the step (any device; the CPU tests' reference and
+# the card's yardstick).
+
+
+def _ln(x32, g, b, eps):
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps) * g + b
+
+
+def _mv(h, w):
+    """h [K] (model dtype) @ w[N, K]^T -> fp32 [N], accumulated in fp32."""
+    return torch.mv(w.float(), h.float())
+
+
+def plain_step(packed: dict, cfg, x_emb: torch.Tensor, attend):
+    """The layer chain of one decode step, shared by both plain versions.
+
+    `attend(layer, q, k, v)` gets the current token's q/k/v in the model
+    dtype ([E] each) and returns the attention output [E] in fp32. Returns
+    (logits fp32 [V], new K rows [L, E], new V rows [L, E]) in the model
+    dtype; the caller writes the rows to row `length` (after the last layer,
+    as the JAX kernel does).
+    """
+    E, L = cfg.n_embd, cfg.n_layer
+    eps = cfg.layer_norm_epsilon
+    dt = x_emb.dtype
+    x = x_emb.reshape(E)
+    new_k, new_v = [], []
+    for layer in range(L):
+        sm = packed["smalls"][layer]
+        h = _ln(x.float(), sm[0], sm[1], eps).to(dt)
+        qkv = (_mv(h, packed["attn_w"][layer]) + sm[4:7].reshape(-1)).to(dt)
+        q, k, v = qkv.split(E)
+        a = attend(layer, q, k, v).to(dt)
+        x = x + (_mv(a, packed["proj_w"][layer]) + sm[7]).to(dt)
+        h2 = _ln(x.float(), sm[2], sm[3], eps).to(dt)
+        m = _mv(h2, packed["fc_w"][layer]) + sm[8:12].reshape(-1)
+        g = (0.5 * m * (1.0 + torch.tanh(GELU_C * (m + 0.044715 * m ** 3)))).to(dt)
+        x = x + (sm[12] + _mv(g, packed["fcp_w"][layer])).to(dt)
+        new_k.append(k)
+        new_v.append(v)
+    xf = _ln(x.float(), packed["lnf"][0], packed["lnf"][1], eps).to(dt)
+    logits = _mv(xf, packed["wte"])
+    return logits, torch.stack(new_k), torch.stack(new_v)
+
+
+def gpt2_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
+                        length, x_emb: torch.Tensor, *, cfg,
+                        return_logits: bool = False):
+    """Plain PyTorch version of `gpt2_megastep`, the same function on any
+    device: returns (token int32 [], k, v), with row `length` of every
+    layer of k/v written in place; with `return_logits`, the fp32 logits
+    [V] that chose the token come fourth."""
+    E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
+    C = k.shape[1]
+    cur = int(length)
+    scale = 1.0 / math.sqrt(D)
+    visible = torch.arange(C, device=k.device) < cur
+
+    def attend(layer, q, kc, vc):
+        qf = q.float().reshape(H, D)
+        kh = k[layer].float().reshape(C, H, D)
+        scores = torch.einsum("chd,hd->hc", kh, qf) * scale
+        scores = torch.where(visible, scores, NEG_INF)
+        s_cur = (kc.float().reshape(H, D) * qf).sum(-1, keepdim=True) * scale
+        mx = torch.maximum(scores.amax(-1, keepdim=True), s_cur)
+        p = torch.exp(scores - mx)
+        p_cur = torch.exp(s_cur - mx)
+        denom = p.sum(-1, keepdim=True) + p_cur
+        ao = torch.einsum("hc,chd->hd", p, v[layer].float().reshape(C, H, D))
+        ao = ao + p_cur * vc.float().reshape(H, D)
+        return (ao / denom).reshape(E)
+
+    logits, new_k, new_v = plain_step(packed, cfg, x_emb, attend)
+    if cur < C:
+        k[:, cur] = new_k.to(k.dtype)
+        v[:, cur] = new_v.to(v.dtype)
+    tok = torch.argmax(logits).to(torch.int32)
+    return (tok, k, v, logits) if return_logits else (tok, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The kernels: arguments, launcher, CUDA graph of a decode loop.
+
+
+class MegaArgs(ctypes.Structure):
+    """Mirror of `struct MegaArgs` in csrc/gpt2_megastep.cu (same order)."""
+
+    _fields_ = [
+        ("dtype", ctypes.c_int),
+        ("n_layer", ctypes.c_int),
+        ("n_embd", ctypes.c_int),
+        ("n_head", ctypes.c_int),
+        ("vocab", ctypes.c_int),
+        ("n_pos", ctypes.c_int),
+        ("capacity", ctypes.c_int),
+        ("k_kind", ctypes.c_int),
+        ("v_kind", ctypes.c_int),
+        ("advance", ctypes.c_int),
+        ("lm_blocks", ctypes.c_int),
+        ("ln_eps", ctypes.c_float),
+        ("quant_eps", ctypes.c_float),
+        ("attn_w", ctypes.c_void_p),
+        ("proj_w", ctypes.c_void_p),
+        ("fc_w", ctypes.c_void_p),
+        ("fcp_w", ctypes.c_void_p),
+        ("wte", ctypes.c_void_p),
+        ("wpe", ctypes.c_void_p),
+        ("smalls", ctypes.c_void_p),
+        ("lnf", ctypes.c_void_p),
+        ("k", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("ks", ctypes.c_void_p),
+        ("vs", ctypes.c_void_p),
+        ("length", ctypes.c_void_p),
+        ("tok_in", ctypes.c_void_p),
+        ("x_emb", ctypes.c_void_p),
+        ("tok_out", ctypes.c_void_p),
+        ("x", ctypes.c_void_p),
+        ("qkv", ctypes.c_void_p),
+        ("attn", ctypes.c_void_p),
+        ("ffn", ctypes.c_void_p),
+        ("lm_val", ctypes.c_void_p),
+        ("lm_idx", ctypes.c_void_p),
+    ]
+
+
+_lib = None
+
+
+def kernels() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("gpt2_megastep")
+        for fn in (lib.elit_gpt2_megastep, lib.elit_gpt2_megastep_quant):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(MegaArgs), ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+class Workspace:
+    """Scratch of one step, preallocated so a captured step allocates
+    nothing: the residual stream, q|k|v, the attention and MLP activations
+    (model dtype) and the LM head's per-block (max, argmax) partials, one
+    per block of the LM-head kernel."""
+
+    def __init__(self, cfg, dtype: torch.dtype, device):
+        E = cfg.n_embd
+        self.n_lm = min(-(-cfg.vocab_size // _THREADS_WARPS), _LM_MAX_BLOCKS)
+        self.x = torch.empty(E, dtype=dtype, device=device)
+        self.qkv = torch.empty(3 * E, dtype=dtype, device=device)
+        self.attn = torch.empty(E, dtype=dtype, device=device)
+        self.ffn = torch.empty(4 * E, dtype=dtype, device=device)
+        self.lm_val = torch.empty(self.n_lm, dtype=torch.float32, device=device)
+        self.lm_idx = torch.empty(self.n_lm, dtype=torch.int32, device=device)
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+class StepLauncher:
+    """The prepared arguments of one configuration's step; `launch()` issues
+    the chain on the current stream and allocates nothing, so it can be
+    captured. `tok_in`/`tok_out`/`length` are device int32 tensors: the
+    step reads the current token (or `x_emb`) and `length` on the device."""
+
+    def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
+                 x_emb=None, tok_in=None, ks=None, vs=None,
+                 k_kind: str = "fp", v_kind: str = "fp",
+                 quant_eps: float = 1e-8, advance: bool = False):
+        E, L, C = cfg.n_embd, cfg.n_layer, k.shape[1]
+        dtype = packed["wte"].dtype
+        dev = k.device
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        if dtype not in _DTYPE_CODE or not _geometry_ok(cfg, C):
+            raise NotImplementedError(
+                f"megakernel: E={E}, head_dim={cfg.head_dim}, capacity={C}")
+        if (x_emb is None) == (tok_in is None):
+            raise ValueError("give exactly one of x_emb and tok_in")
+        V, P = cfg.vocab_size, cfg.n_positions
+        wants = {
+            "attn_w": (L, 3 * E, E), "proj_w": (L, E, E), "fc_w": (L, 4 * E, E),
+            "fcp_w": (L, E, 4 * E), "wte": (V, E), "wpe": (P, E),
+        }
+        for name, shape in wants.items():
+            _check(name, packed[name], dtype, shape, dev)
+        _check("smalls", packed["smalls"], torch.float32, (L, 13, E), dev)
+        _check("lnf", packed["lnf"], torch.float32, (2, E), dev)
+        store = {"fp": (dtype, E), "int8": (torch.int8, E), "int4": (torch.int8, E // 2)}
+        for name, pane, kind in (("k", k, k_kind), ("v", v, v_kind)):
+            dt, width = store[kind]
+            _check(name, pane, dt, (L, C, width), dev)
+        if k_kind != "fp" or v_kind != "fp":
+            if k_kind == "fp" or v_kind == "fp":
+                raise ValueError("quantized K and V panes go together")
+            if "int4" in (k_kind, v_kind) and (E // 2) % cfg.head_dim:
+                raise NotImplementedError("int4 panes need whole heads per half")
+            _check("ks", ks, torch.float32, (L, C), dev)
+            _check("vs", vs, torch.float32, (L, C), dev)
+        _check("length", length, torch.int32, (1,), dev)
+        _check("tok_out", tok_out, torch.int32, (1,), dev)
+        if x_emb is not None:
+            _check("x_emb", x_emb.reshape(E), dtype, (E,), dev)
+        else:
+            _check("tok_in", tok_in, torch.int32, (1,), dev)
+        ws = Workspace(cfg, dtype, dev)
+        # keep every tensor the struct points at alive with the launcher
+        self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
+        self.quant = k_kind != "fp"
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        self.args = MegaArgs(
+            _DTYPE_CODE[dtype], L, E, cfg.n_head, V, P, C,
+            KIND_CODE[k_kind], KIND_CODE[v_kind], int(advance), ws.n_lm,
+            cfg.layer_norm_epsilon, quant_eps,
+            ptr(packed["attn_w"]), ptr(packed["proj_w"]), ptr(packed["fc_w"]),
+            ptr(packed["fcp_w"]), ptr(packed["wte"]), ptr(packed["wpe"]),
+            ptr(packed["smalls"]), ptr(packed["lnf"]),
+            ptr(k), ptr(v), ptr(ks), ptr(vs), ptr(length), ptr(tok_in),
+            ptr(x_emb), ptr(tok_out),
+            ptr(ws.x), ptr(ws.qkv), ptr(ws.attn), ptr(ws.ffn),
+            ptr(ws.lm_val), ptr(ws.lm_idx))
+        self.device = dev
+
+    def set_tokens(self, tok_in: torch.Tensor, tok_out: torch.Tensor) -> None:
+        """Point the step at other token slots (views of one int32 buffer
+        that the launcher's owner keeps alive)."""
+        self.args.tok_in = tok_in.data_ptr()
+        self.args.tok_out = tok_out.data_ptr()
+
+    def launch(self) -> None:
+        lib = kernels()
+        fn = lib.elit_gpt2_megastep_quant if self.quant else lib.elit_gpt2_megastep
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = fn(ctypes.byref(self.args), stream)
+        _build.check(lib, rc, fn.__name__)
+
+
+def _length_tensor(length, device) -> torch.Tensor:
+    if isinstance(length, torch.Tensor):
+        return length.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(length)], dtype=torch.int32, device=device)
+
+
+def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
+                  x_emb: torch.Tensor, *, cfg):
+    """One whole decode step (greedy, batch 1). Returns (token int32 [],
+    k, v).
+
+    packed: `pack_gpt2_mega(params, cfg)`; k, v: [L, C, E] panes in the
+    model dtype, written in place at row `length` of every layer (the JAX
+    kernel aliases them the same way) and returned; length: tokens already
+    cached (int or int32 tensor); x_emb: [1, E] token + position embedding
+    in the model dtype. On a CUDA tensor it launches the kernel chain of
+    `csrc/gpt2_megastep.cu` and counts one launch in
+    `gpt2_megastep.launches`; on a CPU tensor it runs
+    `gpt2_megastep_plain`. The capacity is the panes' row count (the JAX
+    kernel's static `capacity`).
+    """
+    if k.device.type == "cpu":
+        return gpt2_megastep_plain(packed, k, v, length, x_emb, cfg=cfg)
+    tok = torch.empty(1, dtype=torch.int32, device=k.device)
+    StepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
+                 x_emb=x_emb.contiguous()).launch()
+    gpt2_megastep.launches += 1
+    return tok[0], k, v
+
+
+gpt2_megastep.launches = 0
+
+
+class MegaDecodeGraph:
+    """The N-step greedy decode loop of one built configuration, captured
+    once as a CUDA graph and replayed per generation (the port's
+    counterpart of the JAX package's `jax.lax.scan` under `jax.jit`).
+
+    Static state: the KV panes (and scales), `toks` int32 [N + 1] (slot 0
+    is the prefill's token, step i reads slot i and writes slot i + 1) and
+    `length` int32 [1], which each step increments on the device. `run`
+    copies a prompt's state in, replays, and adds N to the wrapper's launch
+    count (`counter.launches`): each replay launches the step chain N times.
+    """
+
+    def __init__(self, packed: dict, cfg, n_steps: int, panes: dict, counter,
+                 **launch_kw):
+        dev = panes["k"].device
+        self.n = n_steps
+        self.panes = panes
+        self.counter = counter
+        self.toks = torch.zeros(n_steps + 1, dtype=torch.int32, device=dev)
+        self.length = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.step = StepLauncher(
+            packed, cfg, panes["k"], panes["v"], self.length, self.toks[1:2],
+            tok_in=self.toks[0:1], ks=panes.get("ks"), vs=panes.get("vs"),
+            advance=True, **launch_kw)
+        kernels()  # build and load outside the capture
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for i in range(n_steps):
+                self.step.set_tokens(self.toks[i:i + 1], self.toks[i + 1:i + 2])
+                self.step.launch()
+
+    def run(self, tok0: torch.Tensor, length: int) -> torch.Tensor:
+        """Decode N tokens from the panes' current contents; returns the
+        tokens [N] (int32, on the device): tok0 and the N - 1 that follow,
+        as the JAX scan emits them."""
+        self.toks[0:1].copy_(tok0.reshape(1))
+        self.length.fill_(length)
+        self.graph.replay()
+        self.counter.launches += self.n
+        return self.toks[:self.n]

@@ -34,7 +34,8 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def _scale_plain(x: torch.Tensor, qmax: float, eps: float):
+def scale_rows(x: torch.Tensor, qmax: float, eps: float):
+    """(x in fp32, per-row scale [rows, 1]) of x [rows, n]."""
     x32 = x.float()
     max_abs = torch.amax(x32.abs(), dim=-1, keepdim=True)
     # max|x| * f32(1/qmax), as the jitted JAX kernels compute it
@@ -43,14 +44,14 @@ def _scale_plain(x: torch.Tensor, qmax: float, eps: float):
 
 def quantize_int8_rows_plain(x: torch.Tensor, eps: float = 1e-8):
     """x [rows, n] -> (q int8 [rows, n], scale f32 [rows, 1])."""
-    x32, scale = _scale_plain(x, 127.0, eps)
+    x32, scale = scale_rows(x, 127.0, eps)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
 def quantize_int4_rows_plain(x: torch.Tensor, eps: float = 1e-8):
     """x [rows, n] (even n) -> (packed uint8 [rows, n/2], scale f32 [rows, 1])."""
-    x32, scale = _scale_plain(x, 7.0, eps)
+    x32, scale = scale_rows(x, 7.0, eps)
     q = (torch.clamp(torch.round(x32 / scale), -8, 7) + 8).to(torch.uint8)
     return (q[:, 0::2] << 4) | q[:, 1::2], scale
 

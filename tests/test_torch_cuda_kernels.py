@@ -8,7 +8,10 @@ a machine that has only PyTorch:
 
 Tolerances: the quantize kernels are bit-exact; the attention kernel sums in
 another order than the plain version (fp32 atol 1e-4; bf16 atol 2e-2, the
-output's own rounding).
+output's own rounding). The whole-step megakernels against their plain steps
+in fp32: the token equal wherever the plain top-2 logit gap is at least 1e-4,
+new K/V rows within 1e-5 (codes within one step, scales within 1e-5
+relative, for quantized panes), every other row untouched.
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ from efficient_llm_inference_tpu_torch import Config, InferenceEngine
 from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
 from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
 from efficient_llm_inference_tpu_torch.ops import attention as tattn
+from efficient_llm_inference_tpu_torch.ops import megakernel as tmk
+from efficient_llm_inference_tpu_torch.ops import megakernel_quant as tmq
 from efficient_llm_inference_tpu_torch.ops import quantize as trows
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +139,124 @@ def test_engine_decode_through_kernels_matches_cpu(cuda, method, granularity):
     _, want = engines["cpu"].generate_logits(prompt, method, n, forced=toks,
                                              granularity=granularity)
     torch.testing.assert_close(logits.cpu(), want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 8), (4, 4), (8, 4), (16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_no_visible_row_matches_plain(cuda, k_bits, v_bits, dtype):
+    """length 0 and no extra row: the JAX kernel's (and the plain
+    version's) uniform average over every stored and extra row."""
+    args = _attention_inputs(k_bits, v_bits, 2, 1, 12, 320, 64, 2, dtype, True,
+                             seed=k_bits * v_bits)
+    args[7] = torch.zeros(2, dtype=torch.int32)
+    args = [a.to(cuda) for a in args]
+    got = tattn.fused_quant_attention_batched(*args, 0, k_bits=k_bits, v_bits=v_bits)
+    want = tattn.fused_quant_attention_batched_plain(*args, 0, k_bits=k_bits,
+                                                     v_bits=v_bits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+MEGA_CFGS = {
+    "small-test": dict(vocab_size=300, n_positions=256, n_embd=256, n_layer=2,
+                       n_head=2),  # head_dim 128
+    "gpt2": {},  # GPT-2 small at full width
+}
+
+
+def _mega_inputs(cfg, mode, C, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    L, E = cfg.n_layer, cfg.n_embd
+    x = (torch.randn((1, E), generator=g) * 0.5).to(device)
+    if mode == "fp":
+        return [(torch.randn((L, C, E), generator=g) * 0.5).to(device)
+                for _ in range(2)], x
+
+    def pane(kind):
+        width = E if kind == "int8" else E // 2
+        lo = -127 if kind == "int8" else -128
+        return torch.randint(lo, 128, (L, C, width), generator=g,
+                             dtype=torch.int32).to(torch.int8).to(device)
+
+    scales = [(torch.rand((L, C), generator=g) * 0.02 + 1e-3).to(device)
+              for _ in range(2)]
+    return [pane(k) for k in tmq._kv_kinds(mode)] + scales, x
+
+
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("cfg_name", list(MEGA_CFGS))
+@pytest.mark.parametrize("length", [0, 37, 127])
+def test_megastep_matches_plain(cuda, mode, cfg_name, length):
+    cfg = tgpt2.GPT2Config(**MEGA_CFGS[cfg_name])
+    C = 128
+    params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(1), cfg,
+                                    torch.float32, cuda)
+    packed = tmk.pack_gpt2_mega(params, cfg)
+    state, x = _mega_inputs(cfg, mode, C, seed=length, device=cuda)
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    if mode == "fp":
+        before = tmk.gpt2_megastep.launches
+        tok = tmk.gpt2_megastep(packed, *got, length, x, cfg=cfg)[0]
+        assert tmk.gpt2_megastep.launches == before + 1
+        logits = tmk.gpt2_megastep_plain(packed, *want, length, x, cfg=cfg,
+                                         return_logits=True)[-1]
+    else:
+        before = tmq.gpt2_megastep_quant.launches
+        tok = tmq.gpt2_megastep_quant(packed, *got, length, x, cfg=cfg,
+                                      kv_mode=mode)[0]
+        assert tmq.gpt2_megastep_quant.launches == before + 1
+        logits = tmq.gpt2_megastep_quant_plain(packed, *want, length, x, cfg=cfg,
+                                               kv_mode=mode, return_logits=True)[-1]
+    torch.cuda.synchronize()
+    top2 = logits.topk(2).values
+    if float(top2[0] - top2[1]) >= 1e-4:
+        assert int(tok) == int(logits.argmax())
+    others = torch.arange(C, device=cuda) != length
+    for g_, w_, b_ in zip(got, want, state):
+        assert torch.equal(g_[:, others], b_[:, others])
+        assert torch.equal(w_[:, others], b_[:, others])
+    if mode == "fp":
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_[:, length], w_[:, length], atol=1e-5, rtol=0)
+        return
+    for kind, g_, w_ in zip(tmq._kv_kinds(mode), got[:2], want[:2]):
+        gv = tmq.pane_values(g_[:, length], kind)
+        wv = tmq.pane_values(w_[:, length], kind)
+        assert (gv - wv).abs().max() <= 1
+    for g_, w_ in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g_[:, length], w_[:, length], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("method", ["full_cache", "quant_int8", "quant_int4",
+                                    "quant_mixed"])
+def test_engine_megakernel_graph_matches_plain_steps(cuda, method):
+    """The engine's CUDA-graph decode (megakernel on, the default on a card)
+    against the same engine's plain steps on the CPU, fp32: the greedy
+    tokens agree while the plain logits' top-2 gap stays at least 1e-4, and
+    every step is one launch of the kernel chain. E = 256, so that int4
+    panes are eligible ((E/2) % 128 == 0)."""
+    cfg = tgpt2.GPT2Config(vocab_size=256, n_positions=128, n_embd=256,
+                           n_layer=2, n_head=4)
+    params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(0), cfg,
+                                    torch.float32, "cpu")
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(dev)) for k, v in params.items()}
+        engines[dev] = InferenceEngine(gpt2_spec(cfg), p, config=Config(
+            model_name="t", device=dev, dtype=torch.float32, megakernel=True))
+    counter = tmk.gpt2_megastep if method == "full_cache" else tmq.gpt2_megastep_quant
+    prompt, n = "Graphs replay the decode loop.", 16
+    for _ in range(2):  # the second call replays the captured graph
+        before = counter.launches
+        got = engines["cuda"].generate_ids(prompt, method, n)
+        assert counter.launches == before + n
+    want = engines["cpu"].generate_ids(prompt, method, n)
+    _, logits = engines["cpu"].generate_logits(prompt, method, n, forced=want[-n:])
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+    first_unclear = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
+    assert got[:len(got) - n + first_unclear] == want[:len(want) - n + first_unclear]
