@@ -20,19 +20,29 @@ Phases (each prints one line with its seconds):
      the new K/V rows (fp32: 1e-5, bf16: 1.6e-2, relative to the row's
      largest value), quantized rows within one quantization step (fp32) or
      two (bf16) after decoding, and every other row untouched;
-3. main path: InferenceEngine.from_model_name("gpt2") on CUDA in bf16
-   (random weights from a seed), benchmark_method over 2 prompts of 256
-   tokens with 64 new tokens for full_cache, quant_int8, quant_int4 and
-   quant_mixed, first with the megakernel off (Config(megakernel=False):
-   each quant_* decode step launches the attention kernel once per layer and
-   the rows kernels once per layer, K and V and forward pass), then with the
-   default config (megakernel on: every decode step is one launch of the
+3. llama init: InferenceEngine.from_model_name("llama-3-1b") (Llama-3.2-1B
+   at full width: E=2048, I=8192, L=16, 32 query heads on 8 K/V heads,
+   D=64, V=128256, tied embeddings; random weights from seed 42 drawn on
+   the host, bf16 on the card);
+4. llama kernels: the Llama whole-step kernels (#13 fp panes, #12 int8/int4/
+   mixed panes) against their plain steps with the tolerances of phase 2, at
+   the main path's weights in bf16 and widened to fp32, C=320, lengths 0 and
+   319 (timed at 319), and at a Qwen2.5-0.5B-width model cut to 2 layers
+   (q/k/v biases, 14 query heads on 2, E=896);
+5. main path, for GPT-2 small and for Llama-3.2-1B: InferenceEngine on CUDA
+   in bf16, benchmark_method over 2 prompts of 256 tokens with 64 new tokens
+   for full_cache, quant_int8, quant_int4 and quant_mixed, first with the
+   megakernel off (Config(megakernel=False): each quant_* decode step
+   launches the attention kernel once per layer and the rows kernels once
+   per layer, K and V and forward pass), then with the default config
+   (megakernel on: every decode step is one launch of the model's
    whole-step kernel chain, replayed from a CUDA graph, and the attention
    kernel runs on no decode step). The launch counters are zeroed just
    before and read just after each run;
-4. fp32 hold: the same model in fp32 on the card. Megakernel off: its greedy
+6. fp32 hold: GPT-2 small in fp32 on the card. Megakernel off: its greedy
    tokens, teacher-forced through the plain versions on the CPU, must give
-   every step's logits within 1e-3. Megakernel on: 64 teacher-forced steps
+   every step's logits within 1e-3. Megakernel on, for GPT-2 and for
+   Llama-3.2-1B (its bf16 weights widened to fp32): 64 teacher-forced steps
    of the kernel beside the plain step on the card; the tokens must be equal
    wherever the plain step's top-2 logit gap is at least 1e-4.
 
@@ -40,9 +50,9 @@ Then it prints the kernels' JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero without that line. Float32 matrix products run in full fp32 (TF32
 off). Kernel times are device times per call from CUDA-graph replay (warm
-L2 for the small kernels; a whole step streams 247 MB of weights, more than
-L2 holds); the eager time per call, host enqueue included, is printed beside
-them.
+L2 for the small kernels; a whole step streams 247 MB (GPT-2) or 2.47 GB
+(Llama) of weights, more than L2 holds); the eager time per call, host
+enqueue included, is printed beside them.
 """
 
 from __future__ import annotations
@@ -281,23 +291,24 @@ def check_attention() -> dict:
 
 
 MEGA_C, MEGA_LEN = PROMPT_TOKENS + NEW_TOKENS, PROMPT_TOKENS + NEW_TOKENS - 1
+MODES = ("fp", "int8", "int4", "mixed")
 
 
-def _mega_state(mode, dtype, seed):
-    """A decode state at the main path's last step: random panes (codes and
-    scales for quantized modes) of C=320 rows and an embedding."""
+def _mega_state(mode, dtype, seed, L, W, E):
+    """A decode state of C=320 rows (the main path's last step): random
+    [L, C, W] panes (codes and per-token scales for quantized modes) and an
+    embedding [1, E]."""
     from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
 
     g = torch.Generator().manual_seed(seed)
-    L, E = 12, 768
     x = (torch.randn((1, E), generator=g) * 0.3).to(dtype).cuda()
     if mode == "fp":
-        return [(torch.randn((L, MEGA_C, E), generator=g) * 0.5).to(dtype).cuda()
+        return [(torch.randn((L, MEGA_C, W), generator=g) * 0.5).to(dtype).cuda()
                 for _ in range(2)], x
 
     def pane(kind):
         lo = -127 if kind == "int8" else -128
-        width = E if kind == "int8" else E // 2
+        width = W if kind == "int8" else W // 2
         return torch.randint(lo, 128, (L, MEGA_C, width), generator=g,
                              dtype=torch.int32).to(torch.int8).cuda()
 
@@ -308,19 +319,29 @@ def _mega_state(mode, dtype, seed):
     return [pane(k_kind), pane(v_kind), scales(), scales()], x
 
 
-def _mega_step(mode, packed, cfg, state, length, x, plain=False):
+def _step_fns(family: str):
+    """(fp kernel, quant kernel, fp plain, quant plain) of a model family."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    if family == "llama":
+        return (ml.llama_megastep, mq.llama_megastep_quant, ml.llama_megastep_plain,
+                mq.llama_megastep_quant_plain)
+    return (mk.gpt2_megastep, mq.gpt2_megastep_quant, mk.gpt2_megastep_plain,
+            mq.gpt2_megastep_quant_plain)
+
+
+def _mega_step(mode, packed, cfg, state, length, x, plain=False, family="gpt2"):
     """The kernel (length: a device int32 tensor, so the call can be
     captured) or, with `plain`, the plain step (length: an int), which then
     returns its logits last."""
-    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
-    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
-
+    fp, quant, fp_plain, quant_plain = _step_fns(family)
     kw = {"return_logits": True} if plain else {}
     if mode == "fp":
-        fn = mk.gpt2_megastep_plain if plain else mk.gpt2_megastep
-        return fn(packed, *state, length, x, cfg=cfg, **kw)
-    fn = mq.gpt2_megastep_quant_plain if plain else mq.gpt2_megastep_quant
-    return fn(packed, *state, length, x, cfg=cfg, kv_mode=mode, **kw)
+        return (fp_plain if plain else fp)(packed, *state, length, x, cfg=cfg, **kw)
+    return (quant_plain if plain else quant)(packed, *state, length, x, cfg=cfg,
+                                             kv_mode=mode, **kw)
 
 
 def _token_ok(tok: int, logits: torch.Tensor, dtype) -> bool:
@@ -333,60 +354,71 @@ def _token_ok(tok: int, logits: torch.Tensor, dtype) -> bool:
     return float(logits[tok]) >= float(top2[0]) - 2e-2
 
 
-def _new_row_err(mode, dtype, got, want, before) -> float:
+def _new_row_err(mode, dtype, got, want, before, row=MEGA_LEN,
+                 deep_bf16=False) -> float:
     """Max |kernel - plain| of the new rows (dequantized for quantized
     panes), after checking them against the tolerances and checking that no
-    other row moved."""
+    other row moved. `deep_bf16`: a quantized bf16 row may also carry the
+    fp rows' tolerance (1.6e-2 of the row's largest value) on top of its two
+    steps, because the values it quantizes differ by that much: over 16
+    layers of a bf16 residual stream the kernel's and the plain step's
+    rounding flips compound (Llama-3.2-1B's fp rows differ by up to ~2 bf16
+    ulps of their largest value)."""
     from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
 
-    others = torch.arange(MEGA_C, device=before[0].device) != MEGA_LEN
+    others = torch.arange(MEGA_C, device=before[0].device) != row
     for g_, w_, b_ in zip(got, want, before):
         if not (torch.equal(g_[:, others], b_[:, others])
                 and torch.equal(w_[:, others], b_[:, others])):
             raise AssertionError(f"megastep {mode} {dtype}: a row other than "
-                                 f"{MEGA_LEN} changed")
+                                 f"{row} changed")
     if mode == "fp":
         err, scale = 0.0, 0.0
         for g_, w_ in zip(got, want):
-            g_, w_ = g_[:, MEGA_LEN].float(), w_[:, MEGA_LEN].float()
+            g_, w_ = g_[:, row].float(), w_[:, row].float()
             err = max(err, (g_ - w_).abs().max().item())
             scale = max(scale, w_.abs().max().item())
         tol = (1e-5 if dtype == torch.float32 else 1.6e-2) * max(scale, 1.0)
-    else:
-        err, tol = 0.0, float("inf")
-        steps = 1 if dtype == torch.float32 else 2
-        for kind, g_, w_, gs, ws in zip(mq._kv_kinds(mode), got[:2], want[:2],
-                                        got[2:], want[2:]):
-            gv = mq.pane_values(g_[:, MEGA_LEN], kind) * gs[:, MEGA_LEN, None]
-            wv = mq.pane_values(w_[:, MEGA_LEN], kind) * ws[:, MEGA_LEN, None]
-            d = (gv - wv).abs().max().item()
-            step_tol = steps * max(gs[:, MEGA_LEN].max().item(),
-                                   ws[:, MEGA_LEN].max().item()) * 1.01
-            if not d <= step_tol:
-                raise AssertionError(f"megastep {mode} {dtype}: new {kind} row "
-                                     f"off by {d} > {step_tol}")
-            err, tol = max(err, d), min(tol, step_tol)
-    if not err <= tol:
-        raise AssertionError(f"megastep {mode} {dtype}: new rows off by {err} > {tol}")
+        if not err <= tol:
+            raise AssertionError(f"megastep {mode} {dtype}: new rows off by {err} > {tol}")
+        return err
+    err = 0.0
+    steps = 1 if dtype == torch.float32 else 2
+    for kind, g_, w_, gs, ws in zip(mq._kv_kinds(mode), got[:2], want[:2],
+                                    got[2:], want[2:]):  # each pane by its own step
+        gv = mq.pane_values(g_[:, row], kind) * gs[:, row, None]
+        wv = mq.pane_values(w_[:, row], kind) * ws[:, row, None]
+        d = (gv - wv).abs().max().item()
+        step_tol = steps * max(gs[:, row].max().item(), ws[:, row].max().item()) * 1.01
+        if deep_bf16 and dtype == torch.bfloat16:
+            step_tol += 1.6e-2 * max(wv.abs().max().item(), 1.0)
+        if not d <= step_tol:
+            raise AssertionError(f"megastep {mode} {dtype}: new {kind} row "
+                                 f"off by {d} > {step_tol}")
+        err = max(err, d)
     return err
 
 
+def _kv_bytes(mode, item, L, W, rows) -> float:
+    """Bytes of `rows` cached rows of [L, rows, W] K and V panes (codes and
+    per-token scales for quantized modes)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    if mode == "fp":
+        return L * rows * 2 * W * item
+    return L * rows * (sum(W if k == "int8" else W // 2 for k in mq._kv_kinds(mode)) + 8)
+
+
 def _mega_bound(mode, dtype) -> tuple:
-    """Least time of one step on the card: every weight read once (layer
-    weights, the LM head = wte, one wte and one wpe row), the visible KV rows
-    and their scales read once, the new rows written once; two operations
-    per weight element."""
-    L, E, V, P, D = 12, 768, 50257, 1024, 64
+    """Least time of one GPT-2 step on the card: every weight read once
+    (layer weights, the LM head = wte, one wte and one wpe row), the visible
+    KV rows and their scales read once, the new rows written once; two
+    operations per weight element."""
+    L, E, V = 12, 768, 50257
     item = 2 if dtype == torch.bfloat16 else 4
     weights = L * 12 * E * E + V * E + 2 * E
     smalls = (L * 13 * E + 2 * E) * 4
-    if mode == "fp":
-        row = 2 * E * item
-    else:
-        from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
-
-        row = sum(E if k == "int8" else E // 2 for k in mq._kv_kinds(mode)) + 8
-    n_bytes = weights * item + smalls + L * (MEGA_LEN + 1) * row
+    n_bytes = weights * item + smalls + _kv_bytes(mode, item, L, E, MEGA_LEN + 1)
     flops = 2 * weights + L * 4 * (MEGA_LEN + 1) * E
     rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
     return bound_ms(n_bytes, flops, rate)
@@ -404,8 +436,8 @@ def check_megasteps() -> dict:
         params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
                                            dtype, "cuda")
         packed = mk.pack_gpt2_mega(params, cfg)
-        for i, mode in enumerate(("fp", "int8", "int4", "mixed")):
-            state, x = _mega_state(mode, dtype, seed=100 + i)
+        for i, mode in enumerate(MODES):
+            state, x = _mega_state(mode, dtype, 100 + i, 12, 768, 768)
             got = [t.clone() for t in state]
             want = [t.clone() for t in state]
             tok = int(_mega_step(mode, packed, cfg, got, dev_len, x)[0])
@@ -434,13 +466,116 @@ def check_megasteps() -> dict:
                 f"call {eager:.5f} ms")
             reports[(mode, dtype)] = entry
         del params, packed
-    worst = {m: max(reports[(m, d)]["max_abs_err"]
-                    for d in (torch.float32, torch.bfloat16))
-             for m in ("fp", "int8", "int4", "mixed")}
+    return _mega_reports(reports, "gpt2_megastep", "gpt2_megastep_quant")
+
+
+def _mega_reports(reports: dict, fp_name: str, quant_name: str) -> dict:
+    """The kernels line's entries of a family's two steps: the bf16 times
+    (fp panes; int8 panes for the quantized step) and the worst error over
+    both dtypes and the pane kinds."""
+    worst = {m: max(r["max_abs_err"] for (mode, _), r in reports.items() if mode == m)
+             for m in MODES}
     fp = dict(reports[("fp", torch.bfloat16)], max_abs_err=worst["fp"])
     quant = dict(reports[("int8", torch.bfloat16)],
-                 max_abs_err=max(worst[m] for m in ("int8", "int4", "mixed")))
-    return {"gpt2_megastep": fp, "gpt2_megastep_quant": quant}
+                 max_abs_err=max(worst[m] for m in MODES[1:]))
+    return {fp_name: fp, quant_name: quant}
+
+
+def _llama_bound(mode, dtype, cfg, rows) -> tuple:
+    """Least time of one Llama step on the card: every layer weight and the
+    LM head read once, the input embedding, the norms, one RoPE row, the
+    `rows` visible KV rows and their scales read once, the new rows written
+    once; two operations per weight element plus the attention's four per
+    cached value and query head."""
+    E, I, L, V, D = (cfg.hidden_size, cfg.intermediate_size, cfg.n_layer,
+                     cfg.vocab_size, cfg.head_dim)
+    QW, KW = cfg.n_head * D, cfg.n_kv_head * D
+    item = 2 if dtype == torch.bfloat16 else 4
+    weights = L * (E * (QW + 2 * KW) + QW * E + 3 * E * I) + V * E
+    smalls = (L * 2 * E + E + 2 * D + (L * (QW + 2 * KW) if cfg.qkv_bias else 0)) * 4
+    n_bytes = (weights + E) * item + smalls + _kv_bytes(mode, item, L, KW, rows + 1)
+    flops = 2 * weights + L * 4 * (rows + 1) * QW
+    rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def check_llama_megasteps(params_bf16: dict) -> dict:
+    """#13 and #12 against their plain steps at Llama-3.2-1B's full width
+    (the main path's weights), bf16 and fp32 (the same weights widened), fp,
+    int8, int4 and mixed panes, C=320, lengths 0 and 319 (timed at 319);
+    then a Qwen2.5-0.5B-width model cut to 2 layers (q/k/v biases, 14 query
+    heads on 2 K/V heads, E=896, random weights) the same way, untimed."""
+    import dataclasses
+
+    from efficient_llm_inference_tpu_torch.models import llama as llama_mod
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    llama = llama_mod.LlamaConfig.llama3_1b()
+    qwen = dataclasses.replace(llama_mod.LlamaConfig.qwen25_05b(), n_layer=2)
+    qwen_params = llama_mod.init_llama_params(torch.Generator().manual_seed(7), qwen,
+                                              torch.float32, "cuda")
+    timing, errs = {}, {}
+    for cfg, base, name in ((llama, params_bf16, "Llama-3.2-1B"),
+                            (qwen, qwen_params, "Qwen2.5-0.5B width, L=2")):
+        KW = cfg.n_kv_head * cfg.head_dim
+        for dtype in (torch.float32, torch.bfloat16):
+            params = _cast_params(base, dtype)
+            packed = ml.pack_llama_mega(params, cfg)
+            for i, mode in enumerate(MODES):
+                for length in (0, MEGA_LEN):
+                    state, _ = _mega_state(mode, dtype, 200 + i + length,
+                                           cfg.n_layer, KW, cfg.hidden_size)
+                    x = params["embed"][(length * 7919 + i) % cfg.vocab_size][None]
+                    dev_len = torch.tensor([length], dtype=torch.int32, device="cuda")
+                    got = [t.clone() for t in state]
+                    want = [t.clone() for t in state]
+
+                    def kernel():
+                        return _mega_step(mode, packed, cfg, got, dev_len, x,
+                                          family="llama")
+
+                    def plain():
+                        return _mega_step(mode, packed, cfg, want, length, x,
+                                          plain=True, family="llama")
+
+                    tok = int(kernel()[0])
+                    logits = plain()[-1]
+                    torch.cuda.synchronize()
+                    if not _token_ok(tok, logits, dtype):
+                        raise AssertionError(
+                            f"llama megastep {name} {mode} {dtype} len={length}: "
+                            f"token {tok}, plain argmax {int(logits.argmax())}")
+                    err = _new_row_err(mode, dtype, got, want, state, row=length,
+                                       deep_bf16=cfg is llama)
+                    errs[(mode, dtype)] = max(err, errs.get((mode, dtype), 0.0))
+                    line = (f"  llama megastep {mode} {str(dtype)[6:]} {name} C=320 "
+                            f"len={length}: token {tok} (plain {int(logits.argmax())}), "
+                            f"new rows max|kernel-plain| {err:.2e}")
+                    if cfg is llama and length == MEGA_LEN:
+                        b, by = _llama_bound(mode, dtype, cfg, length)
+                        timing[(mode, dtype)] = {
+                            "ms": device_ms(kernel, calls=10),
+                            "plain_ms": device_ms(plain, calls=2, replays=3),
+                            "bound_ms": b, "bound_by": by, "library_ms": None,
+                        }
+                        t = timing[(mode, dtype)]
+                        line += (f"; device ms kernel {t['ms']:.5f}, plain "
+                                 f"{t['plain_ms']:.5f}, bound {b:.5f} ({by})")
+                    log(line)
+            del params, packed
+    # errors: the worst over both models, both lengths
+    reports = {key: dict(t, max_abs_err=errs[key]) for key, t in timing.items()}
+    return _mega_reports(reports, "llama_megastep", "llama_megastep_quant")
+
+
+def _cast_params(params: dict, dtype) -> dict:
+    return {k: (_cast_params(v, dtype) if isinstance(v, dict) else v.to(dtype))
+            for k, v in params.items()}
+
+
+def _leaves(params: dict):
+    for v in params.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _prompts(n: int, seed: int):
@@ -457,7 +592,7 @@ def _prompts(n: int, seed: int):
 
 def counters():
     from efficient_llm_inference_tpu_torch.ops import (
-        attention, megakernel, megakernel_quant, quantize)
+        attention, megakernel, megakernel_llama, megakernel_quant, quantize)
 
     return {
         "fused_quant_attention_batched": attention.fused_quant_attention_batched,
@@ -465,14 +600,17 @@ def counters():
         "quantize_int4_rows": quantize.quantize_int4_rows,
         "gpt2_megastep": megakernel.gpt2_megastep,
         "gpt2_megastep_quant": megakernel_quant.gpt2_megastep_quant,
+        "llama_megastep": megakernel_llama.llama_megastep,
+        "llama_megastep_quant": megakernel_quant.llama_megastep_quant,
     }
 
 
-def _expected_launches(method: str, mega: bool, L: int, n_gen: int) -> dict:
+def _expected_launches(method: str, mega: bool, L: int, n_gen: int,
+                       family: str) -> dict:
     want = {name: 0 for name in counters()}
     if method == "full_cache":
         if mega:
-            want["gpt2_megastep"] = NEW_TOKENS * n_gen
+            want[f"{family}_megastep"] = NEW_TOKENS * n_gen
         return want
     mode = method.replace("quant_", "")
     k8, v8 = mode in ("int8", "mixed"), mode == "int8"
@@ -482,23 +620,26 @@ def _expected_launches(method: str, mega: bool, L: int, n_gen: int) -> dict:
     want["quantize_int8_rows"] = per_pass * (k8 + v8)
     want["quantize_int4_rows"] = per_pass * ((not k8) + (not v8))
     if mega:
-        want["gpt2_megastep_quant"] = NEW_TOKENS * n_gen
+        want[f"{family}_megastep_quant"] = NEW_TOKENS * n_gen
     else:
         want["fused_quant_attention_batched"] = L * NEW_TOKENS * n_gen
     return want
 
 
-def phase_main_path(launches: dict) -> None:
-    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
-
+def phase_main_path(launches: dict, name: str, engines) -> None:
+    """benchmark_method for the four methods with the megakernel off
+    (Config(megakernel=False)), then with the default config (on).
+    `engines(mega)` makes the engine of each path through
+    InferenceEngine.from_model_name."""
     prompts = _prompts(N_PROMPTS, SEED)
     n_gen = N_PROMPTS + 1  # benchmark_method warms up once (one bucket)
     tps = {}
     for mega in (False, None):  # megakernel off, then the default (on)
-        eng = InferenceEngine.from_model_name(
-            "gpt2", config=Config(model_name="gpt2", megakernel=mega))
+        eng = engines(mega)
+        family = eng.model.name
         assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
-        assert eng.params["wte"].is_cuda
+        assert all(t.is_cuda for t in (eng.params.get("wte"), eng.params.get("embed"))
+                   if t is not None)
         assert eng.config.resolved_megakernel() == (mega is None)
         assert all(len(eng.tokenizer.encode(p)) == PROMPT_TOKENS for p in prompts)
         L = eng.model.n_layer
@@ -506,21 +647,21 @@ def phase_main_path(launches: dict) -> None:
             for fn in counters().values():
                 fn.launches = 0
             res = eng.benchmark_method(prompts, method=method, max_new_tokens=NEW_TOKENS)
-            got = {name: fn.launches for name, fn in counters().items()}
-            for name, n in got.items():
-                launches[name] = launches.get(name, 0) + n
+            got = {k: fn.launches for k, fn in counters().items()}
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
             ids = eng.last_generation_ids
             new = ids[-NEW_TOKENS:]
             assert len(ids) == PROMPT_TOKENS + NEW_TOKENS, len(ids)
             assert all(0 <= t < eng.model.vocab_size for t in new)
             assert res["total_new_tokens"] == N_PROMPTS * NEW_TOKENS
             assert math.isfinite(res["tokens_per_sec"]) and res["tokens_per_sec"] > 0
-            want = _expected_launches(method, mega is None, L, n_gen)
+            want = _expected_launches(method, mega is None, L, n_gen, family)
             if got != want:
-                raise AssertionError(f"{method} megakernel={mega}: launches {got}, "
-                                     f"expected {want}")
+                raise AssertionError(f"{name} {method} megakernel={mega}: launches "
+                                     f"{got}, expected {want}")
             tps[(method, mega)] = res["tokens_per_sec"]
-            log(f"  {method} megakernel {'on' if mega is None else 'off'}: "
+            log(f"  {name} {method} megakernel {'on' if mega is None else 'off'}: "
                 f"{res['tokens_per_sec']:.1f} tokens/s ({res['total_new_tokens']} new "
                 f"tokens in {res['elapsed_sec']:.3f} s, peak {res['gpu_peak_mb']} MB, "
                 f"est KV {res['est_kv_cache_mb_avg']:.3f} MB), launches "
@@ -528,7 +669,7 @@ def phase_main_path(launches: dict) -> None:
         del eng
         torch.cuda.empty_cache()
     for method in METHODS:
-        log(f"  {method}: megakernel on {tps[(method, None)]:.1f} tokens/s, "
+        log(f"  {name} {method}: megakernel on {tps[(method, None)]:.1f} tokens/s, "
             f"off {tps[(method, False)]:.1f} tokens/s "
             f"({tps[(method, None)] / tps[(method, False)]:.1f}x)")
 
@@ -563,16 +704,15 @@ def phase_fp32_hold() -> None:
             f"clear steps")
 
 
-def phase_fp32_mega_hold() -> None:
-    """64 teacher-forced steps of each megakernel beside its plain step on
-    the card in fp32, from the same prefill: both get the kernel's token."""
-    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+def phase_fp32_mega_hold(eng) -> None:
+    """64 teacher-forced steps of the model's megakernels beside their plain
+    steps on the card in fp32 (`eng`: an fp32 engine), from the same
+    prefill: both get the kernel's token."""
     from efficient_llm_inference_tpu_torch.engine.generate import (
-        _mega_panes, bucket_for, make_prefill)
+        _embed, _mega_panes, bucket_for, make_prefill)
 
-    eng = InferenceEngine.from_model_name(
-        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32))
-    wte, wpe = eng.params["wte"], eng.params["wpe"]
+    assert eng.config.dtype == torch.float32
+    family = eng.model.name
     ids = eng.tokenizer.encode(_prompts(1, SEED + 2)[0])
     bucket = bucket_for(len(ids))
     buf = torch.zeros((1, bucket), dtype=torch.long)
@@ -590,24 +730,25 @@ def phase_fp32_mega_hold() -> None:
         plain = [t.clone() for t in kern]
         tok, length, clear, gaps = int(last[0].argmax()), len(ids), 0, []
         for _ in range(NEW_TOKENS):
-            x = (wte[tok] + wpe[min(length, eng.model.n_positions - 1)])[None]
+            x = _embed(eng.model, eng.params, torch.tensor(tok, device="cuda"), length)
             got = int(_mega_step(mode, eng._mega_packed, eng.model.config, kern,
-                                 length, x)[0])
+                                 length, x, family=family)[0])
             logits = _mega_step(mode, eng._mega_packed, eng.model.config, plain,
-                                length, x, plain=True)[-1]
+                                length, x, plain=True, family=family)[-1]
             top2 = logits.topk(2).values
             gap = float(top2[0] - top2[1])
             gaps.append(gap)
             if gap >= 1e-4:
                 clear += 1
                 if got != int(logits.argmax()):
-                    raise AssertionError(f"fp32 megakernel {method}: token {got}, "
-                                         f"plain {int(logits.argmax())} (gap {gap})")
+                    raise AssertionError(f"fp32 megakernel {family} {method}: token "
+                                         f"{got}, plain {int(logits.argmax())} "
+                                         f"(gap {gap})")
             assert torch.isfinite(logits).all()
             tok, length = got, length + 1
-        log(f"  fp32 megakernel {method}: kernel token == plain argmax at {clear} of "
-            f"{NEW_TOKENS} teacher-forced steps (the rest have a top-2 gap under "
-            f"1e-4; smallest gap {min(gaps):.2e})")
+        log(f"  fp32 megakernel {family} {method}: kernel token == plain argmax at "
+            f"{clear} of {NEW_TOKENS} teacher-forced steps (the rest have a top-2 gap "
+            f"under 1e-4; smallest gap {min(gaps):.2e})")
 
 
 def main() -> int:
@@ -616,6 +757,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+
     t_all = time.perf_counter()
 
     phase_build()
@@ -630,8 +773,24 @@ def main() -> int:
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    llama = InferenceEngine.from_model_name("llama-3-1b")  # random, seed 42, bf16
+    torch.cuda.synchronize()
+    log(f"phase llama init: {time.perf_counter() - t0:.1f} s (Llama-3.2-1B, "
+        f"{sum(t.numel() for t in _leaves(llama.params)) / 1e9:.3f} B params drawn "
+        f"on the host, bf16 on the card)")
+
+    t0 = time.perf_counter()
+    reports.update(check_llama_megasteps(llama.params))
+    log(f"phase llama kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     launches: dict = {}
-    phase_main_path(launches)
+    phase_main_path(launches, "gpt2", lambda mega: InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", megakernel=mega)))
+    phase_main_path(launches, "llama-3-1b", lambda mega: (
+        llama if mega is None else InferenceEngine.from_model_name(
+            "llama-3-1b", config=Config(model_name="llama-3-1b", megakernel=False),
+            params=llama.params)))
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         if n == 0:
@@ -639,7 +798,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_fp32_hold()
-    phase_fp32_mega_hold()
+    phase_fp32_mega_hold(InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32)))
+    params32 = _cast_params(llama.params, torch.float32)
+    del llama
+    torch.cuda.empty_cache()
+    phase_fp32_mega_hold(InferenceEngine.from_model_name(
+        "llama-3-1b", config=Config(model_name="llama-3-1b", dtype=torch.float32),
+        params=params32))
     log(f"phase fp32 hold: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
@@ -659,6 +825,12 @@ def main() -> int:
         "gpt2_megastep_quant": (
             "efficient_llm_inference_tpu_torch/csrc/gpt2_megastep.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_quant.py:244"),
+        "llama_megastep": (
+            "efficient_llm_inference_tpu_torch/csrc/llama_megastep.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_llama.py:729"),
+        "llama_megastep_quant": (
+            "efficient_llm_inference_tpu_torch/csrc/llama_megastep.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_quant.py:694"),
     }
     kernels = []
     for name, (source, replaces) in where.items():

@@ -139,7 +139,7 @@ class QuantizedKV:
         if self.batch != 1:
             raise NotImplementedError(
                 "QuantizedKV takes batch 1; batched serving is ROADMAP.md "
-                "Queue 1 item 9")
+                "Queue 1 item 8")
 
     def _k_kind(self) -> str:
         return "int8" if self.mode in ("int8", "mixed") else "int4"

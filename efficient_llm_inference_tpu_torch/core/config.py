@@ -25,13 +25,19 @@ class Config:
     """Main configuration for inference benchmarking.
 
     Attributes:
-        model_name: model identifier ("gpt2", "gpt2-medium", "gpt2-tiny", ...).
+        model_name: model identifier ("gpt2", "gpt2-tiny", "llama-3-1b",
+            "qwen2.5-0.5b", ...).
         device: torch device string; "cuda" unless the caller asks otherwise.
         dtype: compute dtype of weights and activations; None picks
             :func:`default_dtype` for the device.
         seed: seed of the generator that initialises random weights.
+        max_new_tokens: default generation length (the JAX Config's field;
+            the engine's calls take theirs explicitly).
         batch_size: batch size for inference (the quantized cache takes 1).
         prompt_cap: prompt-length cap of the truncating methods.
+        scan_unroll: the JAX package's layer-loop unroll factor, a TPU
+            compile knob; accepted so that configs carry over, and ignored
+            (the port's layer loop is eager Python or a CUDA kernel chain).
         megakernel: run eligible greedy batch-1 decode (full_cache, and
             quant_* at per_token granularity) as one chain of hand-written
             CUDA kernels per step, captured in a CUDA graph
@@ -44,8 +50,10 @@ class Config:
     device: str = "cuda"
     dtype: Optional[torch.dtype] = None
     seed: int = 42
+    max_new_tokens: int = 64
     batch_size: int = 1
     prompt_cap: int = 1024
+    scan_unroll: Optional[int] = None
     megakernel: Optional[bool] = None
 
     def __post_init__(self):

@@ -1,0 +1,198 @@
+// One Llama/Qwen decode step (greedy, batch 1) as a fixed chain of kernels.
+//
+// Replaces efficient_llm_inference_tpu/ops/pallas/megakernel_llama.py:
+// _llama_megapass (reached through llama_megastep; the R = 1 decode row) and
+// ops/pallas/megakernel_quant.py: llama_megastep_quant, the TPU's whole-step
+// decode programs for the Llama family. Entry points: elit_llama_megastep (KV
+// panes in the model dtype) and elit_llama_megastep_quant (int8, half-split
+// int4 or mixed panes with per-token fp32 scales). Each launches, on the
+// stream it is given:
+//
+//   embed                  x = embed[tok] (or x_emb)
+//   per layer l:
+//     gemv  RMS1 -> qkv    RMSNorm in the prologue, q|k|v out (+ the Qwen
+//                          bias on the fp32 sum), rounded to the model dtype
+//     attention            one block per query head over rows t < length of
+//                          its K/V head (grouped-query attention), q and the
+//                          current k rotated by RoPE at min(length, P-1) as
+//                          they are read, the current token merged into the
+//                          softmax; one more block writes row `length` of the
+//                          layer's panes (the rotated k; quantize-on-write
+//                          for quantized panes)
+//     gemv  o-proj + x     residual add in place
+//     gemv  RMS2 -> gate|up   SwiGLU epilogue: silu in fp32 on the fp32 gate
+//     gemv  down + x       residual add in place
+//   gemv  RMSf -> LM head  logits over the head's rows (the tied embedding or
+//                          the untied lm_head), per-block (max, argmax)
+//   argmax                 first maximum over the blocks -> token; with
+//                          `advance`, clamp it to [0, V-1] and length += 1
+//
+// Bound: bytes. A step reads every weight once: for Llama-3.2-1B in bf16,
+// 16 x (2048 x 3072 + 2048 x 2048 + 3 x 2048 x 8192) x 2 B of layer weights +
+// 128256 x 2048 x 2 B of LM head = 2.47 GB, plus the visible KV rows
+// (~10.5 MB at 320 rows), so it cannot take less than ~0.74 ms at
+// 3.35 TB/s; at ~2 operations per weight byte it is far below the ~295 per
+// byte where compute would bind. The GEMVs are megastep_common.cuh's (16-byte
+// streaming loads, prefetch before the prologue, fp32 sums); gate and up are
+// packed as interleaved rows (2j = gate j, 2j + 1 = up j) so one pass of a
+// block yields whole SwiGLU outputs. The chain is 5 L + 3 kernels, captured
+// per generation into one CUDA graph by the engine. Left for later: one
+// block per K/V head serving its whole query group (the K/V rows are read
+// `group` times, from L2), overlapping kernels, a persistent kernel,
+// wgmma/TMA.
+//
+// Numerics (the JAX kernels' rounding points, megastep_common.cuh): RMSNorm
+// with fp32 statistics, the normalised value rounded to the model dtype
+// before the gain; q and k rounded to the model dtype, then RoPE in fp32 and
+// rounded again; silu on the fp32 gate (the JAX kernel's point; the model
+// applies it to the rounded gate), its output and the up projection rounded
+// before their product.
+//
+// C interface (ctypes): both entry points take a LlamaArgs (mirrored by
+// ops/megakernel_llama.py) and a stream, check the first error of each launch
+// with cudaGetLastError() and return it (0 = success); elit_cuda_error_string
+// names a code. dtype: 0 = float32, 1 = bfloat16. k_kind/v_kind: 0 = model
+// dtype, 8 = int8, 4 = half-split int4. head_dim in {64, 128}; capacity up to
+// 8192.
+
+#include "megastep_common.cuh"
+
+// Mirrored field by field by ops/megakernel_llama.py's LlamaArgs (ctypes).
+struct LlamaArgs {
+  int dtype, n_layer, n_embd, n_head, n_kv_head, head_dim, inter, vocab, n_pos, capacity;
+  int k_kind, v_kind, advance, lm_blocks;
+  float rms_eps, quant_eps;
+  const void* qkv_w;   // [L, QW + 2 KW, E]
+  const void* o_w;     // [L, E, QW]
+  const void* gu_w;    // [L, 2 I, E], gate and up rows interleaved
+  const void* down_w;  // [L, E, I]
+  const void* embed;   // [V, E]
+  const void* head;    // [V, E]: the LM head (the embedding when tied)
+  const float* norms;  // [L, 2, E]
+  const float* lnf;    // [E]
+  const float* qkvb;   // [L, QW + 2 KW] or null (no q/k/v bias)
+  const float* cos;    // [P, D] RoPE tables
+  const float* sin;
+  void* k;             // [L, C, EK]
+  void* v;             // [L, C, EV]
+  float* ks;           // [L, C] (quantized panes)
+  float* vs;
+  int* length;         // [1]
+  const int* tok_in;   // [1] or null
+  const void* x_emb;   // [E] or null
+  int* tok_out;        // [1]
+  void* x;             // workspace in the model dtype: [E], [QW + 2 KW], [QW], [I]
+  void* qkv;
+  void* attn;
+  void* ffn;
+  float* lm_val;       // [lm_blocks]
+  int* lm_idx;
+};
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+embed_kernel(const T* __restrict__ embed, const int* __restrict__ tok_in,
+             const T* __restrict__ x_emb, int E, int V, T* __restrict__ x) {
+  const T* src = x_emb;
+  if (tok_in != nullptr) src = embed + (size_t)min(max(*tok_in, 0), V - 1) * E;
+  for (int e = threadIdx.x; e < E; e += kThreads) x[e] = src[e];
+}
+
+template <typename T>
+int run_step(const LlamaArgs& a, cudaStream_t st) {
+  const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
+  const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
+  const size_t E_ = E;
+  const T* qkv_w = static_cast<const T*>(a.qkv_w);
+  const T* o_w = static_cast<const T*>(a.o_w);
+  const T* gu_w = static_cast<const T*>(a.gu_w);
+  const T* down_w = static_cast<const T*>(a.down_w);
+  T* x = static_cast<T*>(a.x);
+  T* qkv = static_cast<T*>(a.qkv);
+  T* attn = static_cast<T*>(a.attn);
+  T* ffn = static_cast<T*>(a.ffn);
+  const size_t hE = sizeof(float) * E, hQ = sizeof(float) * QW, hI = sizeof(float) * I;
+  auto down = gemv_kernel<T, PRO_VEC, EPI_RESIDUAL, 4>;
+  if (int rc = allow_smem(down, hI)) return rc;
+
+  embed_kernel<T><<<1, kThreads, 0, st>>>(static_cast<const T*>(a.embed), a.tok_in,
+                                          static_cast<const T*>(a.x_emb), E, V, x);
+  LAUNCH_CHECK();
+  for (int l = 0; l < L; ++l) {
+    const float* nm = a.norms + (size_t)l * 2 * E;
+    gemv_kernel<T, PRO_RMS, EPI_STORE, 1><<<cdiv(NQKV, kWarps), kThreads, hE, st>>>(
+        qkv_w + l * NQKV * E_, NQKV, E, x, nm, nullptr, a.rms_eps,
+        a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv, nullptr, nullptr);
+    LAUNCH_CHECK();
+    AttnParams ap{};
+    ap.qkv = qkv;
+    ap.k = static_cast<char*>(a.k) + pane_offset(a.k_kind, sizeof(T), l, a.capacity, KW);
+    ap.v = static_cast<char*>(a.v) + pane_offset(a.v_kind, sizeof(T), l, a.capacity, KW);
+    ap.ks = a.ks ? a.ks + (size_t)l * a.capacity : nullptr;
+    ap.vs = a.vs ? a.vs + (size_t)l * a.capacity : nullptr;
+    ap.length = a.length;
+    ap.cos = a.cos;
+    ap.sin = a.sin;
+    ap.n_pos = a.n_pos;
+    ap.capacity = a.capacity;
+    ap.n_head = a.n_head;
+    ap.q_width = QW;
+    ap.kv_width = KW;
+    ap.group = a.n_head / a.n_kv_head;
+    ap.sm_scale = 1.0f / sqrtf((float)D);
+    ap.quant_eps = a.quant_eps;
+    ap.out = attn;
+    if (int rc = attention<T>(ap, a.k_kind, a.v_kind, D, st)) return rc;
+    gemv_kernel<T, PRO_VEC, EPI_RESIDUAL, 2><<<cdiv(E, kWarps / 2), kThreads, hQ, st>>>(
+        o_w + l * E_ * QW, E, QW, attn, nullptr, nullptr, 0.0f, nullptr, x, nullptr, nullptr);
+    LAUNCH_CHECK();
+    gemv_kernel<T, PRO_RMS, EPI_SWIGLU, 1><<<cdiv(2 * I, kWarps), kThreads, hE, st>>>(
+        gu_w + l * 2 * (size_t)I * E, 2 * I, E, x, nm + E, nullptr, a.rms_eps, nullptr, ffn,
+        nullptr, nullptr);
+    LAUNCH_CHECK();
+    down<<<cdiv(E, kWarps / 4), kThreads, hI, st>>>(
+        down_w + l * E_ * I, E, I, ffn, nullptr, nullptr, 0.0f, nullptr, x, nullptr, nullptr);
+    LAUNCH_CHECK();
+  }
+  gemv_kernel<T, PRO_RMS, EPI_ARGMAX, 1><<<a.lm_blocks, kThreads, hE, st>>>(
+      static_cast<const T*>(a.head), V, E, x, a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
+      a.lm_val, a.lm_idx);
+  LAUNCH_CHECK();
+  argmax_kernel<<<1, kThreads, 0, st>>>(a.lm_val, a.lm_idx, a.lm_blocks, V, a.advance,
+                                        a.tok_out, a.length);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int run(const LlamaArgs* a, void* stream, bool quant) {
+  if (a == nullptr) return (int)cudaErrorInvalidValue;
+  const bool q = a->k_kind != 0 || a->v_kind != 0;
+  const int D = a->head_dim, Hq = a->n_head, Hkv = a->n_kv_head;
+  const bool int4 = a->k_kind == 4 || a->v_kind == 4;
+  // 16-byte weight rows need widths that are multiples of 8 values
+  if (q != quant || (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || a->n_embd % 8 ||
+      a->inter % 8 || a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
+      a->n_pos <= 0 || !a->cos || !a->sin || (q && (!a->ks || !a->vs)) ||
+      (int4 && (Hkv * D / 2) % D))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->dtype == 0) return run_step<float>(*a, st);
+  if (a->dtype == 1) return run_step<__nv_bfloat16>(*a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int elit_llama_megastep(const LlamaArgs* a, void* stream) {
+  return run(a, stream, false);
+}
+
+extern "C" int elit_llama_megastep_quant(const LlamaArgs* a, void* stream) {
+  return run(a, stream, true);
+}
+
+extern "C" const char* elit_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,605 @@
+// Device code shared by the whole-step decode chains (gpt2_megastep.cu,
+// llama_megastep.cu): conversions, 16-byte weight streaming, block
+// reductions, the GEMV kernel with its norm prologues and fused epilogues,
+// decode attention over fp / int8 / half-split int4 panes with
+// quantize-on-write, and the final argmax. Each including source gets its own
+// copy (anonymous namespace); the host sides stay in the sources.
+//
+// Numerics (the JAX kernels' rounding points): the norm output, q, k, v, the
+// attention output, the activation output and every residual add round to the
+// model dtype T; matmul sums and biases stay fp32 until that cast; softmax in
+// fp32. Quantized panes: scores are (q . codes) * k_scale * (1/sqrt(D)), and
+// the probabilities times the V scales round to T before the PV product, as
+// the JAX kernel's MXU inputs do. Quantize-on-write: scale =
+// max(max|x| * (1/qmax), eps) with 1/qmax rounded to fp32, codes =
+// clip(rint(x / scale)) with IEEE division; int4 bytes are 16*q[j] +
+// q[j + W/2] + 8 (high nibble two's complement, low nibble biased).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Elements of T in one 16-byte load, and their unpacking to fp32.
+template <typename T> struct Vec;
+template <> struct Vec<float> { static constexpr int N = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+
+__device__ __forceinline__ void unpack16(const uint4& u, float (&o)[4]) {
+  o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+  o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&o)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little endian: the lower half comes first
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 r;  // read once per step: do not keep it in L1
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
+// acc + the 16 bytes of weights in u . hv[0 : N), in order.
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& u, const float* hv, float acc) {
+  float w[Vec<T>::N];
+  unpack16(u, w);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) acc = fmaf(w[i], hv[i], acc);
+  return acc;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum / max over the block; every thread gets the result. `red` holds kWarps
+// floats of shared memory.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  return t;
+}
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t = fmaxf(t, red[w]);
+  return t;
+}
+
+// (value, index) argmax order: larger value first, then the lower index.
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// -------------------------------------------------------------------- GEMV
+//
+// y[row] = sum_k in[k] * W[row, k] over rows of a row-major [N, K] weight.
+// Prologue: PRO_LN puts LayerNorm(x) (rounded to T) in shared memory, PRO_RMS
+// RMSNorm(x) (the normalised value rounded to T before the gain, the product
+// rounded again), PRO_VEC the input vector. KS warps split one row's K; a
+// block covers kWarps / KS rows per pass and strides over row groups by the
+// grid. The first pass's weights (up to kPrefetch<T> 16-byte chunks a lane)
+// are requested before the prologue, so its latency overlaps the weight
+// stream. Epilogues (`bias` may be null: no bias):
+//   EPI_STORE     out[row] = T(y + b)
+//   EPI_GELU      out[row] = T(gelu(y + b))
+//   EPI_RESIDUAL  out[row] = T(out[row] + T(y + b))   (out is x, in place)
+//   EPI_ARGMAX    per-block first (max, argmax) of y -> part_val/part_idx
+//   EPI_SWIGLU    rows come in (gate, up) pairs 2j, 2j + 1:
+//                 out[j] = T(T(silu(y_gate)) * T(y_up)), silu in fp32
+
+enum { PRO_LN = 0, PRO_VEC = 1, PRO_RMS = 2 };
+template <typename T> constexpr int kPrefetch = 24 / Vec<T>::N;  // 3 in bf16, 6 in fp32
+enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_ARGMAX = 3, EPI_SWIGLU = 4 };
+
+template <typename T>
+__device__ void layer_norm_to_shared(const T* __restrict__ x, const float* __restrict__ g,
+                                     const float* __restrict__ b, int E, float eps, float* h,
+                                     float* red) {
+  float s = 0.0f;
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    const float v = to_f32(x[e]);
+    h[e] = v;
+    s += v;
+  }
+  const float mean = block_sum(s, red) / (float)E;
+  float s2 = 0.0f;
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    const float d = h[e] - mean;
+    s2 += d * d;
+  }
+  const float r = rsqrtf(block_sum(s2, red) / (float)E + eps);
+  for (int e = threadIdx.x; e < E; e += kThreads)
+    h[e] = round_to<T>((h[e] - mean) * r * g[e] + b[e]);
+}
+
+template <typename T>
+__device__ void rms_norm_to_shared(const T* __restrict__ x, const float* __restrict__ g, int E,
+                                   float eps, float* h, float* red) {
+  float s = 0.0f;
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    const float v = to_f32(x[e]);
+    h[e] = v;
+    s += v * v;
+  }
+  const float r = rsqrtf(block_sum(s, red) / (float)E + eps);
+  for (int e = threadIdx.x; e < E; e += kThreads)
+    h[e] = round_to<T>(round_to<T>(h[e] * r) * round_to<T>(g[e]));
+}
+
+__device__ __forceinline__ float gelu_tanh(float m) {
+  return 0.5f * m * (1.0f + tanhf(0.7978845608028654f * (m + 0.044715f * (m * m * m))));
+}
+
+__device__ __forceinline__ float silu(float g) { return g * (1.0f / (1.0f + expf(-g))); }
+
+template <typename T, int PRO, int EPI, int KS>
+__global__ void __launch_bounds__(kThreads)
+gemv_kernel(const T* __restrict__ W, int N, int K, const T* __restrict__ in,
+            const float* __restrict__ ln_g, const float* __restrict__ ln_b, float ln_eps,
+            const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ part_val,
+            int* __restrict__ part_idx) {
+  constexpr int RPB = kWarps / KS;  // rows per block and pass
+  constexpr int VN = Vec<T>::N;
+  static_assert(EPI != EPI_SWIGLU || RPB % 2 == 0, "SwiGLU pairs rows within a pass");
+  extern __shared__ float h[];  // [K]
+  __shared__ float red[kWarps];
+  __shared__ float part[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = warp / KS, ks = warp % KS;
+  const int n_chunks = K / VN;
+  const int c0 = ks * n_chunks / KS, c1 = (ks + 1) * n_chunks / KS;
+
+  uint4 pre[kPrefetch<T>];
+  if (blockIdx.x * RPB + r < N) {
+    const uint4* wr = reinterpret_cast<const uint4*>(W + (size_t)(blockIdx.x * RPB + r) * K);
+#pragma unroll
+    for (int i = 0; i < kPrefetch<T>; ++i)
+      if (c0 + lane + 32 * i < c1) pre[i] = load_stream(wr + c0 + lane + 32 * i);
+  }
+  if (PRO == PRO_LN) {
+    layer_norm_to_shared<T>(in, ln_g, ln_b, K, ln_eps, h, red);
+  } else if (PRO == PRO_RMS) {
+    rms_norm_to_shared<T>(in, ln_g, K, ln_eps, h, red);
+  } else {
+    for (int e = threadIdx.x; e < K; e += kThreads) h[e] = to_f32(in[e]);
+  }
+  __syncthreads();
+
+  auto row_sum = [&](int t) {
+    float y = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KS; ++j) y += part[t * KS + j];
+    return y;
+  };
+  float best = -INFINITY;
+  int best_idx = 0;
+  for (int row0 = blockIdx.x * RPB; row0 < N; row0 += gridDim.x * RPB) {
+    const int row = row0 + r;
+    float acc = 0.0f;
+    if (row < N) {
+      const uint4* wr = reinterpret_cast<const uint4*>(W + (size_t)row * K);
+      int c = c0 + lane;
+      if (row0 == blockIdx.x * RPB) {  // the first pass: the prefetched chunks
+#pragma unroll
+        for (int i = 0; i < kPrefetch<T>; ++i, c += 32)
+          if (c < c1) acc = dot16<T>(pre[i], h + c * VN, acc);
+      }
+#pragma unroll 4
+      for (; c < c1; c += 32) acc = dot16<T>(load_stream(wr + c), h + c * VN, acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) part[warp] = acc;
+    __syncthreads();
+    if (EPI == EPI_SWIGLU) {
+      if (threadIdx.x < RPB / 2 && row0 + 2 * threadIdx.x + 1 < N) {
+        const float gate = round_to<T>(silu(row_sum(2 * threadIdx.x)));
+        const float up = round_to<T>(row_sum(2 * threadIdx.x + 1));
+        out[row0 / 2 + threadIdx.x] = from_f32<T>(gate * up);
+      }
+    } else if (threadIdx.x < RPB && row0 + threadIdx.x < N) {
+      const int o = row0 + threadIdx.x;
+      const float y = row_sum(threadIdx.x);
+      const float b = bias != nullptr ? bias[o] : 0.0f;
+      if (EPI == EPI_STORE) {
+        out[o] = from_f32<T>(y + b);
+      } else if (EPI == EPI_GELU) {
+        out[o] = from_f32<T>(gelu_tanh(y + b));
+      } else if (EPI == EPI_RESIDUAL) {
+        out[o] = from_f32<T>(to_f32(out[o]) + round_to<T>(y + b));
+      } else if (better(y, o, best, best_idx)) {
+        best = y;
+        best_idx = o;
+      }
+    }
+    __syncthreads();  // part[] is rewritten by the next pass
+  }
+  if (EPI == EPI_ARGMAX) {
+    __shared__ float bv[RPB];
+    __shared__ int bi[RPB];
+    if (threadIdx.x < RPB) {
+      bv[threadIdx.x] = best;
+      bi[threadIdx.x] = best_idx;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = bv[0];
+      int i = bi[0];
+      for (int t = 1; t < RPB; ++t)
+        if (better(bv[t], bi[t], v, i)) { v = bv[t]; i = bi[t]; }
+      part_val[blockIdx.x] = v;
+      part_idx[blockIdx.x] = i;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+argmax_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx, int n,
+              int V, int advance, int* __restrict__ tok_out, int* __restrict__ length) {
+  __shared__ float sv[kWarps];
+  __shared__ int si[kWarps];
+  float v = -INFINITY;
+  int i = 0;
+  for (int t = threadIdx.x; t < n; t += kThreads)
+    if (better(part_val[t], part_idx[t], v, i)) { v = part_val[t]; i = part_idx[t]; }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (better(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) { sv[warp] = v; si[warp] = i; }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w)
+      if (better(sv[w], si[w], v, i)) { v = sv[w]; i = si[w]; }
+    if (advance) {
+      i = min(max(i, 0), V - 1);
+      *length += 1;
+    }
+    *tok_out = i;
+  }
+}
+
+// --------------------------------------------------------------- attention
+//
+// KIND 0: pane rows of W values in T; 8: int8 codes; 4: half-split int4, a
+// row of W/2 bytes where byte j holds lane j (high nibble) and lane j + W/2
+// (low nibble). A head lies in one half (checked by the host: (W/2) % D == 0).
+
+template <typename T, int KIND>
+struct Pane {
+  const void* base;
+  int W;
+  // Lane-values [d0, d0 + n) of head h in row c, as fp32 (codes unscaled).
+  template <int NV>
+  __device__ __forceinline__ void load(int c, int h, int D, int d0, float (&o)[NV]) const {
+    const int e0 = h * D + d0;
+    if constexpr (KIND == 0) {
+      const T* p = static_cast<const T*>(base) + (size_t)c * W + e0;
+      if constexpr (NV == 8) {  // 8 aligned values: one or two 16-byte loads
+        const uint4* p4 = reinterpret_cast<const uint4*>(p);
+        if constexpr (sizeof(T) == 2) {
+          unpack16(p4[0], o);
+        } else {
+          float a[4], b[4];
+          unpack16(p4[0], a);
+          unpack16(p4[1], b);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) { o[i] = a[i]; o[i + 4] = b[i]; }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) o[i] = to_f32(p[i]);
+      }
+    } else {
+      const int half = W / 2;
+      const bool hi = KIND == 4 && e0 < half;
+      const int8_t* p = static_cast<const int8_t*>(base) +
+                        (KIND == 8 ? (size_t)c * W + e0
+                                   : (size_t)c * half + (e0 < half ? e0 : e0 - half));
+      auto value = [hi](int byte) {  // byte: the stored int8, sign-extended
+        return (float)(KIND == 8 ? byte : (hi ? (byte >> 4) : ((byte & 15) - 8)));
+      };
+      if constexpr (NV == 8) {  // 8 aligned bytes: one load
+        const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i] = value((int8_t)(w.x >> (8 * i)));
+          o[i + 4] = value((int8_t)(w.y >> (8 * i)));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) o[i] = value(p[i]);
+      }
+    }
+  }
+};
+
+// Quantize-on-write of one token's row x [W] (block-wide), or a plain copy.
+// x holds values of T (as T, or as fp32 already rounded to T).
+template <typename T, int KIND, typename S>
+__device__ void write_row(const S* __restrict__ x, void* pane, float* scales, int row, int W,
+                          float eps, float* red) {
+  if constexpr (KIND == 0) {
+    T* dst = static_cast<T*>(pane) + (size_t)row * W;
+    for (int e = threadIdx.x; e < W; e += kThreads) dst[e] = from_f32<T>(to_f32(x[e]));
+  } else {
+    float m = 0.0f;
+    for (int e = threadIdx.x; e < W; e += kThreads) m = fmaxf(m, fabsf(to_f32(x[e])));
+    m = block_max(m, red);
+    constexpr float inv_qmax = KIND == 8 ? 1.0f / 127.0f : 1.0f / 7.0f;
+    const float s = fmaxf(m * inv_qmax, eps);
+    if constexpr (KIND == 8) {
+      int8_t* dst = static_cast<int8_t*>(pane) + (size_t)row * W;
+      for (int e = threadIdx.x; e < W; e += kThreads)
+        dst[e] = (int8_t)fminf(fmaxf(rintf(to_f32(x[e]) / s), -127.0f), 127.0f);
+    } else {
+      const int half = W / 2;
+      int8_t* dst = static_cast<int8_t*>(pane) + (size_t)row * half;
+      for (int j = threadIdx.x; j < half; j += kThreads) {
+        const int hi = (int)fminf(fmaxf(rintf(to_f32(x[j]) / s), -8.0f), 7.0f);
+        const int lo = (int)fminf(fmaxf(rintf(to_f32(x[j + half]) / s), -8.0f), 7.0f);
+        dst[j] = (int8_t)(16 * hi + lo + 8);
+      }
+    }
+    if (threadIdx.x == 0) scales[row] = s;
+  }
+}
+
+// Value d of one head's vector (D values of T): as stored, or, with RoPE
+// tables (cs/sn: the position's cos/sin rows, fp32 [D]), rotate-half RoPE of
+// the stored value computed in fp32 without fused multiply-adds and rounded
+// to T: x[d] cos[d] + r[d] sin[d], r = (-x[d + D/2], x[d - D/2]).
+template <typename T>
+__device__ __forceinline__ float head_value(const T* __restrict__ head, int d, int D,
+                                            const float* cs, const float* sn) {
+  const float a = to_f32(head[d]);
+  if (cs == nullptr) return a;
+  const int half = D / 2;
+  const float r = d < half ? -to_f32(head[d + half]) : to_f32(head[d - half]);
+  return round_to<T>(__fadd_rn(__fmul_rn(a, cs[d]), __fmul_rn(r, sn[d])));
+}
+
+// One layer's decode attention. The current token's q | k | v is `qkv`
+// ([QW + 2 KW] in T, QW = n_head * D, KW = (n_head / group) * D): query head
+// h reads K/V head h / group (grouped-query attention; group 1 is multi-head
+// attention). With RoPE tables, q and k are rotated at position
+// min(length, n_pos - 1) as they are read.
+struct AttnParams {
+  const void* qkv;
+  void* k;             // this layer's panes: [C, KW] in T, int8 [C, KW], or int4 [C, KW/2]
+  void* v;
+  float* ks;           // this layer's per-token scales [C] (quantized panes)
+  float* vs;
+  const int* length;   // [1]: rows t < length are visible; row `length` is written
+  const float* cos;    // [n_pos, D] fp32 RoPE tables, or null (no RoPE)
+  const float* sin;
+  int n_pos, capacity, n_head, q_width, kv_width, group;
+  float sm_scale, quant_eps;
+  void* out;           // [QW] in T
+};
+
+// Blocks 0..H-1: attention of query head blockIdx.x. Block H: writes row
+// `length` of the layer's panes (never read by this step; with RoPE it first
+// rotates the whole k row into shared memory). Phase 1: scores of the visible
+// rows into shared memory, D/8 lanes per row (8 dims each, one shuffle
+// tree). Phase 2: max, exp, sum. Phase 3: PV in the same lane layout, summed
+// over the warp's row slots by shuffles and over the warps through shared
+// memory; the current token (from qkv) enters the same softmax.
+template <typename T, int KK, int VK, int D>
+__global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p) {
+  constexpr int LPR = D / 8;        // lanes per row in phase 1
+  constexpr int RPW = 32 / LPR;     // rows per warp and pass
+  constexpr int DPT = D / 32;       // dims per lane of the current token's score
+  constexpr bool QUANT = KK != 0;
+  extern __shared__ float sc[];     // [C] scores, then weights (writer: [KW] roped k)
+  __shared__ float red[kWarps];
+  __shared__ float pv[kWarps][D];
+  __shared__ float s_cur_sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int C = p.capacity, KW = p.kv_width;
+  const int raw_len = *p.length;
+  const int len = min(max(raw_len, 0), C);
+  const T* q = static_cast<const T*>(p.qkv);
+  const T* kc = q + p.q_width;
+  const T* vc = kc + KW;
+  const float* cs = nullptr;
+  const float* sn = nullptr;
+  if (p.cos != nullptr) {
+    const int pos = min(max(raw_len, 0), p.n_pos - 1);
+    cs = p.cos + (size_t)pos * D;
+    sn = p.sin + (size_t)pos * D;
+  }
+
+  if (blockIdx.x == p.n_head) {  // the new row of this layer
+    if (raw_len >= 0 && raw_len < C) {
+      if (cs != nullptr) {
+        for (int e = threadIdx.x; e < KW; e += kThreads)
+          sc[e] = head_value<T>(kc + (e / D) * D, e % D, D, cs, sn);
+        __syncthreads();
+        write_row<T, KK>(sc, p.k, p.ks, raw_len, KW, p.quant_eps, red);
+      } else {
+        write_row<T, KK>(kc, p.k, p.ks, raw_len, KW, p.quant_eps, red);
+      }
+      write_row<T, VK>(vc, p.v, p.vs, raw_len, KW, p.quant_eps, red);
+    }
+    return;
+  }
+  const int h = blockIdx.x, hk = h / p.group;
+  const T* qh = q + h * D;
+  const T* kh = kc + hk * D;
+  const Pane<T, KK> kpane{p.k, KW};
+  const Pane<T, VK> vpane{p.v, KW};
+  const float* ks = p.ks;
+  const float* vs = p.vs;
+
+  // phase 1: scores
+  const int g = lane / LPR, d0 = (lane % LPR) * 8;
+  float u[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) u[i] = head_value<T>(qh, d0 + i, D, cs, sn);
+  for (int c0 = warp * RPW; c0 < len; c0 += kWarps * RPW) {
+    const int c = c0 + g;
+    float kv[8];
+    kpane.template load<8>(min(c, len - 1), hk, D, d0, kv);
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dot = fmaf(u[i], kv[i], dot);
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (lane % LPR == 0 && c < len) sc[c] = QUANT ? dot * ks[c] * p.sm_scale : dot * p.sm_scale;
+  }
+  if (warp == 0) {  // the current token, full precision
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      const int d = lane * DPT + i;
+      dot = fmaf(head_value<T>(qh, d, D, cs, sn), head_value<T>(kh, d, D, cs, sn), dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) s_cur_sh = dot * p.sm_scale;
+  }
+  __syncthreads();
+
+  // phase 2: softmax statistics
+  const float s_cur = s_cur_sh;
+  float m = -INFINITY;
+  for (int c = threadIdx.x; c < len; c += kThreads) m = fmaxf(m, sc[c]);
+  const float mx = fmaxf(block_max(m, red), s_cur);
+  float l = 0.0f;
+  for (int c = threadIdx.x; c < len; c += kThreads) {
+    const float pr = expf(sc[c] - mx);
+    l += pr;
+    sc[c] = QUANT ? round_to<T>(pr * vs[c]) : pr;
+  }
+  const float p_cur = expf(s_cur - mx);
+  const float denom = block_sum(l, red) + p_cur;  // syncs: sc[] is complete
+
+  // phase 3: PV
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
+#pragma unroll 2
+  for (int c0 = warp * RPW; c0 < len; c0 += kWarps * RPW) {
+    const int c = c0 + g;
+    float vv[8];
+    vpane.template load<8>(min(c, len - 1), hk, D, d0, vv);
+    const float w = c < len ? sc[c] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = fmaf(w, vv[i], acc[i]);
+  }
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) pv[warp][d0 + i] = acc[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    float num = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) num += pv[w][d];
+    num += p_cur * to_f32(vc[hk * D + d]);
+    static_cast<T*>(p.out)[h * D + d] = from_f32<T>(num / denom);
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+#define LAUNCH_CHECK()                          \
+  do {                                          \
+    const cudaError_t e_ = cudaGetLastError();  \
+    if (e_ != cudaSuccess) return (int)e_;      \
+  } while (0)
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+template <typename T, int KK, int VK>
+int launch_attention(const AttnParams& p, int head_dim, cudaStream_t st) {
+  const int rows = p.cos != nullptr && p.kv_width > p.capacity ? p.kv_width : p.capacity;
+  const size_t smem = sizeof(float) * (size_t)rows;  // scores; the writer's roped k
+  if (head_dim == 64)
+    attention_kernel<T, KK, VK, 64><<<p.n_head + 1, kThreads, smem, st>>>(p);
+  else if (head_dim == 128)
+    attention_kernel<T, KK, VK, 128><<<p.n_head + 1, kThreads, smem, st>>>(p);
+  else
+    return (int)cudaErrorInvalidValue;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// The attention kernel of the panes' storage kinds (0 = T, 8 = int8,
+// 4 = half-split int4; K and V both T, or both quantized).
+template <typename T>
+int attention(const AttnParams& p, int k_kind, int v_kind, int head_dim, cudaStream_t st) {
+  if (k_kind == 0 && v_kind == 0) return launch_attention<T, 0, 0>(p, head_dim, st);
+  if (k_kind == 8 && v_kind == 8) return launch_attention<T, 8, 8>(p, head_dim, st);
+  if (k_kind == 4 && v_kind == 4) return launch_attention<T, 4, 4>(p, head_dim, st);
+  if (k_kind == 8 && v_kind == 4) return launch_attention<T, 8, 4>(p, head_dim, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Byte offset of layer `layer` in a [L, C, W] pane of storage `kind`.
+size_t pane_offset(int kind, size_t item, int layer, int C, int W) {
+  const size_t row = kind == 0 ? item * W : (kind == 8 ? W : W / 2);
+  return (size_t)layer * C * row;
+}
+
+}  // namespace

@@ -1,8 +1,9 @@
 """Inference engine (PyTorch port of efficient_llm_inference_tpu/engine/
 engine.py, the full_cache and quant_* methods).
 
-`InferenceEngine` owns a GPT-2 model as a dict of tensors and exposes the
-JAX package's generation API and `benchmark_method` metric-dict schema.
+`InferenceEngine` owns a GPT-2 or Llama/Qwen model as a dict of tensors and
+exposes the JAX package's generation API and `benchmark_method` metric-dict
+schema.
 Generation runs prefill over the bucket-padded prompt, then a greedy decode
 loop over a static-capacity cache. Eligible greedy batch-1 decode (full_cache,
 and quant_* at per_token granularity) runs the whole-step megakernel when
@@ -28,9 +29,11 @@ from ..core.utils import (
 )
 from ..data.tokenizer import ByteTokenizer, load_tokenizer
 from ..models import gpt2 as gpt2_mod
+from ..models import llama as llama_mod
 from ..models.registry import ModelSpec, spec_by_name
-from ..ops.megakernel import mega_supported, pack_gpt2_mega
-from ..ops.megakernel_quant import mega_quant_supported
+from ..ops import megakernel as mk
+from ..ops import megakernel_llama as ml
+from ..ops import megakernel_quant as mq
 from .generate import SamplingParams, bucket_for, make_generate
 
 VALID_METHODS = [
@@ -48,6 +51,12 @@ VALID_METHODS = [
     "budget_cache",
 ]
 PORTED_METHODS = ("full_cache", "quant_int8", "quant_int4", "quant_mixed")
+# Per model family: (megakernel eligibility, quantized-KV eligibility, packer).
+_MEGA = {
+    "gpt2": (mk.mega_supported, mq.mega_quant_supported, mk.pack_gpt2_mega),
+    "llama": (ml.mega_supported, mq.llama_mega_quant_supported,
+              ml.pack_llama_mega),
+}
 
 # Paths where the reference truncates prompts at prompt_cap.
 _TRUNCATING_METHODS = {
@@ -66,7 +75,7 @@ def _check_method(method: str) -> None:
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported yet: the eviction policies and "
-            "the rest of the 12-method registry are ROADMAP.md Queue 1 item 6")
+            "the rest of the 12-method registry are ROADMAP.md Queue 1 item 5")
 
 
 class InferenceEngine:
@@ -85,13 +94,16 @@ class InferenceEngine:
     def from_model_name(cls, name: str = "gpt2", tokenizer=None,
                         config: Optional[Config] = None,
                         params: Optional[dict] = None) -> "InferenceEngine":
-        """Random-init (from `config.seed`) or given params, on
-        `config.device` (CUDA unless the config says otherwise)."""
+        """Random-init (from `config.seed`, drawn on the host) or given
+        full-precision params, on `config.device` (CUDA unless the config
+        says otherwise)."""
         config = config or Config(model_name=name)
         spec = spec_by_name(name)
         if params is None:
-            params = gpt2_mod.init_gpt2_params(
-                config.generator(), spec.config, config.dtype, config.device)
+            init = (llama_mod.init_llama_params if spec.name == "llama"
+                    else gpt2_mod.init_gpt2_params)
+            params = init(config.generator(), spec.config, config.dtype,
+                          config.device)
         if tokenizer is None:
             tokenizer = load_tokenizer(name)
         return cls(spec, params, tokenizer, config)
@@ -119,7 +131,7 @@ class InferenceEngine:
         if sampling is not None and not sampling.greedy:
             raise NotImplementedError(
                 "sampled decoding is not ported yet (ROADMAP.md Queue 1 "
-                "item 5); pass sampling=None for greedy")
+                "item 6); pass sampling=None for greedy")
         key = (method, bucket, max_new, tuple(sorted(kw.items())), allow_mega)
         if key in self._fns:
             return self._fns[key]
@@ -151,45 +163,49 @@ class InferenceEngine:
         return (self.config.resolved_megakernel()
                 and self.config.batch_size == 1
                 and (sampling is None or sampling.greedy)
-                and self.model.name == "gpt2")
+                and self.model.name in _MEGA)
 
     def _packed(self) -> Optional[dict]:
         if self._mega_packed is None:
-            self._mega_packed = pack_gpt2_mega(self.params, self.model.config)
+            pack = _MEGA[self.model.name][2]
+            self._mega_packed = pack(self.params, self.model.config)
         return self._mega_packed
 
     def _mega_spec(self, cap: int, sampling: Optional[SamplingParams]
                    ) -> Optional[dict]:
         """Whole-step megakernel eligibility for full_cache decode (greedy,
-        batch 1, GPT-2, weights packable; ops/megakernel.py)."""
+        batch 1, GPT-2 or Llama family, weights packable; ops/megakernel.py,
+        ops/megakernel_llama.py)."""
         if not self._mega_eligible(sampling):
             return None
         cap8 = -(-cap // 8) * 8  # capacity % 8 == 0, as the JAX engine
-        if not mega_supported(self.model.config, cap8, self.params):
+        supported = _MEGA[self.model.name][0]
+        if not supported(self.model.config, cap8, self.params):
             return None
         packed = self._packed()
         if packed is None:
             return None
-        return {"packed": packed, "cfg": self.model.config, "capacity": cap8}
+        return {"packed": packed, "cfg": self.model.config, "capacity": cap8,
+                "kind": self.model.name}
 
     def _mega_quant_spec(self, cap: int, sampling: Optional[SamplingParams],
                          kv_mode: str, kw: dict) -> Optional[dict]:
         """Quantized-KV megakernel eligibility for quant_int8/int4/mixed
-        decode (greedy, batch 1, GPT-2, per_token scales;
+        decode (greedy, batch 1, GPT-2 or Llama family, per_token scales;
         ops/megakernel_quant.py). per_head keeps the megakernel-off path."""
         if not self._mega_eligible(sampling):
             return None
         if kw.get("granularity", "per_token") != "per_token":
             return None
         cap8 = -(-cap // 8) * 8
-        if not mega_quant_supported(self.model.config, cap8, self.params,
-                                    kv_mode):
+        supported = _MEGA[self.model.name][1]
+        if not supported(self.model.config, cap8, self.params, kv_mode):
             return None
         packed = self._packed()
         if packed is None:
             return None
         return {"packed": packed, "cfg": self.model.config, "capacity": cap8,
-                "kv_mode": kv_mode}
+                "kind": self.model.name, "kv_mode": kv_mode}
 
     def _encode(self, prompt: str, method: str) -> List[int]:
         ids = self.tokenizer.encode(prompt)

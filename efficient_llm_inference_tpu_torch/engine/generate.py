@@ -7,11 +7,14 @@ Two decode loops, as in the JAX package:
   whose tokens stay on the device between steps (argmax feeds the next
   embedding lookup);
 * the whole-step megakernel (`make_generate(..., mega=...)`, JAX
-  `_mega_decode_body` / `_mega_quant_decode_body`): after the prefill the
-  cache converts once to the kernels' [L, C, E] panes, and each step is one
-  launch of ops/megakernel.py's kernel chain that embeds the token at
-  position min(length, n_positions - 1), runs the step, clamps the token to
-  [0, V-1] and increments `length`, all on the device. On a card the N steps
+  `_mega_decode_body` / `_mega_quant_decode_body` and their Llama forms):
+  after the prefill the cache converts once to the kernels' [L, C, W]
+  panes, and each step is one launch of the model's kernel chain
+  (ops/megakernel.py for GPT-2, ops/megakernel_llama.py for Llama/Qwen)
+  that embeds the token (GPT-2 adds the position embedding of
+  min(length, n_positions - 1); Llama reads the RoPE tables' row of that
+  position), runs the step, clamps the token to [0, V-1] and increments
+  `length`, all on the device. On a card the N steps
   are captured once per built configuration as a CUDA graph and replayed
   per generation (the port's counterpart of the JAX `jax.lax.scan` under
   `jax.jit`); on the CPU the steps run the plain versions in a loop.
@@ -29,24 +32,22 @@ from typing import List, Optional
 import torch
 
 from ..models.registry import ModelSpec
+from ..ops import megakernel_llama as ml
+from ..ops import megakernel_quant as mq
 from ..ops.megakernel import (
     MegaDecodeGraph,
+    StepLauncher,
     gpt2_megastep,
     gpt2_megastep_plain,
     to_mega_layout,
 )
-from ..ops.megakernel_quant import (
-    _kv_kinds,
-    gpt2_megastep_quant,
-    gpt2_megastep_quant_plain,
-    to_mega_quant_layout,
-)
+from ..ops.megakernel_quant import _kv_kinds, to_mega_quant_layout
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Decode-time sampling. Only greedy decoding (temperature 0) is ported;
-    sampled decoding is ROADMAP.md Queue 1 item 5's follow-up."""
+    sampled decoding is ROADMAP.md Queue 1 item 6."""
 
     temperature: float = 0.0
 
@@ -112,7 +113,8 @@ def make_generate(model: ModelSpec, strategy, max_new_tokens: int,
     -> (tokens [B, N], final cache length, step_logits).
 
     With `mega` (engine._mega_spec / _mega_quant_spec: "packed" weights,
-    "cfg", "capacity", and "kv_mode" + "eps" for quantized panes) the decode
+    "cfg", "capacity", the model "kind" ("gpt2" or "llama"), and "kv_mode" +
+    "eps" for quantized panes) the decode
     runs the whole-step megakernel, which returns no logits: step_logits is
     empty and teacher forcing (`forced`) is refused.
     """
@@ -154,6 +156,27 @@ def _mega_panes(cache: dict, kv_mode: Optional[str]) -> dict:
     }
 
 
+# Per model kind: the step's launcher, its fp and quantized-pane wrappers
+# (each counts its launches) and their plain versions.
+_MEGA_STEPS = {
+    "gpt2": (StepLauncher, gpt2_megastep, mq.gpt2_megastep_quant,
+             gpt2_megastep_plain, mq.gpt2_megastep_quant_plain),
+    "llama": (ml.LlamaStepLauncher, ml.llama_megastep, mq.llama_megastep_quant,
+              ml.llama_megastep_plain, mq.llama_megastep_quant_plain),
+}
+
+
+def _embed(model: ModelSpec, params: dict, tok: torch.Tensor, length: int):
+    """[1, E] input of the plain step: GPT-2 adds the position embedding of
+    min(length, n_positions - 1); Llama takes the token's row (its step
+    applies RoPE at that position)."""
+    if model.name == "llama":
+        return params["embed"][tok.long()][None]
+    wte, wpe = params["wte"], params["wpe"]
+    pos = min(length, model.n_positions - 1)
+    return (wte[tok.long()] + wpe[pos])[None].to(wte.dtype)
+
+
 def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
     """decode(params, cache, last_logits) -> tokens [N] over megakernel
     steps (greedy, batch 1). The tokens emitted are the prefill's argmax and
@@ -163,15 +186,15 @@ def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
     kv_mode = mega.get("kv_mode")
     eps = mega.get("eps", 1e-8)
     V = model.vocab_size
+    launcher, fp_step, quant_step, fp_plain, quant_plain = _MEGA_STEPS[mega["kind"]]
     graph = None  # the captured loop (the configuration's device is fixed)
 
     def step_plain(panes, length, x):
         if kv_mode:
-            return gpt2_megastep_quant_plain(
-                packed, panes["k"], panes["v"], panes["ks"], panes["vs"],
-                length, x, cfg=cfg, kv_mode=kv_mode, eps=eps)[0]
-        return gpt2_megastep_plain(packed, panes["k"], panes["v"], length, x,
-                                   cfg=cfg)[0]
+            return quant_plain(packed, panes["k"], panes["v"], panes["ks"],
+                               panes["vs"], length, x, cfg=cfg, kv_mode=kv_mode,
+                               eps=eps)[0]
+        return fp_plain(packed, panes["k"], panes["v"], length, x, cfg=cfg)[0]
 
     def decode(params, cache, last_logits):
         nonlocal graph
@@ -184,18 +207,16 @@ def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
                 static = {n: torch.empty_like(t) for n, t in panes.items()}
                 graph = MegaDecodeGraph(
                     packed, cfg, max_new_tokens, static,
-                    gpt2_megastep_quant if kv_mode else gpt2_megastep,
+                    quant_step if kv_mode else fp_step, launcher=launcher,
                     k_kind=k_kind, v_kind=v_kind, quant_eps=eps)
             for name, t in panes.items():
                 graph.panes[name].copy_(t)
             return graph.run(tok0, length).clone()
-        wte, wpe = params["wte"], params["wpe"]
         toks, tok = [], tok0
         for _ in range(max_new_tokens):
             toks.append(tok)
-            pos = min(length, model.n_positions - 1)
-            x = (wte[tok.long()] + wpe[pos])[None].to(wte.dtype)
-            tok = step_plain(panes, length, x).clamp(0, V - 1)
+            tok = step_plain(panes, length, _embed(model, params, tok, length))
+            tok = tok.clamp(0, V - 1)
             length += 1
         return torch.stack(toks)
 

@@ -109,28 +109,30 @@ def init_gpt2_params(generator: torch.Generator, cfg: GPT2Config,
     }
 
 
+def convert_tree(tree: Mapping, shapes: dict, dtype, device, path: str = "") -> dict:
+    """A nested dict of arrays -> the same dict of tensors in `dtype` on
+    `device`, its keys and shapes checked against `shapes`."""
+    if set(tree) != set(shapes):
+        raise ValueError(f"{path or 'params'}: keys {sorted(tree)} != "
+                         f"{sorted(shapes)}")
+    out = {}
+    for k, shape in shapes.items():
+        if isinstance(shape, dict):
+            out[k] = convert_tree(tree[k], shape, dtype, device, f"{path}{k}.")
+            continue
+        a = np.asarray(tree[k])
+        if a.shape != shape:
+            raise ValueError(f"{path}{k}: shape {a.shape} != {shape}")
+        out[k] = torch.from_numpy(a.astype(np.float32)).to(dtype).to(device)
+    return out
+
+
 def params_from_jax(np_params: Mapping, cfg: GPT2Config,
                     dtype=torch.float32, device="cuda") -> dict:
     """The JAX package's stacked-layer GPT-2 param dict, given as numpy
     arrays (e.g. `jax.tree.map(np.asarray, params)`), as the port's dict of
     tensors. Shapes are checked against `cfg`."""
-
-    def convert(tree, shapes, path):
-        if set(tree) != set(shapes):
-            raise ValueError(f"{path or 'params'}: keys {sorted(tree)} != "
-                             f"{sorted(shapes)}")
-        out = {}
-        for k, shape in shapes.items():
-            if isinstance(shape, dict):
-                out[k] = convert(tree[k], shape, f"{path}{k}.")
-                continue
-            a = np.asarray(tree[k])
-            if a.shape != shape:
-                raise ValueError(f"{path}{k}: shape {a.shape} != {shape}")
-            out[k] = torch.from_numpy(a.astype(np.float32)).to(dtype).to(device)
-        return out
-
-    return convert(np_params, param_shapes(cfg), "")
+    return convert_tree(np_params, param_shapes(cfg), dtype, device)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):

@@ -1,5 +1,6 @@
 """Model registry: a uniform functional interface over model families
-(port of efficient_llm_inference_tpu/models/registry.py, GPT-2 family)."""
+(port of efficient_llm_inference_tpu/models/registry.py: the GPT-2 and
+Llama/Qwen families)."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ class ModelSpec:
     n_layer: int
     n_head: int
     head_dim: int
-    n_kv_head: int  # == n_head for multi-head attention
+    n_kv_head: int  # == n_head for multi-head attention; < n_head for GQA
 
 
 def gpt2_spec(cfg: gpt2_mod.GPT2Config) -> ModelSpec:
@@ -55,8 +56,12 @@ GPT2_SIZES = {
 def spec_by_name(name: str) -> ModelSpec:
     if name in GPT2_SIZES:
         return gpt2_spec(GPT2_SIZES[name]())
-    if name.startswith(("llama", "qwen", "Qwen", "mixtral")):
+    if name.startswith("llama") or name.lower().startswith("qwen"):
+        from . import llama as llama_mod
+
+        return llama_mod.llama_spec(llama_mod.LlamaConfig.by_name(name))
+    if name.startswith("mixtral"):
         raise NotImplementedError(
-            f"{name}: the Llama/Qwen/Mixtral families are not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+            f"{name}: the Mixtral family is not ported yet (ROADMAP.md, "
+            "Queue 1 item 10)")
     raise ValueError(f"Unknown model: {name}")

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 Each `csrc/<name>.cu` compiles on its own into `build/cuda/<name>-<hash>.so`
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared headers `csrc/*.cuh` and the flags,
+so an edited source or header rebuilds).
 The first `load` builds every source that is missing, one nvcc process per
 source, all started together. Sources have a plain C interface and include
 no PyTorch header, so a build takes seconds.
@@ -21,7 +22,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = ("quantize_rows", "fused_quant_attention", "gpt2_megastep")
+SOURCES = ("quantize_rows", "fused_quant_attention", "gpt2_megastep",
+           "llama_megastep")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +44,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 

@@ -177,6 +177,28 @@ def plain_step(packed: dict, cfg, x_emb: torch.Tensor, attend):
     return logits, torch.stack(new_k), torch.stack(new_v)
 
 
+def attend_plain(q, kc, vc, k_l, v_l, length: int, n_kv_head: int):
+    """Decode attention of one layer over fp panes, in fp32: the query heads
+    q [Hq*D] (grouped onto n_kv_head K/V heads) over the pane rows
+    t < length of k_l/v_l [C, Hkv*D], with the current token's kc/vc
+    [Hkv*D] merged into the same softmax. Returns [Hq*D] fp32."""
+    C = k_l.shape[0]
+    G, D = q.numel() // kc.numel(), kc.numel() // n_kv_head
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(n_kv_head, G, D)
+    visible = torch.arange(C, device=k_l.device) < length
+    scores = torch.einsum("ckd,kgd->kgc", k_l.float().reshape(C, n_kv_head, D), qf)
+    scores = torch.where(visible, scores * scale, NEG_INF)
+    s_cur = (kc.float().reshape(n_kv_head, 1, D) * qf).sum(-1, keepdim=True) * scale
+    mx = torch.maximum(scores.amax(-1, keepdim=True), s_cur)
+    p = torch.exp(scores - mx)
+    p_cur = torch.exp(s_cur - mx)
+    denom = p.sum(-1, keepdim=True) + p_cur
+    ao = torch.einsum("kgc,ckd->kgd", p, v_l.float().reshape(C, n_kv_head, D))
+    ao = ao + p_cur * vc.float().reshape(n_kv_head, 1, D)
+    return (ao / denom).reshape(-1)
+
+
 def gpt2_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
                         length, x_emb: torch.Tensor, *, cfg,
                         return_logits: bool = False):
@@ -184,25 +206,11 @@ def gpt2_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
     device: returns (token int32 [], k, v), with row `length` of every
     layer of k/v written in place; with `return_logits`, the fp32 logits
     [V] that chose the token come fourth."""
-    E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
     C = k.shape[1]
     cur = int(length)
-    scale = 1.0 / math.sqrt(D)
-    visible = torch.arange(C, device=k.device) < cur
 
     def attend(layer, q, kc, vc):
-        qf = q.float().reshape(H, D)
-        kh = k[layer].float().reshape(C, H, D)
-        scores = torch.einsum("chd,hd->hc", kh, qf) * scale
-        scores = torch.where(visible, scores, NEG_INF)
-        s_cur = (kc.float().reshape(H, D) * qf).sum(-1, keepdim=True) * scale
-        mx = torch.maximum(scores.amax(-1, keepdim=True), s_cur)
-        p = torch.exp(scores - mx)
-        p_cur = torch.exp(s_cur - mx)
-        denom = p.sum(-1, keepdim=True) + p_cur
-        ao = torch.einsum("hc,chd->hd", p, v[layer].float().reshape(C, H, D))
-        ao = ao + p_cur * vc.float().reshape(H, D)
-        return (ao / denom).reshape(E)
+        return attend_plain(q, kc, vc, k[layer], v[layer], cur, cfg.n_head)
 
     logits, new_k, new_v = plain_step(packed, cfg, x_emb, attend)
     if cur < C:
@@ -274,17 +282,17 @@ def kernels() -> ctypes.CDLL:
 
 class Workspace:
     """Scratch of one step, preallocated so a captured step allocates
-    nothing: the residual stream, q|k|v, the attention and MLP activations
-    (model dtype) and the LM head's per-block (max, argmax) partials, one
-    per block of the LM-head kernel."""
+    nothing: the residual stream x, q|k|v, the attention and MLP activations
+    (model dtype, of the given widths) and the LM head's per-block (max,
+    argmax) partials, one per block of the LM-head kernel."""
 
-    def __init__(self, cfg, dtype: torch.dtype, device):
-        E = cfg.n_embd
-        self.n_lm = min(-(-cfg.vocab_size // _THREADS_WARPS), _LM_MAX_BLOCKS)
-        self.x = torch.empty(E, dtype=dtype, device=device)
-        self.qkv = torch.empty(3 * E, dtype=dtype, device=device)
-        self.attn = torch.empty(E, dtype=dtype, device=device)
-        self.ffn = torch.empty(4 * E, dtype=dtype, device=device)
+    def __init__(self, dtype: torch.dtype, device, vocab: int, *, x: int,
+                 qkv: int, attn: int, ffn: int):
+        self.n_lm = min(-(-vocab // _THREADS_WARPS), _LM_MAX_BLOCKS)
+        self.x = torch.empty(x, dtype=dtype, device=device)
+        self.qkv = torch.empty(qkv, dtype=dtype, device=device)
+        self.attn = torch.empty(attn, dtype=dtype, device=device)
+        self.ffn = torch.empty(ffn, dtype=dtype, device=device)
         self.lm_val = torch.empty(self.n_lm, dtype=torch.float32, device=device)
         self.lm_idx = torch.empty(self.n_lm, dtype=torch.int32, device=device)
 
@@ -301,6 +309,8 @@ class StepLauncher:
     the chain on the current stream and allocates nothing, so it can be
     captured. `tok_in`/`tok_out`/`length` are device int32 tensors: the
     step reads the current token (or `x_emb`) and `length` on the device."""
+
+    entry = {False: "elit_gpt2_megastep", True: "elit_gpt2_megastep_quant"}
 
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
@@ -342,7 +352,7 @@ class StepLauncher:
             _check("x_emb", x_emb.reshape(E), dtype, (E,), dev)
         else:
             _check("tok_in", tok_in, torch.int32, (1,), dev)
-        ws = Workspace(cfg, dtype, dev)
+        ws = Workspace(dtype, dev, V, x=E, qkv=3 * E, attn=E, ffn=4 * E)
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
         self.quant = k_kind != "fp"
@@ -366,12 +376,16 @@ class StepLauncher:
         self.args.tok_in = tok_in.data_ptr()
         self.args.tok_out = tok_out.data_ptr()
 
+    @staticmethod
+    def library() -> ctypes.CDLL:
+        return kernels()
+
     def launch(self) -> None:
-        lib = kernels()
-        fn = lib.elit_gpt2_megastep_quant if self.quant else lib.elit_gpt2_megastep
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        rc = fn(ctypes.byref(self.args), stream)
-        _build.check(lib, rc, fn.__name__)
+        lib = self.library()
+        name = self.entry[self.quant]
+        rc = getattr(lib, name)(ctypes.byref(self.args),
+                                torch.cuda.current_stream(self.device).cuda_stream)
+        _build.check(lib, rc, name)
 
 
 def _length_tensor(length, device) -> torch.Tensor:
@@ -417,21 +431,23 @@ class MegaDecodeGraph:
     `length` int32 [1], which each step increments on the device. `run`
     copies a prompt's state in, replays, and adds N to the wrapper's launch
     count (`counter.launches`): each replay launches the step chain N times.
+    `launcher` is the model's step launcher (`StepLauncher` for GPT-2,
+    ops.megakernel_llama.LlamaStepLauncher for the Llama family).
     """
 
     def __init__(self, packed: dict, cfg, n_steps: int, panes: dict, counter,
-                 **launch_kw):
+                 launcher=StepLauncher, **launch_kw):
         dev = panes["k"].device
         self.n = n_steps
         self.panes = panes
         self.counter = counter
         self.toks = torch.zeros(n_steps + 1, dtype=torch.int32, device=dev)
         self.length = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.step = StepLauncher(
+        self.step = launcher(
             packed, cfg, panes["k"], panes["v"], self.length, self.toks[1:2],
             tok_in=self.toks[0:1], ks=panes.get("ks"), vs=panes.get("vs"),
             advance=True, **launch_kw)
-        kernels()  # build and load outside the capture
+        self.step.library()  # build and load outside the capture
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             for i in range(n_steps):

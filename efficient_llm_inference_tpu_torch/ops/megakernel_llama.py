@@ -1,0 +1,366 @@
+"""Whole-step Llama/Qwen decode: one chain of CUDA kernels per batch-1 step.
+
+Port of efficient_llm_inference_tpu/ops/pallas/megakernel_llama.py
+(`_llama_megapass` through `llama_megastep`, the R = 1 decode row;
+`mega_supported`, `pack_llama_mega`; full-precision weights). The TPU
+program streams a uniform [TR, TC] tile grid of every weight through VMEM;
+on the H100 the step is a fixed chain of hand-written kernels from
+`csrc/llama_megastep.cu`, launched by one host call (`llama_megastep`) and,
+in the engine's decode loop, captured once into a CUDA graph
+(ops/megakernel.py `MegaDecodeGraph`) that replays all N steps of a
+generation. The quantized-KV variant (ops/megakernel_quant.py
+`llama_megastep_quant`) shares this module's packing and launcher.
+
+Layouts:
+
+* KV panes are [L, C, KW] with KW = n_kv_head * head_dim (the JAX
+  package's `to_mega_layout`, shared with GPT-2).
+* `pack_llama_mega` stores every weight as [out, in] row-major, so one warp
+  reads one output's input row with 16-byte loads: q|k|v concatenated
+  [L, QW + 2 KW, E], o [L, E, QW], gate and up interleaved row by row
+  [L, 2 I, E] (row 2j = gate j, row 2j + 1 = up j, so one block yields whole
+  SwiGLU outputs), down [L, E, I], and the LM head [V, E] (the embedding
+  itself when tied; the untied lm_head [E, V] transposed). RMSNorm gains are
+  fp32 `norms` [L, 2, E] and `lnf` [1, E]; the Qwen q/k/v biases fp32
+  `qkvb` [L, QW + 2 KW]. The RoPE tables `cos`/`sin` [n_positions, D] (fp32,
+  `models.llama.rope_cos_sin`) are packed too: a step reads row
+  min(length, n_positions - 1) on the device.
+
+Numerics follow the JAX kernel's rounding points, which differ from the
+model's (`models/llama.py`) in one place: silu is applied to the fp32 gate
+sum, not to the gate rounded to the model dtype (identical in fp32).
+RMSNorm statistics in fp32 with the normalised value rounded before the
+gain; q/k/v (bias added in fp32) rounded, RoPE in fp32 on the rounded q/k
+and rounded again; the attention output, SwiGLU factors and product and each
+residual add in the model dtype; fp32 softmax with the current token merged
+into the same softmax as the cached rows t < length; greedy argmax over the
+fp32 logits, first maximum wins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ..models.llama import WEIGHT_NAMES, _rms_norm, apply_rope, rope_cos_sin
+from . import _build
+from .megakernel import (
+    _DTYPE_CODE,
+    HEAD_DIMS,
+    KIND_CODE,
+    MAX_CAPACITY,
+    StepLauncher,
+    Workspace,
+    _check,
+    _length_tensor,
+    _mv,
+    attend_plain,
+)
+
+
+def _full_precision_dtype(params: dict, cfg) -> Optional[torch.dtype]:
+    """The weights' dtype when every block weight, the embedding and (untied)
+    the LM head are full-precision tensors of one dtype the kernels take,
+    else None (the JAX package's "f" weight mode; the port has no quantized
+    weights yet)."""
+    b = params.get("blocks", {})
+    ts = [b.get(n) for n in WEIGHT_NAMES] + [params.get("embed")]
+    if not cfg.tie_embeddings:
+        ts.append(params.get("lm_head"))
+    if not all(isinstance(t, torch.Tensor) for t in ts):
+        return None
+    dts = {t.dtype for t in ts}
+    dt = dts.pop() if len(dts) == 1 else None
+    return dt if dt in _DTYPE_CODE else None
+
+
+def _tile_geometry(cfg):
+    """(TR, TC, Ip): the JAX kernel's uniform weight tile and padded FFN
+    width (copy of ops/pallas/megakernel_llama.py `_tile_geometry`). The
+    port streams whole rows and needs no tiles; the JAX eligibility is
+    stated in terms of them."""
+    E, I = cfg.hidden_size, cfg.intermediate_size
+    QW = cfg.n_head * cfg.head_dim
+    KW = cfg.n_kv_head * cfg.head_dim
+
+    def geo(Ip):
+        TR = math.gcd(math.gcd(E, QW), Ip)
+        while TR > 2048:
+            TR //= 2
+        TC = math.gcd(math.gcd(QW, KW), math.gcd(E, Ip))
+        while TC > 512:
+            TC //= 2
+        return TR, TC
+
+    TR, TC = geo(I)
+    Ie = -(-I // E) * E
+    if Ie != I and (Ie - I) * 100 <= 15 * I:
+        TRp, TCp = geo(Ie)
+        if TRp * TCp >= 2 * TR * TC:
+            return TRp, TCp, Ie
+    return TR, TC, I
+
+
+def _geometry_ok(cfg, capacity: int) -> bool:
+    """The JAX package's structural conditions (TC % 128, KW % 128, TR % 8,
+    even head_dim, capacity % 8) and the kernels' limits: head_dim 64 or
+    128, capacity <= 8192, whole query groups, and widths that are
+    multiples of 8 (16-byte weight rows)."""
+    TR, TC, _ = _tile_geometry(cfg)
+    D, Hq, Hkv = cfg.head_dim, cfg.n_head, cfg.n_kv_head
+    return (TC % 128 == 0 and (Hkv * D) % 128 == 0 and TR % 8 == 0
+            and D % 2 == 0 and capacity % 8 == 0
+            and D in HEAD_DIMS and 0 < capacity <= MAX_CAPACITY
+            and Hq % Hkv == 0 and cfg.hidden_size % 8 == 0
+            and cfg.intermediate_size % 8 == 0)
+
+
+def mega_supported(cfg, capacity: int, params: dict) -> bool:
+    """Can the Llama megakernel run this geometry? The JAX package's
+    eligibility for full-precision weights (`_geometry_ok`; an untied model
+    needs its lm_head) plus the kernels' limits. The JAX package's TPU
+    memory envelopes (the VMEM budget, the 4 GiB packed-stream cap and the
+    2048-tile DMA gate) are not carried over: the card streams the weights
+    from its own memory, where both copies fit."""
+    return _full_precision_dtype(params, cfg) is not None and _geometry_ok(cfg, capacity)
+
+
+def pack_llama_mega(params: dict, cfg) -> Optional[dict]:
+    """Re-layout Llama/Qwen params for the kernels (once per engine); None
+    when the params are not packable (see `mega_supported`)."""
+    if _full_precision_dtype(params, cfg) is None:
+        return None
+    L, E, I = cfg.n_layer, cfg.hidden_size, cfg.intermediate_size
+    b = params["blocks"]
+
+    def t(name):  # [L, in, out] -> [L, out, in]
+        return b[name].transpose(1, 2)
+
+    gate_up = torch.stack([t("w_gate"), t("w_up")], dim=2)  # [L, I, 2, E]
+    positions = torch.arange(cfg.n_positions, device=params["embed"].device)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    packed = {
+        "qkv_w": torch.cat([t("wq"), t("wk"), t("wv")], dim=1).contiguous(),
+        "o_w": t("wo").contiguous(),  # [L, E, QW]
+        "gu_w": gate_up.reshape(L, 2 * I, E).contiguous(),
+        "down_w": t("w_down").contiguous(),  # [L, E, I]
+        "embed": params["embed"].contiguous(),
+        "head": (params["embed"] if cfg.tie_embeddings
+                 else params["lm_head"].t()).contiguous(),
+        "norms": torch.stack([b["ln1"].float(), b["ln2"].float()], dim=1).contiguous(),
+        "lnf": params["ln_f"].float()[None].contiguous(),
+        "cos": cos.contiguous(),
+        "sin": sin.contiguous(),
+    }
+    if cfg.qkv_bias:
+        packed["qkvb"] = torch.cat([b["bq"], b["bk"], b["bv"]], dim=-1).float().contiguous()
+    return packed
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the step (any device; the CPU tests' reference and
+# the card's yardstick).
+
+
+def rope_position(length: int, cfg) -> int:
+    """The position of the token a step decodes: min(length, P - 1)."""
+    return min(max(int(length), 0), cfg.n_positions - 1)
+
+
+def llama_plain_step(packed: dict, cfg, x_emb: torch.Tensor, pos: int, attend):
+    """The layer chain of one decode step, shared by both plain versions.
+
+    `attend(layer, q, k, v)` gets the current token's roped q [QW] and k
+    [KW] and its v [KW] in the model dtype and returns the attention output
+    [QW] in fp32. Returns (logits fp32 [V], new K rows [L, KW] (roped), new
+    V rows [L, KW]) in the model dtype; the caller writes the rows to row
+    `length` (after the last layer, as the JAX kernel does).
+    """
+    E, L, D, I = cfg.hidden_size, cfg.n_layer, cfg.head_dim, cfg.intermediate_size
+    QW, KW = cfg.n_head * D, cfg.n_kv_head * D
+    eps = cfg.rms_eps
+    dt = x_emb.dtype
+    cos, sin = packed["cos"][pos].reshape(1, 1, D), packed["sin"][pos].reshape(1, 1, D)
+
+    def rope(t):  # [H*D] -> [H*D]
+        return apply_rope(t.reshape(1, -1, 1, D), cos, sin).reshape(-1)
+
+    x = x_emb.reshape(E)
+    new_k, new_v = [], []
+    for layer in range(L):
+        norms = packed["norms"][layer]
+        h = _rms_norm(x, norms[0], eps)
+        y = _mv(h, packed["qkv_w"][layer])
+        if "qkvb" in packed:
+            y = y + packed["qkvb"][layer]
+        q, k, v = y.to(dt).split([QW, KW, KW])
+        q, k = rope(q), rope(k)
+        a = attend(layer, q, k, v).to(dt)
+        x = x + _mv(a, packed["o_w"][layer]).to(dt)
+        h2 = _rms_norm(x, norms[1], eps)
+        gu = _mv(h2, packed["gu_w"][layer]).reshape(I, 2)
+        g, u = gu[:, 0], gu[:, 1]
+        gate = (g * torch.sigmoid(g)).to(dt)  # silu on the fp32 gate
+        x = x + _mv(gate * u.to(dt), packed["down_w"][layer]).to(dt)
+        new_k.append(k)
+        new_v.append(v)
+    xf = _rms_norm(x, packed["lnf"][0], eps)
+    logits = _mv(xf, packed["head"])
+    return logits, torch.stack(new_k), torch.stack(new_v)
+
+
+def llama_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
+                         length, x_emb: torch.Tensor, *, cfg,
+                         return_logits: bool = False):
+    """Plain PyTorch version of `llama_megastep`, the same function on any
+    device: returns (token int32 [], k, v), with row `length` of every
+    layer of k/v written in place; with `return_logits`, the fp32 logits
+    [V] that chose the token come fourth."""
+    cur = int(length)
+
+    def attend(layer, q, kc, vc):
+        return attend_plain(q, kc, vc, k[layer], v[layer], cur, cfg.n_kv_head)
+
+    logits, new_k, new_v = llama_plain_step(packed, cfg, x_emb,
+                                            rope_position(cur, cfg), attend)
+    if cur < k.shape[1]:
+        k[:, cur] = new_k.to(k.dtype)
+        v[:, cur] = new_v.to(v.dtype)
+    tok = torch.argmax(logits).to(torch.int32)
+    return (tok, k, v, logits) if return_logits else (tok, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The kernels: arguments and launcher (the CUDA graph is ops/megakernel.py's).
+
+
+class LlamaArgs(ctypes.Structure):
+    """Mirror of `struct LlamaArgs` in csrc/llama_megastep.cu (same order)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "dtype", "n_layer", "n_embd", "n_head", "n_kv_head", "head_dim",
+        "inter", "vocab", "n_pos", "capacity", "k_kind", "v_kind", "advance",
+        "lm_blocks")] + [
+        ("rms_eps", ctypes.c_float), ("quant_eps", ctypes.c_float),
+    ] + [(n, ctypes.c_void_p) for n in (
+        "qkv_w", "o_w", "gu_w", "down_w", "embed", "head", "norms", "lnf",
+        "qkvb", "cos", "sin", "k", "v", "ks", "vs", "length", "tok_in",
+        "x_emb", "tok_out", "x", "qkv", "attn", "ffn", "lm_val", "lm_idx")]
+
+
+_lib = None
+
+
+def kernels() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("llama_megastep")
+        for fn in (lib.elit_llama_megastep, lib.elit_llama_megastep_quant):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(LlamaArgs), ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+class LlamaStepLauncher(StepLauncher):
+    """The prepared arguments of one configuration's Llama step (the
+    LlamaArgs of csrc/llama_megastep.cu); `set_tokens` and `launch` are
+    ops.megakernel.StepLauncher's."""
+
+    entry = {False: "elit_llama_megastep", True: "elit_llama_megastep_quant"}
+
+    def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
+                 x_emb=None, tok_in=None, ks=None, vs=None,
+                 k_kind: str = "fp", v_kind: str = "fp",
+                 quant_eps: float = 1e-8, advance: bool = False):
+        E, L, C, D = cfg.hidden_size, cfg.n_layer, k.shape[1], cfg.head_dim
+        I, V, P = cfg.intermediate_size, cfg.vocab_size, cfg.n_positions
+        QW, KW = cfg.n_head * D, cfg.n_kv_head * D
+        dtype = packed["embed"].dtype
+        dev = k.device
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        if dtype not in _DTYPE_CODE or not _geometry_ok(cfg, C):
+            raise NotImplementedError(
+                f"llama megakernel: E={E}, head_dim={D}, heads {cfg.n_head}/"
+                f"{cfg.n_kv_head}, capacity={C}")
+        if (x_emb is None) == (tok_in is None):
+            raise ValueError("give exactly one of x_emb and tok_in")
+        wants = {
+            "qkv_w": (L, QW + 2 * KW, E), "o_w": (L, E, QW), "gu_w": (L, 2 * I, E),
+            "down_w": (L, E, I), "embed": (V, E), "head": (V, E),
+        }
+        for name, shape in wants.items():
+            _check(name, packed[name], dtype, shape, dev)
+        f32 = {"norms": (L, 2, E), "lnf": (1, E), "cos": (P, D), "sin": (P, D)}
+        if "qkvb" in packed:
+            f32["qkvb"] = (L, QW + 2 * KW)
+        for name, shape in f32.items():
+            _check(name, packed[name], torch.float32, shape, dev)
+        store = {"fp": (dtype, KW), "int8": (torch.int8, KW), "int4": (torch.int8, KW // 2)}
+        for name, pane, kind in (("k", k, k_kind), ("v", v, v_kind)):
+            dt, width = store[kind]
+            _check(name, pane, dt, (L, C, width), dev)
+        if k_kind != "fp" or v_kind != "fp":
+            if k_kind == "fp" or v_kind == "fp":
+                raise ValueError("quantized K and V panes go together")
+            if "int4" in (k_kind, v_kind) and (KW // 2) % D:
+                raise NotImplementedError("int4 panes need whole heads per half")
+            _check("ks", ks, torch.float32, (L, C), dev)
+            _check("vs", vs, torch.float32, (L, C), dev)
+        _check("length", length, torch.int32, (1,), dev)
+        _check("tok_out", tok_out, torch.int32, (1,), dev)
+        if x_emb is not None:
+            _check("x_emb", x_emb.reshape(E), dtype, (E,), dev)
+        else:
+            _check("tok_in", tok_in, torch.int32, (1,), dev)
+        ws = Workspace(dtype, dev, V, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I)
+        # keep every tensor the struct points at alive with the launcher
+        self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
+        self.quant = k_kind != "fp"
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        self.args = LlamaArgs(
+            _DTYPE_CODE[dtype], L, E, cfg.n_head, cfg.n_kv_head, D, I, V, P, C,
+            KIND_CODE[k_kind], KIND_CODE[v_kind], int(advance), ws.n_lm,
+            cfg.rms_eps, quant_eps,
+            *(ptr(packed.get(n)) for n in (
+                "qkv_w", "o_w", "gu_w", "down_w", "embed", "head", "norms",
+                "lnf", "qkvb", "cos", "sin")),
+            ptr(k), ptr(v), ptr(ks), ptr(vs), ptr(length), ptr(tok_in),
+            ptr(x_emb), ptr(tok_out), ptr(ws.x), ptr(ws.qkv), ptr(ws.attn),
+            ptr(ws.ffn), ptr(ws.lm_val), ptr(ws.lm_idx))
+        self.device = dev
+
+    @staticmethod
+    def library() -> ctypes.CDLL:
+        return kernels()
+
+
+def llama_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
+                   x_emb: torch.Tensor, *, cfg):
+    """One whole Llama/Qwen decode step (greedy, batch 1). Returns (token
+    int32 [], k, v).
+
+    packed: `pack_llama_mega(params, cfg)`; k, v: [L, C, KW] panes in the
+    model dtype, written in place at row `length` of every layer (the JAX
+    kernel aliases them the same way) and returned; length: tokens already
+    cached (int or int32 tensor), whose RoPE position min(length, P - 1)
+    the step takes from the packed tables; x_emb: [1, E] token embedding in
+    the model dtype. On a CUDA tensor it launches the kernel chain of
+    `csrc/llama_megastep.cu` and counts one launch in
+    `llama_megastep.launches`; on a CPU tensor it runs
+    `llama_megastep_plain`. The capacity is the panes' row count.
+    """
+    if k.device.type == "cpu":
+        return llama_megastep_plain(packed, k, v, length, x_emb, cfg=cfg)
+    tok = torch.empty(1, dtype=torch.int32, device=k.device)
+    LlamaStepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
+                      x_emb=x_emb.contiguous()).launch()
+    llama_megastep.launches += 1
+    return tok[0], k, v
+
+
+llama_megastep.launches = 0

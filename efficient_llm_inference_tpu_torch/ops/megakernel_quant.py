@@ -1,16 +1,17 @@
-"""Whole-step GPT-2 decode over QUANTIZED KV panes.
+"""Whole-step GPT-2 and Llama/Qwen decode over QUANTIZED KV panes.
 
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel_quant.py
-(gpt2_megastep_quant, _kv_kinds, unpack_halves, to_mega_quant_layout,
-mega_quant_supported). The step is ops/megakernel.py's kernel chain with
-int8, packed-int4 or mixed (K int8, V int4) panes and per-token fp32
-scales [L, C]: the attention kernel reads the codes at their stored size and
-folds the scales into the scores and the probabilities, and the new token's
-K/V rows are quantized on write.
+(gpt2_megastep_quant, llama_megastep_quant, _kv_kinds, unpack_halves,
+to_mega_quant_layout, mega_quant_supported, llama_mega_quant_supported).
+Each step is its model's kernel chain (ops/megakernel.py,
+ops/megakernel_llama.py) with int8, packed-int4 or mixed (K int8, V int4)
+panes and per-token fp32 scales [L, C]: the attention kernel reads the codes
+at their stored size and folds the scales into the scores and the
+probabilities, and the new token's K/V rows are quantized on write.
 
 * int4 panes use the JAX kernel's HALF-SPLIT pairing: pane byte j of a row
-  packs lane j (high nibble, two's complement) with lane j + E/2 (low
-  nibble, biased +8), stored as int8 = 16 * q_hi + q_lo + 8. This is not the
+  packs lane j (high nibble, two's complement) with lane j + W/2 (low
+  nibble, biased +8; W = E for GPT-2, n_kv_head * head_dim for Llama), stored as int8 = 16 * q_hi + q_lo + 8. This is not the
   even/odd-in-D layout of QuantizedKV; `to_mega_quant_layout` repacks once
   per generation and preserves every value.
 * Quantize-on-write is the reference math exactly: scale =
@@ -29,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from . import megakernel_llama as ml
 from .megakernel import (
     NEG_INF,
     StepLauncher,
@@ -113,6 +115,47 @@ def pane_values(pane: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.cat([hi, lo], dim=-1)
 
 
+def attend_quant_plain(q, kc, vc, k_l, v_l, ks_l, vs_l, length: int,
+                       n_kv_head: int, k_kind: str, v_kind: str):
+    """Decode attention of one layer over quantized panes, in fp32: the
+    query heads q [Hq*D] (grouped onto n_kv_head K/V heads) over the rows
+    t < length of the panes k_l/v_l with their per-token scales ks_l/vs_l
+    [C], and the current token's full-precision kc/vc [Hkv*D] merged into
+    the same softmax. The probabilities times the V scales round to q's
+    dtype before the PV product, as the kernels' PV inputs do. Returns
+    [Hq*D] fp32."""
+    C = k_l.shape[0]
+    G, D = q.numel() // kc.numel(), kc.numel() // n_kv_head
+    scale = 1.0 / math.sqrt(D)
+    u = q.float().reshape(n_kv_head, G, D)
+    visible = torch.arange(C, device=k_l.device) < length
+    kval = pane_values(k_l, k_kind).reshape(C, n_kv_head, D)
+    raw = torch.einsum("kgd,ckd->kgc", u, kval)
+    st = torch.where(visible, raw * ks_l * scale, NEG_INF)
+    s_cur = (u * kc.float().reshape(n_kv_head, 1, D)).sum(-1, keepdim=True) * scale
+    mx = torch.maximum(st.amax(-1, keepdim=True), s_cur)
+    p = torch.exp(st - mx)
+    p_cur = torch.exp(s_cur - mx)
+    denom = p.sum(-1, keepdim=True) + p_cur
+    ps = (p * vs_l).to(q.dtype).float()  # the PV product's input dtype
+    vval = pane_values(v_l, v_kind).reshape(C, n_kv_head, D)
+    num = torch.einsum("kgc,ckd->kgd", ps, vval)
+    num = num + p_cur * vc.float().reshape(n_kv_head, 1, D)
+    return (num / denom).reshape(-1)
+
+
+def write_quant_rows(k, v, ks, vs, length: int, new_k, new_v, kv_mode: str,
+                     eps: float) -> None:
+    """Quantize-on-write of the new K/V rows [L, W] into row `length` of
+    every layer's panes and scales (nothing when length >= C)."""
+    if length >= k.shape[1]:
+        return
+    k_kind, v_kind = _kv_kinds(kv_mode)
+    for layer in range(k.shape[0]):
+        k[layer, length], ks[layer, length] = quantize_row(new_k[layer], k_kind, eps)
+        v[layer, length], vs[layer, length] = quantize_row(new_v[layer], v_kind, eps)
+
+
 def gpt2_megastep_quant_plain(packed: dict, k, v, ks, vs, length, x_emb, *,
                               cfg, kv_mode: str, eps: float = 1e-8,
                               return_logits: bool = False):
@@ -120,34 +163,15 @@ def gpt2_megastep_quant_plain(packed: dict, k, v, ks, vs, length, x_emb, *,
     any device: returns (token int32 [], k, v, ks, vs) with row `length` of
     every layer's panes and scales written in place; with `return_logits`
     the fp32 logits [V] come sixth."""
-    E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
-    C = k.shape[1]
-    dt = x_emb.dtype
     k_kind, v_kind = _kv_kinds(kv_mode)
     cur = int(length)
-    scale = 1.0 / math.sqrt(D)
-    visible = torch.arange(C, device=k.device) < cur
 
     def attend(layer, q, kc, vc):
-        u = q.float().reshape(H, D)
-        kval = pane_values(k[layer], k_kind).reshape(C, H, D)
-        raw = torch.einsum("hd,chd->hc", u, kval)
-        st = torch.where(visible, raw * ks[layer] * scale, NEG_INF)
-        s_cur = (u * kc.float().reshape(H, D)).sum(-1, keepdim=True) * scale
-        mx = torch.maximum(st.amax(-1, keepdim=True), s_cur)
-        p = torch.exp(st - mx)
-        p_cur = torch.exp(s_cur - mx)
-        denom = p.sum(-1, keepdim=True) + p_cur
-        ps = (p * vs[layer]).to(dt).float()  # the PV product's input dtype
-        vval = pane_values(v[layer], v_kind).reshape(C, H, D)
-        num = torch.einsum("hc,chd->hd", ps, vval) + p_cur * vc.float().reshape(H, D)
-        return (num / denom).reshape(E)
+        return attend_quant_plain(q, kc, vc, k[layer], v[layer], ks[layer],
+                                  vs[layer], cur, cfg.n_head, k_kind, v_kind)
 
     logits, new_k, new_v = plain_step(packed, cfg, x_emb, attend)
-    if cur < C:
-        for layer in range(cfg.n_layer):
-            k[layer, cur], ks[layer, cur] = quantize_row(new_k[layer], k_kind, eps)
-            v[layer, cur], vs[layer, cur] = quantize_row(new_v[layer], v_kind, eps)
+    write_quant_rows(k, v, ks, vs, cur, new_k, new_v, kv_mode, eps)
     tok = torch.argmax(logits).to(torch.int32)
     out = (tok, k, v, ks, vs)
     return out + (logits,) if return_logits else out
@@ -179,3 +203,63 @@ def gpt2_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
 
 
 gpt2_megastep_quant.launches = 0
+
+
+def llama_mega_quant_supported(cfg, capacity: int, params: dict, kv_mode: str) -> bool:
+    """Engine-side eligibility of the Llama quantized-KV step (per_token
+    scales only): the fp step's (`megakernel_llama.mega_supported`) and
+    128-lane pane widths (KW, or KW / 2 for an int4 pane), as in the JAX
+    package, whose VMEM envelope is not carried over."""
+    if not ml.mega_supported(cfg, capacity, params):
+        return False
+    KW = cfg.n_kv_head * cfg.head_dim
+    return all(_pane_width(kind, KW) % 128 == 0 for kind in _kv_kinds(kv_mode))
+
+
+def llama_megastep_quant_plain(packed: dict, k, v, ks, vs, length, x_emb, *,
+                               cfg, kv_mode: str, eps: float = 1e-8,
+                               return_logits: bool = False):
+    """Plain PyTorch version of `llama_megastep_quant`, the same function on
+    any device: returns (token int32 [], k, v, ks, vs) with row `length` of
+    every layer's panes and scales written in place; with `return_logits`
+    the fp32 logits [V] come sixth."""
+    k_kind, v_kind = _kv_kinds(kv_mode)
+    cur = int(length)
+
+    def attend(layer, q, kc, vc):
+        return attend_quant_plain(q, kc, vc, k[layer], v[layer], ks[layer],
+                                  vs[layer], cur, cfg.n_kv_head, k_kind, v_kind)
+
+    logits, new_k, new_v = ml.llama_plain_step(packed, cfg, x_emb,
+                                               ml.rope_position(cur, cfg), attend)
+    write_quant_rows(k, v, ks, vs, cur, new_k, new_v, kv_mode, eps)
+    tok = torch.argmax(logits).to(torch.int32)
+    out = (tok, k, v, ks, vs)
+    return out + (logits,) if return_logits else out
+
+
+def llama_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
+                         kv_mode: str, eps: float = 1e-8):
+    """One whole Llama/Qwen decode step over quantized KV panes. Returns
+    (token int32 [], k, v, ks, vs).
+
+    k, v: int8 [L, C, KW] or half-split int4 [L, C, KW/2] panes (kinds from
+    `kv_mode`); ks, vs: fp32 [L, C] per-token scales. Row `length` of every
+    layer is quantized and written in place. On a CUDA tensor it launches
+    the kernel chain of `csrc/llama_megastep.cu` and counts one launch in
+    `llama_megastep_quant.launches`; on a CPU tensor it runs
+    `llama_megastep_quant_plain`.
+    """
+    if k.device.type == "cpu":
+        return llama_megastep_quant_plain(packed, k, v, ks, vs, length, x_emb,
+                                          cfg=cfg, kv_mode=kv_mode, eps=eps)
+    k_kind, v_kind = _kv_kinds(kv_mode)
+    tok = torch.empty(1, dtype=torch.int32, device=k.device)
+    ml.LlamaStepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
+                         x_emb=x_emb.contiguous(), ks=ks, vs=vs, k_kind=k_kind,
+                         v_kind=v_kind, quant_eps=eps).launch()
+    llama_megastep_quant.launches += 1
+    return tok[0], k, v, ks, vs
+
+
+llama_megastep_quant.launches = 0

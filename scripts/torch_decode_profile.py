@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes on one GPU.
 
-    python3 scripts/torch_decode_profile.py
+    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...]
 
-GPT-2 small at full width (random weights, seed 42), bf16, batch 1, one
+A model of the registry at full width (GPT-2 small by default; random
+weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
 256-token prompt and 64 new tokens, for full_cache, quant_int8, quant_int4
 and quant_mixed, with the megakernel off (the model's forward pass op by op)
 and on (the default: one launch of the whole-step kernel chain per decode
@@ -28,6 +29,7 @@ null ("not measured"). Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import statistics
@@ -63,6 +65,9 @@ def wall_ms(eng, text: str, method: str, n_new: int = NEW_TOKENS) -> float:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", default="gpt2", help="registry name")
+    model = parser.parse_args().model
     if not torch.cuda.is_available():
         print("torch_decode_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -74,9 +79,13 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     text = prompt()
+    t0 = time.perf_counter()
+    base = InferenceEngine.from_model_name(
+        model, config=Config(model_name=model, megakernel=False))
+    print(json.dumps({"model": model, "init_s": time.perf_counter() - t0}), flush=True)
     for mega in (False, None):
-        eng = InferenceEngine.from_model_name(
-            "gpt2", config=Config(model_name="gpt2", megakernel=mega))
+        eng = base if mega is False else InferenceEngine.from_model_name(
+            model, config=Config(model_name=model), params=base.params)
         for method in METHODS:
             eng.generate_ids(text, method, NEW_TOKENS)  # build, load, capture, warm
             walls = [wall_ms(eng, text, method) for _ in range(5)]
@@ -94,6 +103,7 @@ def main() -> int:
             wall = statistics.median(walls)
             top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
             print(json.dumps({
+                "model": model,
                 "megakernel": mega is None,
                 "method": method,
                 "wall_ms": wall,
@@ -106,7 +116,6 @@ def main() -> int:
                 "top": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top],
             }), flush=True)
         del eng
-        torch.cuda.empty_cache()
     return 0
 
 

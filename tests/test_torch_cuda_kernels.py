@@ -8,10 +8,12 @@ a machine that has only PyTorch:
 
 Tolerances: the quantize kernels are bit-exact; the attention kernel sums in
 another order than the plain version (fp32 atol 1e-4; bf16 atol 2e-2, the
-output's own rounding). The whole-step megakernels against their plain steps
-in fp32: the token equal wherever the plain top-2 logit gap is at least 1e-4,
-new K/V rows within 1e-5 (codes within one step, scales within 1e-5
-relative, for quantized panes), every other row untouched.
+output's own rounding), also at the Llama/Qwen query groups G = 4 and 7. The
+whole-step megakernels (GPT-2 and Llama/Qwen) against their plain steps in
+fp32: the token equal wherever the plain top-2 logit gap is at least 1e-4,
+new K/V rows within 1e-5 (of the row's largest value, at least 1e-5, for the
+Llama step; codes within one step, scales within 1e-5 relative, for
+quantized panes), every other row untouched.
 """
 
 import numpy as np
@@ -20,9 +22,11 @@ import torch
 
 from efficient_llm_inference_tpu_torch import Config, InferenceEngine
 from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
+from efficient_llm_inference_tpu_torch.models import llama as tllama
 from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
 from efficient_llm_inference_tpu_torch.ops import attention as tattn
 from efficient_llm_inference_tpu_torch.ops import megakernel as tmk
+from efficient_llm_inference_tpu_torch.ops import megakernel_llama as tml
 from efficient_llm_inference_tpu_torch.ops import megakernel_quant as tmq
 from efficient_llm_inference_tpu_torch.ops import quantize as trows
 
@@ -90,6 +94,8 @@ def _attention_inputs(k_bits, v_bits, B, G, Hkv, C, D, S, dtype, per_token, seed
     (1, 1, 12, 320, 64, True),  # GPT-2 small decode, per_token scales
     (2, 2, 4, 100, 64, False),  # GQA, per-(head, token) scales
     (2, 4, 2, 33, 128, False),
+    (1, 4, 8, 320, 64, True),  # Llama-3.2-1B decode: 32 query heads on 8
+    (1, 7, 2, 100, 64, True),  # Qwen2.5-0.5B decode: 14 query heads on 2
 ])
 def test_attention_matches_plain(cuda, k_bits, v_bits, dtype, B, G, Hkv, C, D,
                                  per_token):
@@ -249,6 +255,120 @@ def test_engine_megakernel_graph_matches_plain_steps(cuda, method):
         engines[dev] = InferenceEngine(gpt2_spec(cfg), p, config=Config(
             model_name="t", device=dev, dtype=torch.float32, megakernel=True))
     counter = tmk.gpt2_megastep if method == "full_cache" else tmq.gpt2_megastep_quant
+    prompt, n = "Graphs replay the decode loop.", 16
+    for _ in range(2):  # the second call replays the captured graph
+        before = counter.launches
+        got = engines["cuda"].generate_ids(prompt, method, n)
+        assert counter.launches == before + n
+    want = engines["cpu"].generate_ids(prompt, method, n)
+    _, logits = engines["cpu"].generate_logits(prompt, method, n, forced=want[-n:])
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+    first_unclear = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
+    assert got[:len(got) - n + first_unclear] == want[:len(want) - n + first_unclear]
+
+
+LLAMA_CFGS = {  # small geometries: (G, head_dim, bias, head)
+    "g2": dict(hidden_size=512, n_head=8, n_kv_head=4),
+    "g4-untied": dict(hidden_size=512, n_head=8, n_kv_head=2, tie_embeddings=False),
+    "g7-qwen": dict(hidden_size=896, n_head=14, n_kv_head=2, qkv_bias=True,
+                    rms_eps=1e-6, rope_theta=1e6),
+    "d128": dict(hidden_size=512, n_head=4, n_kv_head=2),
+}
+
+
+def _llama_cfg(name):
+    kw = dict(vocab_size=300, intermediate_size=1024, n_layer=2, n_positions=512,
+              rope_theta=10000.0, tie_embeddings=True)
+    return tllama.LlamaConfig(**dict(kw, **LLAMA_CFGS[name]))
+
+
+def _llama_params(cfg, device):
+    params = tllama.init_llama_params(torch.Generator().manual_seed(1), cfg,
+                                      torch.float32, device)
+    for name, t in params["blocks"].items():  # weights at std 0.15, as the CPU tests
+        if name.startswith("w"):
+            t.mul_(7.5)
+    return params
+
+
+def _llama_inputs(cfg, mode, C, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    L, E, KW = cfg.n_layer, cfg.hidden_size, cfg.n_kv_head * cfg.head_dim
+    x = (torch.randn((1, E), generator=g) * 0.5).to(device)
+    if mode == "fp":
+        return [(torch.randn((L, C, KW), generator=g) * 0.5).to(device)
+                for _ in range(2)], x
+
+    def pane(kind):
+        width = KW if kind == "int8" else KW // 2
+        lo = -127 if kind == "int8" else -128
+        return torch.randint(lo, 128, (L, C, width), generator=g,
+                             dtype=torch.int32).to(torch.int8).to(device)
+
+    scales = [(torch.rand((L, C), generator=g) * 0.02 + 1e-3).to(device)
+              for _ in range(2)]
+    return [pane(k) for k in tmq._kv_kinds(mode)] + scales, x
+
+
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("cfg_name", list(LLAMA_CFGS))
+@pytest.mark.parametrize("length", [0, 37, 127])
+def test_llama_megastep_matches_plain(cuda, mode, cfg_name, length):
+    cfg = _llama_cfg(cfg_name)
+    C = 128
+    packed = tml.pack_llama_mega(_llama_params(cfg, cuda), cfg)
+    state, x = _llama_inputs(cfg, mode, C, seed=length, device=cuda)
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    if mode == "fp":
+        before = tml.llama_megastep.launches
+        tok = tml.llama_megastep(packed, *got, length, x, cfg=cfg)[0]
+        assert tml.llama_megastep.launches == before + 1
+        logits = tml.llama_megastep_plain(packed, *want, length, x, cfg=cfg,
+                                          return_logits=True)[-1]
+    else:
+        before = tmq.llama_megastep_quant.launches
+        tok = tmq.llama_megastep_quant(packed, *got, length, x, cfg=cfg,
+                                       kv_mode=mode)[0]
+        assert tmq.llama_megastep_quant.launches == before + 1
+        logits = tmq.llama_megastep_quant_plain(packed, *want, length, x, cfg=cfg,
+                                                kv_mode=mode, return_logits=True)[-1]
+    torch.cuda.synchronize()
+    top2 = logits.topk(2).values
+    if float(top2[0] - top2[1]) >= 1e-4:
+        assert int(tok) == int(logits.argmax())
+    others = torch.arange(C, device=cuda) != length
+    for g_, w_, b_ in zip(got, want, state):
+        assert torch.equal(g_[:, others], b_[:, others])
+        assert torch.equal(w_[:, others], b_[:, others])
+    if mode == "fp":
+        for g_, w_ in zip(got, want):
+            atol = 1e-5 * max(1.0, w_[:, length].abs().max().item())
+            torch.testing.assert_close(g_[:, length], w_[:, length], atol=atol, rtol=0)
+        return
+    for kind, g_, w_ in zip(tmq._kv_kinds(mode), got[:2], want[:2]):
+        gv = tmq.pane_values(g_[:, length], kind)
+        wv = tmq.pane_values(w_[:, length], kind)
+        assert (gv - wv).abs().max() <= 1
+    for g_, w_ in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g_[:, length], w_[:, length], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("method", ["full_cache", "quant_int8", "quant_int4",
+                                    "quant_mixed"])
+def test_engine_llama_megakernel_graph_matches_plain_steps(cuda, method):
+    """The engine's CUDA-graph decode of a small Llama (G = 2, KW = 256, so
+    int4 panes are eligible) against the same engine's plain steps on the
+    CPU, fp32, as the GPT-2 test above."""
+    cfg = _llama_cfg("g2")
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        engines[dev] = InferenceEngine(tllama.llama_spec(cfg), _llama_params(cfg, dev),
+                                       config=Config(model_name="t", device=dev,
+                                                     dtype=torch.float32,
+                                                     megakernel=True))
+    counter = tml.llama_megastep if method == "full_cache" else tmq.llama_megastep_quant
     prompt, n = "Graphs replay the decode loop.", 16
     for _ in range(2):  # the second call replays the captured graph
         before = counter.launches

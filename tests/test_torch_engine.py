@@ -72,7 +72,7 @@ def test_estimate_kv_bytes_matches_jax(engines):
 
 def test_unported_method_names_its_roadmap_item(engines):
     _, teng = engines
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         teng.benchmark_method(PROMPTS, method="sliding_window")
     with pytest.raises(ValueError, match="Invalid method"):
         teng.benchmark_method(PROMPTS, method="nope")

@@ -1,6 +1,6 @@
-"""Shared inputs of the port's parity tests: GPT-2 parameters drawn with
-numpy from a seed, in the JAX package's stacked-layer layout, so the same
-arrays feed both packages."""
+"""Shared inputs of the port's parity tests: GPT-2 and Llama parameters
+drawn with numpy from a seed, in the JAX package's stacked-layer layout, so
+the same arrays feed both packages."""
 
 import numpy as np
 
@@ -32,9 +32,57 @@ def np_gpt2_params(cfg, seed: int, std: float = 0.05) -> dict:
     }
 
 
+def np_llama_params(cfg, seed: int, std: float = 0.05,
+                    embed_std: float = 0.5) -> dict:
+    """Random Llama/Qwen params as float32 numpy arrays (biases when
+    `cfg.qkv_bias`, an lm_head when untied). Norm gains are perturbed too,
+    so every parameter takes part in the comparison. A wide embedding
+    (`embed_std`) keeps greedy decodes from repeating one token."""
+    rng = np.random.default_rng(seed)
+    E, L, V, I = cfg.hidden_size, cfg.n_layer, cfg.vocab_size, cfg.intermediate_size
+    QW, KW = cfg.n_head * cfg.head_dim, cfg.n_kv_head * cfg.head_dim
+
+    def nrm(*shape, scale=std):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def gain(*shape):
+        return (1.0 + nrm(*shape, scale=0.1)).astype(np.float32)
+
+    blocks = {
+        "ln1": gain(L, E), "wq": nrm(L, E, QW), "wk": nrm(L, E, KW),
+        "wv": nrm(L, E, KW), "wo": nrm(L, QW, E), "ln2": gain(L, E),
+        "w_gate": nrm(L, E, I), "w_up": nrm(L, E, I), "w_down": nrm(L, I, E),
+    }
+    if cfg.qkv_bias:
+        blocks.update(bq=nrm(L, QW, scale=0.1), bk=nrm(L, KW, scale=0.1),
+                      bv=nrm(L, KW, scale=0.1))
+    params = {"embed": nrm(V, E, scale=embed_std), "blocks": blocks, "ln_f": gain(E)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = nrm(E, V)
+    return params
+
+
 def to_jax(tree):
     import jax.numpy as jnp
 
     if isinstance(tree, dict):
         return {k: to_jax(v) for k, v in tree.items()}
     return jnp.asarray(tree)
+
+
+def jax_rope_rows(jcfg, length: int):
+    """cos_q/sin_q [1, Hq*D] of the JAX Llama step at `length`, as the JAX
+    engine builds them (position min(length, P - 1), under jit)."""
+    import jax
+    import jax.numpy as jnp
+
+    from efficient_llm_inference_tpu.models.llama import rope_cos_sin
+
+    pos = min(length, jcfg.n_positions - 1)
+
+    @jax.jit
+    def rows(p):
+        cos, sin = rope_cos_sin(p[None, None], jcfg.head_dim, jcfg.rope_theta)
+        return jnp.tile(cos[0], (1, jcfg.n_head)), jnp.tile(sin[0], (1, jcfg.n_head))
+
+    return rows(jnp.int32(pos))
