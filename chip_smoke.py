@@ -44,7 +44,22 @@ Phases (each prints one line with its seconds):
    every step's logits within 1e-3. Megakernel on, for GPT-2 and for
    Llama-3.2-1B (its bf16 weights widened to fp32): 64 teacher-forced steps
    of the kernel beside the plain step on the card; the tokens must be equal
-   wherever the plain step's top-2 logit gap is at least 1e-4.
+   wherever the plain step's top-2 logit gap is at least 1e-4. Static batch
+   (GPT-2): each row of generate_batch equals the single-stream megakernel's
+   tokens of its prompt up to the first step with a top-2 gap under 1e-4.
+
+Static-batch serving (the batched whole-step kernels #14-#17 of
+csrc/megabatch.cu) runs in three more phases:
+- batch kernels, after phase 2 for GPT-2 small (#14, #16) and after phase 4
+  for Llama-3.2-1B (#15, #17): B = 8 slots at lengths 0, 1, 7, 8, 100, 255,
+  318, 319 of C = 320, fp/int8/int4/mixed panes, bf16 and fp32, against the
+  plain batched steps (per slot the token and new-row tolerances of phase
+  2; every other column untouched), timed at B = 8 and B = 1;
+- batch main path, after phase 5: generate_batch on 8 prompts of 24-256
+  tokens (bucket 256) with 64 new tokens for kv_mode None, int8, int4 and
+  mixed on gpt2 and llama-3-1b in bf16: the batched chain launches once per
+  step and no other kernel of the port runs; aggregate tokens/s beside
+  benchmark_method's single-stream tokens/s over the same prompts.
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
@@ -568,6 +583,131 @@ def check_llama_megasteps(params_bf16: dict) -> dict:
     return _mega_reports(reports, "llama_megastep", "llama_megastep_quant")
 
 
+BATCH_LENGTHS = (0, 1, 7, 8, 100, 255, 318, 319)  # C = 320: none visible ... the last column
+
+
+def _batch_state(mode, dtype, seed, L, W, E, B):
+    """A batched decode state: [L, B, C=320, W] panes (codes and
+    per-(slot, token) scales for quantized modes) and embeddings [B, E]."""
+    state, _ = _mega_state(mode, dtype, seed, L * B, W, E)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = (torch.randn((B, E), generator=g) * 0.3).to(dtype).cuda()
+    return [t.reshape(L, B, *t.shape[1:]) for t in state], x
+
+
+def _batch_step(mode, packed, cfg, state, lengths, x, plain=False, family="gpt2"):
+    """The batched kernel (lengths: a device int32 tensor) or, with `plain`,
+    the plain batched step (lengths: ints), which then returns its logits
+    [B, V] last."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mb
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as mbq
+
+    llama = family == "llama"
+    kw = {"return_logits": True} if plain else {}
+    if mode == "fp":
+        fn = ((mb.llama_megabatch_plain if llama else mb.gpt2_megabatch_plain) if plain
+              else (mb.llama_megabatch if llama else mb.gpt2_megabatch))
+        return fn(packed, *state, lengths, x, cfg=cfg, **kw)
+    fn = ((mbq.llama_megabatch_quant_plain if llama else mbq.gpt2_megabatch_quant_plain)
+          if plain else (mbq.llama_megabatch_quant if llama else mbq.gpt2_megabatch_quant))
+    return fn(packed, *state, lengths, x, cfg=cfg, kv_mode=mode, **kw)
+
+
+def _batch_bound(mode, dtype, cfg, family, lengths) -> tuple:
+    """Least time of one batched step on the card: every weight read once
+    for all slots, the norms and biases, each slot's embedding row (and RoPE
+    row), its visible KV rows and scales read once and its new rows written
+    once; two operations per weight element and slot, plus the attention's
+    four per cached value and query head."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    B, rows = len(lengths), sum(n + 1 for n in lengths)
+    if family == "gpt2":
+        L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
+        weights, QW, W = L * 12 * E * E + V * E, E, E
+        small = (L * 13 * E + 2 * E) * 4 + B * 2 * E * item
+    else:
+        E, I, L, V, D = (cfg.hidden_size, cfg.intermediate_size, cfg.n_layer,
+                         cfg.vocab_size, cfg.head_dim)
+        QW, W = cfg.n_head * D, cfg.n_kv_head * D
+        weights = L * (E * (QW + 2 * W) + QW * E + 3 * E * I) + V * E
+        small = ((L * 2 * E + E + (L * (QW + 2 * W) if cfg.qkv_bias else 0)) * 4
+                 + B * (E * item + 2 * D * 4))
+    n_bytes = weights * item + small + _kv_bytes(mode, item, L, W, rows)
+    flops = 2 * weights * B + L * 4 * rows * QW
+    rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def check_megabatches(family: str, cfg, params_for) -> dict:
+    """#14/#16 (GPT-2) or #15/#17 (Llama) against their plain batched steps:
+    B = 8 slots at BATCH_LENGTHS, C = 320, fp, int8, int4 and mixed panes,
+    fp32 and bf16 (`params_for(dtype)` gives the weights); per slot the
+    token and the new rows under the megastep tolerances, every other column
+    untouched. Device ms by CUDA-graph replay in bf16 at B = 8 and at B = 1
+    (one slot at length 319), beside the bound and the plain step."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    llama = family == "llama"
+    pack = ml.pack_llama_mega if llama else mk.pack_gpt2_mega
+    W = cfg.n_kv_head * cfg.head_dim if llama else cfg.n_embd
+    E = cfg.hidden_size if llama else cfg.n_embd
+    B = len(BATCH_LENGTHS)
+    dev_len = torch.tensor(BATCH_LENGTHS, dtype=torch.int32, device="cuda")
+    one_len = torch.tensor([MEGA_LEN], dtype=torch.int32, device="cuda")
+    names = ("llama_megabatch", "llama_megabatch_quant") if llama else (
+        "gpt2_megabatch", "gpt2_megabatch_quant")
+    reports = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = params_for(dtype)
+        packed = pack(params, cfg)
+        for i, mode in enumerate(MODES):
+            state, x = _batch_state(mode, dtype, 300 + i, cfg.n_layer, W, E, B)
+            got = [t.clone() for t in state]
+            want = [t.clone() for t in state]
+            toks = _batch_step(mode, packed, cfg, got, dev_len, x, family=family)[0]
+            logits = _batch_step(mode, packed, cfg, want, list(BATCH_LENGTHS), x,
+                                 plain=True, family=family)[-1]
+            torch.cuda.synchronize()
+            err = 0.0
+            for b, length in enumerate(BATCH_LENGTHS):
+                tok = int(toks[b])
+                if not _token_ok(tok, logits[b], dtype):
+                    raise AssertionError(
+                        f"{names[mode != 'fp']} {mode} {dtype} slot {b} (length {length}): "
+                        f"token {tok}, plain argmax {int(logits[b].argmax())}")
+                err = max(err, _new_row_err(mode, dtype, [t[:, b] for t in got],
+                                            [t[:, b] for t in want],
+                                            [t[:, b] for t in state], row=length,
+                                            deep_bf16=llama))
+            entry = {"max_abs_err": err}
+            line = (f"  {names[mode != 'fp']} {mode} {str(dtype)[6:]} B=8 C=320 lengths "
+                    f"{list(BATCH_LENGTHS)}: tokens {toks.tolist()} (plain "
+                    f"{logits.argmax(-1).tolist()}), new rows max|kernel-plain| {err:.2e}")
+            if dtype == torch.bfloat16:
+                one = [t[:, 7:8].clone() for t in got]
+                x1 = x[7:8].contiguous()
+                b8, by = _batch_bound(mode, dtype, cfg, family, BATCH_LENGTHS)
+                b1, _ = _batch_bound(mode, dtype, cfg, family, (MEGA_LEN,))
+                entry.update({
+                    "ms": device_ms(lambda: _batch_step(mode, packed, cfg, got, dev_len, x,
+                                                        family=family), calls=10),
+                    "ms_b1": device_ms(lambda: _batch_step(mode, packed, cfg, one, one_len,
+                                                           x1, family=family), calls=10),
+                    "plain_ms": device_ms(lambda: _batch_step(
+                        mode, packed, cfg, want, list(BATCH_LENGTHS), x, plain=True,
+                        family=family), calls=1, replays=3),
+                    "bound_ms": b8, "bound_by": by, "bound_ms_b1": b1, "library_ms": None,
+                })
+                line += (f"; device ms B=8 {entry['ms']:.5f} (bound {b8:.5f}, {by}), "
+                         f"B=1 {entry['ms_b1']:.5f} (bound {b1:.5f}), plain B=8 "
+                         f"{entry['plain_ms']:.5f}; per token B=8 {entry['ms'] / B:.5f}")
+            log(line)
+            reports[(mode, dtype)] = entry
+        del params, packed
+    return _mega_reports(reports, *names)
+
+
 def _cast_params(params: dict, dtype) -> dict:
     return {k: (_cast_params(v, dtype) if isinstance(v, dict) else v.to(dtype))
             for k, v in params.items()}
@@ -592,9 +732,14 @@ def _prompts(n: int, seed: int):
 
 def counters():
     from efficient_llm_inference_tpu_torch.ops import (
-        attention, megakernel, megakernel_llama, megakernel_quant, quantize)
+        attention, megakernel, megakernel_batch, megakernel_batch_quant,
+        megakernel_llama, megakernel_quant, quantize)
 
     return {
+        "gpt2_megabatch": megakernel_batch.gpt2_megabatch,
+        "llama_megabatch": megakernel_batch.llama_megabatch,
+        "gpt2_megabatch_quant": megakernel_batch_quant.gpt2_megabatch_quant,
+        "llama_megabatch_quant": megakernel_batch_quant.llama_megabatch_quant,
         "fused_quant_attention_batched": attention.fused_quant_attention_batched,
         "quantize_int8_rows": quantize.quantize_int8_rows,
         "quantize_int4_rows": quantize.quantize_int4_rows,
@@ -672,6 +817,111 @@ def phase_main_path(launches: dict, name: str, engines) -> None:
         log(f"  {name} {method}: megakernel on {tps[(method, None)]:.1f} tokens/s, "
             f"off {tps[(method, False)]:.1f} tokens/s "
             f"({tps[(method, None)] / tps[(method, False)]:.1f}x)")
+
+
+def _batch_prompts(n: int, seed: int):
+    """n prompts of lowercase words, 24 to 256 tokens (one a byte), the
+    first 256 and the second 24: one 256-token bucket."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    sizes = [PROMPT_TOKENS, 24] + [int(t) for t in rng.integers(24, PROMPT_TOKENS + 1, n - 2)]
+    out = []
+    for size in sizes:
+        chars = letters[rng.integers(0, 26, size)]
+        chars[rng.random(size) < 0.18] = ord(" ")
+        chars[0] = ord("a")
+        out.append(chars.tobytes().decode())
+    return out
+
+
+BATCH_PROMPTS, BATCH_KV = 8, (None, "int8", "int4", "mixed")
+
+
+def _counted(launches: dict, run):
+    """Zero every launch counter, call `run`, read the counters, add them to
+    `launches`; returns (run's result, the counts of this run)."""
+    for fn in counters().values():
+        fn.launches = 0
+    out = run()
+    got = {k: fn.launches for k, fn in counters().items()}
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    return out, got
+
+
+def phase_batch_main_path(launches: dict, name: str, eng) -> None:
+    """generate_batch on 8 prompts of 24-256 tokens (bucket 256) with 64 new
+    tokens for each KV kind, on the engine as a user makes it (bf16 on the
+    card): a first call (build, graph capture), then three timed calls. The
+    batched chain launches once per step, nothing else runs a kernel of the
+    port (the prefill is dense, the panes quantize in plain PyTorch).
+    Aggregate tokens/s = 8 x 64 over the wall of one call, beside
+    benchmark_method's single-stream tokens/s over the same prompts."""
+    prompts = _batch_prompts(BATCH_PROMPTS, SEED + 3)
+    family = eng.model.name
+    assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
+    lens = [len(eng.tokenizer.encode(p)) for p in prompts]
+    assert max(lens) == PROMPT_TOKENS and min(lens) == 24
+    for kv in BATCH_KV:
+        batch_name = f"{family}_megabatch" + ("_quant" if kv else "")
+        walls = []
+
+        def run():
+            for i in range(4):
+                t0 = time.perf_counter()
+                eng.generate_batch(prompts, NEW_TOKENS, kv_mode=kv)
+                if i:
+                    walls.append(time.perf_counter() - t0)
+
+        _, got = _counted(launches, run)
+        want = {k: 0 for k in counters()}
+        want[batch_name] = 4 * NEW_TOKENS
+        if got != want:
+            raise AssertionError(f"{name} generate_batch kv_mode={kv}: launches {got}, "
+                                 f"expected {want}")
+        ids = eng.last_batch_ids
+        assert [len(r) for r in ids] == [n + NEW_TOKENS for n in lens]
+        assert all(0 <= t < eng.model.vocab_size for r in ids for t in r[-NEW_TOKENS:])
+        method = f"quant_{kv}" if kv else "full_cache"
+        res, _ = _counted(launches, lambda: eng.benchmark_method(
+            prompts, method=method, max_new_tokens=NEW_TOKENS))
+        wall = sorted(walls)[1]
+        log(f"  {name} generate_batch kv_mode={kv}: {BATCH_PROMPTS * NEW_TOKENS / wall:.1f} "
+            f"tokens/s aggregate (8 x {NEW_TOKENS} new tokens, wall {wall * 1e3:.2f} ms, "
+            f"median of {[round(w * 1e3, 2) for w in walls]}); single-stream "
+            f"benchmark_method {method} {res['tokens_per_sec']:.1f} tokens/s over the same "
+            f"prompts; launches {json.dumps({k: v for k, v in got.items() if v})}; row 0 "
+            f"last tokens {ids[0][-8:]}")
+
+
+def phase_batch_fp32_hold(eng) -> None:
+    """GPT-2 in fp32 on the card: each row of generate_batch equals the
+    single-stream megakernel generate_ids of its prompt, up to the first
+    step whose top-2 logit gap (megakernel-off logits, teacher-forced) is
+    under 1e-4."""
+    assert eng.config.dtype == torch.float32
+    prompts = _batch_prompts(BATCH_PROMPTS, SEED + 4)
+    for kv in BATCH_KV:
+        method = f"quant_{kv}" if kv else "full_cache"
+        eng.generate_batch(prompts, NEW_TOKENS, kv_mode=kv)
+        equal, cut = 0, []
+        for p, row in zip(prompts, eng.last_batch_ids):
+            want = eng.generate_ids(p, method, NEW_TOKENS)
+            if row == want:
+                equal += 1
+                continue
+            _, logits = eng.generate_logits(p, method, NEW_TOKENS, forced=want[-NEW_TOKENS:])
+            top2 = logits.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+            first = int((~clear).nonzero()[0]) if not bool(clear.all()) else NEW_TOKENS
+            n = len(row) - NEW_TOKENS + first
+            if row[:n] != want[:n]:
+                raise AssertionError(f"fp32 generate_batch {method}: a row differs from "
+                                     f"generate_ids before its first unclear step {first}")
+            cut.append(first)
+        log(f"  fp32 generate_batch gpt2 {method}: {equal} of {BATCH_PROMPTS} rows equal "
+            f"the single-stream megakernel tokens; the rest equal up to a step with a "
+            f"top-2 gap under 1e-4 (at {cut})")
 
 
 def phase_fp32_hold() -> None:
@@ -773,6 +1023,14 @@ def main() -> int:
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+
+    gpt2_cfg = gpt2_mod.GPT2Config.small()
+    reports.update(check_megabatches("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
+        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda")))
+    log(f"phase batch kernels, gpt2: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     llama = InferenceEngine.from_model_name("llama-3-1b")  # random, seed 42, bf16
     torch.cuda.synchronize()
     log(f"phase llama init: {time.perf_counter() - t0:.1f} s (Llama-3.2-1B, "
@@ -784,6 +1042,11 @@ def main() -> int:
     log(f"phase llama kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    reports.update(check_megabatches("llama", llama.model.config,
+                                     lambda dtype: _cast_params(llama.params, dtype)))
+    log(f"phase batch kernels, llama: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     launches: dict = {}
     phase_main_path(launches, "gpt2", lambda mega: InferenceEngine.from_model_name(
         "gpt2", config=Config(model_name="gpt2", megakernel=mega)))
@@ -792,14 +1055,22 @@ def main() -> int:
             "llama-3-1b", config=Config(model_name="llama-3-1b", megakernel=False),
             params=llama.params)))
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_batch_main_path(launches, "gpt2", InferenceEngine.from_model_name("gpt2"))
+    phase_batch_main_path(launches, "llama-3-1b", llama)
+    log(f"phase batch main path: {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")
 
     t0 = time.perf_counter()
     phase_fp32_hold()
-    phase_fp32_mega_hold(InferenceEngine.from_model_name(
-        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32)))
+    gpt2_32 = InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32))
+    phase_fp32_mega_hold(gpt2_32)
+    phase_batch_fp32_hold(gpt2_32)
+    del gpt2_32
     params32 = _cast_params(llama.params, torch.float32)
     del llama
     torch.cuda.empty_cache()
@@ -831,6 +1102,18 @@ def main() -> int:
         "llama_megastep_quant": (
             "efficient_llm_inference_tpu_torch/csrc/llama_megastep.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_quant.py:694"),
+        "gpt2_megabatch": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:124"),
+        "llama_megabatch": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:583"),
+        "gpt2_megabatch_quant": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_quant.py:215"),
+        "llama_megabatch_quant": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_quant.py:679"),
     }
     kernels = []
     for name, (source, replaces) in where.items():

@@ -44,6 +44,8 @@ class Config:
             (ops/megakernel.py, ops/megakernel_quant.py). None = on for a
             CUDA device, off on the CPU; False disables; True forces (on the
             CPU the steps then run the kernels' plain PyTorch versions).
+            It also lets `generate_batch` take the batched kernels
+            (ops/megakernel_batch.py); off, it generates prompt by prompt.
     """
 
     model_name: str = "gpt2"

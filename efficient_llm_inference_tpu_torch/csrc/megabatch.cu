@@ -1,0 +1,713 @@
+// One decode step of B independent streams (greedy, 1 <= B <= 8) as a fixed
+// chain of kernels, for GPT-2 and for Llama/Qwen.
+//
+// Replaces efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:
+// gpt2_megabatch and llama_megabatch (KV panes in the model dtype) and
+// ops/pallas/megakernel_batch_quant.py: gpt2_megabatch_quant and
+// llama_megabatch_quant (int8, half-split int4 or mixed panes with
+// per-(slot, token) fp32 scales), the TPU's batched whole-step decode
+// programs. Entry points: elit_gpt2_megabatch(_quant) and
+// elit_llama_megabatch(_quant). Each launches, on the stream it is given, the
+// chain of its single-stream counterpart (gpt2_megastep.cu,
+// llama_megastep.cu) with a slot dimension:
+//
+//   embed                  one block per slot: x[b] from tok_in[b] (GPT-2 adds
+//                          wpe[min(lengths[b], P-1)]) or x_emb[b]
+//   per layer l:
+//     gemv  norm -> qkv    every weight row read once for all B slots
+//     attention            grid (H + 1) x B: blocks (h, b) attend slot b's
+//                          pane rows t < lengths[b] (GQA: K/V head h / group;
+//                          Llama: RoPE at min(lengths[b], P-1)); block (H, b)
+//                          writes row lengths[b] of slot b's panes
+//     gemv  out-proj + x   residual add in place
+//     gemv  norm -> MLP    GELU (GPT-2) or SwiGLU (Llama) epilogue
+//     gemv  MLP-out + x    residual add in place
+//   gemv  norm -> LM head  per-block, per-slot (max, argmax) partials
+//   argmax                 one block per slot -> tok_out[b]; with `advance`,
+//                          clamp to [0, V-1] and lengths[b] += 1
+//
+// Bound: bytes. A step reads every weight once for all B slots (GPT-2 small
+// in bf16: 247 MB; Llama-3.2-1B: 2.47 GB) plus each slot's visible K/V rows,
+// so B tokens cost about one single-stream step while the weights dominate
+// (at B = 8 and 320 cached rows the panes add 8 x 9.8 MB for GPT-2 in bf16,
+// 8 x 10.5 MB for Llama-3.2-1B). The batched GEMV is a skinny GEMM done as a
+// GEMV: a block stages the B input rows in shared memory in the model dtype
+// (exact: the staged values are the norm outputs rounded to T, or
+// activations already in T) with 16-byte loads, once for all its rows when
+// they fit (up to 200 KB, opted into; Llama-3.2-1B's down-projection at B = 8
+// in bf16 takes 128 KB), and each warp streams RW = 1 or 4 weight rows with
+// 16-byte non-caching loads, applying every chunk to the B staged rows (B x
+// RW fp32 accumulators a lane). The norm statistics are computed by warp b
+// for slot b in every block that consumes them. Left for later: tensor cores
+// (mma/wgmma over the B rows; at B = 8 the step stays byte-bound), and the
+// single-stream chain's open items (launch gaps, attention split).
+//
+// Numerics: per slot, the single-stream chains' rounding points
+// (megastep_common.cuh); the fp32 sums of the norm statistics and of a row
+// split over KS warps may be taken in another order than in a batch-1 step.
+//
+// C interface (ctypes): each entry point takes its args struct (mirrored by
+// ops/megakernel_batch.py) and a stream, checks the first error of each
+// launch with cudaGetLastError() and returns it (0 = success);
+// elit_cuda_error_string names a code. The structs are the single-stream
+// MegaArgs / LlamaArgs with `batch` first; length, tok_in, tok_out are [B],
+// x_emb [B, E], the panes [L, B, C, W], the scales [L, B, C], the workspace
+// [B, width], lm_val/lm_idx [B, lm_blocks].
+
+#include <algorithm>
+
+#include "megastep_common.cuh"
+
+// Mirrored by ops/megakernel_batch.py's GPT2BatchArgs (ctypes).
+struct Gpt2BatchArgs {
+  int batch;
+  int dtype, n_layer, n_embd, n_head, vocab, n_pos, capacity;
+  int k_kind, v_kind, advance, lm_blocks;
+  float ln_eps, quant_eps;
+  const void* attn_w;
+  const void* proj_w;
+  const void* fc_w;
+  const void* fcp_w;
+  const void* wte;
+  const void* wpe;
+  const float* smalls;
+  const float* lnf;
+  void* k;
+  void* v;
+  float* ks;
+  float* vs;
+  int* length;
+  const int* tok_in;
+  const void* x_emb;
+  int* tok_out;
+  void* x;
+  void* qkv;
+  void* attn;
+  void* ffn;
+  float* lm_val;
+  int* lm_idx;
+};
+
+// Mirrored by ops/megakernel_batch.py's LlamaBatchArgs (ctypes).
+struct LlamaBatchArgs {
+  int batch;
+  int dtype, n_layer, n_embd, n_head, n_kv_head, head_dim, inter, vocab, n_pos, capacity;
+  int k_kind, v_kind, advance, lm_blocks;
+  float rms_eps, quant_eps;
+  const void* qkv_w;
+  const void* o_w;
+  const void* gu_w;
+  const void* down_w;
+  const void* embed;
+  const void* head;
+  const float* norms;
+  const float* lnf;
+  const float* qkvb;
+  const float* cos;
+  const float* sin;
+  void* k;
+  void* v;
+  float* ks;
+  float* vs;
+  int* length;
+  const int* tok_in;
+  const void* x_emb;
+  int* tok_out;
+  void* x;
+  void* qkv;
+  void* attn;
+  void* ffn;
+  float* lm_val;
+  int* lm_idx;
+};
+
+namespace {
+
+constexpr int kMaxBatch = 8;
+
+#define RETURN_IF(rc_expr)          \
+  do {                              \
+    const int rc_ = (rc_expr);      \
+    if (rc_) return rc_;            \
+  } while (0)
+
+// ----------------------------------------------------------- batched GEMV
+//
+// y[b, row] = sum_k in[b, k] * W[row, k] for the B rows of in [B, K] over a
+// row-major [N, K] weight, with the single-stream gemv_kernel's prologues and
+// epilogues. A block stages the B input rows (norm applied, rounded to T) in
+// shared memory, then walks its row groups: KS warps split a row's K, and
+// each warp streams RW rows at once (RW independent 16-byte loads in flight a
+// lane), applying every weight chunk to the B staged rows from registers.
+// The input is staged once per block when B x K values fit kStageMax bytes
+// (the grid is then at most the resident blocks, so a block serves many row
+// groups); otherwise in K-chunks, one row group per block. Outputs are
+// [B, N] ([B, N/2] for SwiGLU); the argmax partials of slot b go to
+// part_val[b * gridDim.x + blockIdx.x].
+
+constexpr int kStageMax = 200 * 1024;  // dynamic shared memory for staged inputs
+
+template <typename T> __device__ __forceinline__ uint4 pack16(const float (&v)[Vec<T>::N]);
+template <> __device__ __forceinline__ uint4 pack16<float>(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+template <> __device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float (&v)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16(v[2 * i])) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16(v[2 * i + 1])) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T, int PRO, int EPI, int KS, int RW>
+__global__ void __launch_bounds__(kThreads)
+gemv_batch_kernel(const T* __restrict__ W, int N, int K, int B, int KC,
+                  const T* __restrict__ in, const float* __restrict__ ln_g,
+                  const float* __restrict__ ln_b, float ln_eps, const float* __restrict__ bias,
+                  T* __restrict__ out, float* __restrict__ part_val, int* __restrict__ part_idx) {
+  constexpr int RPB = kWarps / KS * RW;  // rows per block and pass
+  constexpr int VN = Vec<T>::N;
+  static_assert(EPI != EPI_SWIGLU || RPB % 2 == 0, "SwiGLU pairs rows within a pass");
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  T* h = reinterpret_cast<T*>(stage_raw);  // [B, KC]
+  __shared__ float part[kWarps][RW][kMaxBatch];
+  __shared__ float stat[2][kMaxBatch];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = warp / KS, ks = warp % KS;
+  const int n_kc = (K + KC - 1) / KC;
+
+  // this warp's 16-byte chunks [c0, c1) of chunk kc, in units of VN values
+  auto range = [&](int kc, int& c0, int& c1) {
+    const int k0 = kc * KC, n = min(KC, K - k0) / VN;
+    c0 = k0 / VN + ks * n / KS;
+    c1 = k0 / VN + (ks + 1) * n / KS;
+  };
+  // the weight rows of this warp in the pass at row0 (past N: row N - 1,
+  // computed and never stored)
+  auto row_ptr = [&](int row0, int i) {
+    return reinterpret_cast<const uint4*>(W + (size_t)min(row0 + r * RW + i, N - 1) * K);
+  };
+
+  uint4 pre[RW];  // the first chunk of each row, requested before the prologue
+  {
+    int c0, c1;
+    range(0, c0, c1);
+    if (c0 + lane < c1) {
+#pragma unroll
+      for (int i = 0; i < RW; ++i) pre[i] = load_stream(row_ptr(blockIdx.x * RPB, i) + c0 + lane);
+    }
+  }
+  if (PRO != PRO_VEC && warp < B) {  // warp b: the norm statistics of slot b
+    const uint4* xb = reinterpret_cast<const uint4*>(in + (size_t)warp * K);
+    float s = 0.0f;
+    for (int c = lane; c < K / VN; c += 32) {
+      float v[VN];
+      unpack16(xb[c], v);
+#pragma unroll
+      for (int i = 0; i < VN; ++i) s += PRO == PRO_LN ? v[i] : v[i] * v[i];
+    }
+    s = warp_sum(s);
+    if (PRO == PRO_LN) {
+      const float mean = s / (float)K;
+      float s2 = 0.0f;
+      for (int c = lane; c < K / VN; c += 32) {
+        float v[VN];
+        unpack16(xb[c], v);
+#pragma unroll
+        for (int i = 0; i < VN; ++i) s2 += (v[i] - mean) * (v[i] - mean);
+      }
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        stat[0][warp] = mean;
+        stat[1][warp] = rsqrtf(s2 / (float)K + ln_eps);
+      }
+    } else if (lane == 0) {
+      stat[1][warp] = rsqrtf(s / (float)K + ln_eps);
+    }
+  }
+
+  // stage chunk kc of the B input rows (norm applied, rounded to T), 16 bytes
+  // a thread and step
+  auto stage = [&](int kc) {
+    const int k0 = kc * KC, nv = min(KC, K - k0) / VN;
+    for (int j = threadIdx.x; j < B * nv; j += kThreads) {
+      const int b = j / nv, e = k0 + (j - b * nv) * VN;
+      uint4 u = *reinterpret_cast<const uint4*>(in + (size_t)b * K + e);
+      if (PRO != PRO_VEC) {
+        float v[VN];
+        unpack16(u, v);
+#pragma unroll
+        for (int i = 0; i < VN; ++i) {
+          if (PRO == PRO_LN)
+            v[i] = (v[i] - stat[0][b]) * stat[1][b] * ln_g[e + i] + ln_b[e + i];
+          else
+            v[i] = round_to<T>(v[i] * stat[1][b]) * round_to<T>(ln_g[e + i]);
+        }
+        u = pack16<T>(v);  // rounds to T
+      }
+      *reinterpret_cast<uint4*>(h + (size_t)b * KC + (e - k0)) = u;
+    }
+  };
+
+  float acc[RW][kMaxBatch];
+  auto apply = [&](const uint4 (&u)[RW], int cl) {  // chunk cl (VN values) of the stage
+    float w[RW][VN];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) unpack16(u[i], w[i]);
+#pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b < B) {
+        float hv[VN];
+        unpack16(*reinterpret_cast<const uint4*>(h + (size_t)b * KC + cl * VN), hv);
+#pragma unroll
+        for (int i = 0; i < RW; ++i)
+#pragma unroll
+          for (int v = 0; v < VN; ++v) acc[i][b] = fmaf(w[i][v], hv[v], acc[i][b]);
+      }
+    }
+  };
+  auto row_sum = [&](int j, int b) {  // row j of the pass
+    float y = 0.0f;
+#pragma unroll
+    for (int q = 0; q < KS; ++q) y += part[(j / RW) * KS + q][j % RW][b];
+    return y;
+  };
+
+  // epilogue thread t: slot t / RPB (t / (RPB/2) for SwiGLU), row t % RPB
+  float best = -INFINITY;
+  int best_idx = 0;
+  int staged = -1;
+  __syncthreads();  // stat[] is complete
+  for (int row0 = blockIdx.x * RPB; row0 < N; row0 += gridDim.x * RPB) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) acc[i][b] = 0.0f;
+    for (int kc = 0; kc < n_kc; ++kc) {
+      if (kc != staged) {  // uniform over the block
+        __syncthreads();
+        stage(kc);
+        __syncthreads();
+        staged = kc;
+      }
+      int c0, c1;
+      range(kc, c0, c1);
+      const int cbase = kc * KC / VN;
+      const uint4* wr[RW];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) wr[i] = row_ptr(row0, i);
+      // software-pipelined: the next chunks are requested before this one's
+      // FMAs, so each warp keeps 2 x RW loads in flight
+      int c = c0 + lane;
+      uint4 u[RW];
+      if (row0 == blockIdx.x * RPB && kc == 0) {
+#pragma unroll
+        for (int i = 0; i < RW; ++i) u[i] = pre[i];
+      } else if (c < c1) {
+#pragma unroll
+        for (int i = 0; i < RW; ++i) u[i] = load_stream(wr[i] + c);
+      }
+#pragma unroll (RW == 1 ? 2 : 1)
+      for (; c < c1; c += 32) {
+        uint4 un[RW];
+        if (c + 32 < c1) {
+#pragma unroll
+          for (int i = 0; i < RW; ++i) un[i] = load_stream(wr[i] + c + 32);
+        }
+        apply(u, c - cbase);
+#pragma unroll
+        for (int i = 0; i < RW; ++i) u[i] = un[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b < B) {
+          const float v = warp_sum(acc[i][b]);
+          if (lane == 0) part[warp][i][b] = v;
+        }
+      }
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (EPI == EPI_SWIGLU) {
+      constexpr int HP = RPB / 2;
+      if (t < HP * B) {
+        const int j = t % HP, b = t / HP;
+        if (row0 + 2 * j + 1 < N) {
+          const float gate = round_to<T>(silu(row_sum(2 * j, b)));
+          const float up = round_to<T>(row_sum(2 * j + 1, b));
+          out[(size_t)b * (N / 2) + row0 / 2 + j] = from_f32<T>(gate * up);
+        }
+      }
+    } else if (t < RPB * B && row0 + t % RPB < N) {
+      const int j = t % RPB, b = t / RPB, o = row0 + j;
+      const float y = row_sum(j, b);
+      const float bo = bias != nullptr ? bias[o] : 0.0f;
+      if (EPI == EPI_STORE) {
+        out[(size_t)b * N + o] = from_f32<T>(y + bo);
+      } else if (EPI == EPI_GELU) {
+        out[(size_t)b * N + o] = from_f32<T>(gelu_tanh(y + bo));
+      } else if (EPI == EPI_RESIDUAL) {
+        T* ob = out + (size_t)b * N + o;
+        *ob = from_f32<T>(to_f32(*ob) + round_to<T>(y + bo));
+      } else if (better(y, o, best, best_idx)) {
+        best = y;
+        best_idx = o;
+      }
+    }
+    __syncthreads();  // part[] is rewritten by the next pass
+  }
+  if (EPI == EPI_ARGMAX) {
+    __shared__ float bv[kMaxBatch][RPB];
+    __shared__ int bi[kMaxBatch][RPB];
+    if (threadIdx.x < RPB * B) {
+      bv[threadIdx.x / RPB][threadIdx.x % RPB] = best;
+      bi[threadIdx.x / RPB][threadIdx.x % RPB] = best_idx;
+    }
+    __syncthreads();
+    if (threadIdx.x < B) {
+      const int b = threadIdx.x;
+      float v = bv[b][0];
+      int i = bi[b][0];
+      for (int t = 1; t < RPB; ++t)
+        if (better(bv[b][t], bi[b][t], v, i)) { v = bv[b][t]; i = bi[b][t]; }
+      part_val[(size_t)b * gridDim.x + blockIdx.x] = v;
+      part_idx[(size_t)b * gridDim.x + blockIdx.x] = i;
+    }
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+// One batched GEMV. RW = 4 (or 2) rows a warp where that still leaves a row
+// group for every SM, else 1. Whole-K staging when it fits kStageMax: at most two
+// resident blocks an SM (or `max_grid`), each serving many row groups;
+// K-chunked: one row group a block. The grid used is stored in *grid_used.
+template <typename T, int PRO, int EPI, int KS, int RW>
+int gemv_batch_rw(const T* W, int N, int K, int B, const T* in, const float* g,
+                  const float* beta, float eps, const float* bias, T* out, float* pv, int* pi,
+                  int max_grid, int* grid_used, cudaStream_t st) {
+  constexpr int RPB = kWarps / KS * RW;
+  const size_t item = sizeof(T);
+  int KC = K;
+  if ((size_t)B * K * item > (size_t)kStageMax)
+    KC = (int)(kStageMax / (B * item)) / 256 * 256;
+  const size_t smem = (size_t)B * KC * item;
+  auto kernel = gemv_batch_kernel<T, PRO, EPI, KS, RW>;
+  if (smem > 32 * 1024)  // above 48 KB with the static shared memory: opt in
+    RETURN_IF((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem));
+  int grid = cdiv(N, RPB);
+  if (KC == K) {
+    const int per_sm = std::max(1, std::min(2, (int)((227 * 1024) / (smem + 4096))));
+    grid = std::min(grid, sm_count() * per_sm);
+  }
+  if (max_grid > 0) grid = std::min(grid, max_grid);
+  if (grid_used != nullptr) *grid_used = grid;
+  kernel<<<grid, kThreads, smem, st>>>(W, N, K, B, KC, in, g, beta, eps, bias, out, pv, pi);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+template <typename T, int PRO, int EPI, int KS>
+int gemv_batch(const T* W, int N, int K, int B, const T* in, const float* g, const float* beta,
+               float eps, const float* bias, T* out, float* pv, int* pi, int max_grid,
+               int* grid_used, cudaStream_t st) {
+  if (cdiv(N, kWarps / KS * 4) >= sm_count())
+    return gemv_batch_rw<T, PRO, EPI, KS, 4>(W, N, K, B, in, g, beta, eps, bias, out, pv, pi,
+                                             max_grid, grid_used, st);
+  if (cdiv(N, kWarps / KS * 2) >= sm_count())
+    return gemv_batch_rw<T, PRO, EPI, KS, 2>(W, N, K, B, in, g, beta, eps, bias, out, pv, pi,
+                                             max_grid, grid_used, st);
+  return gemv_batch_rw<T, PRO, EPI, KS, 1>(W, N, K, B, in, g, beta, eps, bias, out, pv, pi,
+                                           max_grid, grid_used, st);
+}
+
+// -------------------------------------------------------------- attention
+
+// What separates slot b from slot 0 in one layer's tensors.
+struct SlotStrides {
+  size_t k_bytes, v_bytes;  // one slot's [C, W] pane
+  int qkv, out, scales;     // elements of q|k|v, of the output, of a scale row (C)
+};
+
+template <typename T, int KK, int VK, int D>
+__global__ void __launch_bounds__(kThreads)
+attention_batch_kernel(AttnParams p, const SlotStrides s) {
+  const int b = blockIdx.y;
+  p.qkv = static_cast<const T*>(p.qkv) + (size_t)b * s.qkv;
+  p.k = static_cast<char*>(p.k) + b * s.k_bytes;
+  p.v = static_cast<char*>(p.v) + b * s.v_bytes;
+  if (p.ks != nullptr) {
+    p.ks += (size_t)b * s.scales;
+    p.vs += (size_t)b * s.scales;
+  }
+  p.length += b;
+  p.out = static_cast<T*>(p.out) + (size_t)b * s.out;
+  attention_block<T, KK, VK, D>(p, blockIdx.x);
+}
+
+template <typename T, int KK, int VK>
+int launch_attention_batch(const AttnParams& p, const SlotStrides& s, int B, int head_dim,
+                           cudaStream_t st) {
+  const int rows = p.cos != nullptr && p.kv_width > p.capacity ? p.kv_width : p.capacity;
+  const size_t smem = sizeof(float) * (size_t)rows;
+  const dim3 grid(p.n_head + 1, B);
+  if (head_dim == 64)
+    attention_batch_kernel<T, KK, VK, 64><<<grid, kThreads, smem, st>>>(p, s);
+  else if (head_dim == 128)
+    attention_batch_kernel<T, KK, VK, 128><<<grid, kThreads, smem, st>>>(p, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+template <typename T>
+int attention_batch(const AttnParams& p, const SlotStrides& s, int B, int k_kind, int v_kind,
+                    int head_dim, cudaStream_t st) {
+  if (k_kind == 0 && v_kind == 0) return launch_attention_batch<T, 0, 0>(p, s, B, head_dim, st);
+  if (k_kind == 8 && v_kind == 8) return launch_attention_batch<T, 8, 8>(p, s, B, head_dim, st);
+  if (k_kind == 4 && v_kind == 4) return launch_attention_batch<T, 4, 4>(p, s, B, head_dim, st);
+  if (k_kind == 8 && v_kind == 4) return launch_attention_batch<T, 8, 4>(p, s, B, head_dim, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Layer l's attention parameters over [L, B, C, W] panes and [L, B, C] scales.
+template <typename T>
+void layer_panes(AttnParams& p, SlotStrides& s, void* k, void* v, float* ks, float* vs,
+                 int k_kind, int v_kind, int l, int B, int C, int W) {
+  p.k = static_cast<char*>(k) + pane_offset(k_kind, sizeof(T), l, B * C, W);
+  p.v = static_cast<char*>(v) + pane_offset(v_kind, sizeof(T), l, B * C, W);
+  p.ks = ks ? ks + (size_t)l * B * C : nullptr;
+  p.vs = vs ? vs + (size_t)l * B * C : nullptr;
+  s.k_bytes = pane_offset(k_kind, sizeof(T), 1, C, W);
+  s.v_bytes = pane_offset(v_kind, sizeof(T), 1, C, W);
+  s.scales = C;
+}
+
+// ------------------------------------------------------ embedding, argmax
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gpt2_embed_batch(const T* __restrict__ wte, const T* __restrict__ wpe,
+                 const int* __restrict__ tok_in, const T* __restrict__ x_emb,
+                 const int* __restrict__ lengths, int E, int V, int P, T* __restrict__ x) {
+  const int b = blockIdx.x;
+  T* xb = x + (size_t)b * E;
+  if (tok_in == nullptr) {
+    for (int e = threadIdx.x; e < E; e += kThreads) xb[e] = x_emb[(size_t)b * E + e];
+    return;
+  }
+  const T* we = wte + (size_t)min(max(tok_in[b], 0), V - 1) * E;
+  const T* pe = wpe + (size_t)min(max(lengths[b], 0), P - 1) * E;
+  for (int e = threadIdx.x; e < E; e += kThreads)
+    xb[e] = from_f32<T>(to_f32(we[e]) + to_f32(pe[e]));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+llama_embed_batch(const T* __restrict__ embed, const int* __restrict__ tok_in,
+                  const T* __restrict__ x_emb, int E, int V, T* __restrict__ x) {
+  const int b = blockIdx.x;
+  const T* src = x_emb + (size_t)b * E;
+  if (tok_in != nullptr) src = embed + (size_t)min(max(tok_in[b], 0), V - 1) * E;
+  for (int e = threadIdx.x; e < E; e += kThreads) x[(size_t)b * E + e] = src[e];
+}
+
+__global__ void __launch_bounds__(kThreads)
+argmax_batch_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx, int n,
+                    int V, int advance, int* __restrict__ tok_out, int* __restrict__ lengths) {
+  const int b = blockIdx.x;
+  argmax_block(part_val + (size_t)b * n, part_idx + (size_t)b * n, n, V, advance, tok_out + b,
+               lengths + b);
+}
+
+// ------------------------------------------------------------------ chains
+
+template <typename T>
+int gpt2_step(const Gpt2BatchArgs& a, cudaStream_t st) {
+  const int L = a.n_layer, E = a.n_embd, V = a.vocab, B = a.batch, C = a.capacity;
+  const size_t E_ = E;
+  const T* attn_w = static_cast<const T*>(a.attn_w);
+  const T* proj_w = static_cast<const T*>(a.proj_w);
+  const T* fc_w = static_cast<const T*>(a.fc_w);
+  const T* fcp_w = static_cast<const T*>(a.fcp_w);
+  const T* wte = static_cast<const T*>(a.wte);
+  T* x = static_cast<T*>(a.x);
+  T* qkv = static_cast<T*>(a.qkv);
+  T* attn = static_cast<T*>(a.attn);
+  T* ffn = static_cast<T*>(a.ffn);
+
+  gpt2_embed_batch<T><<<B, kThreads, 0, st>>>(wte, static_cast<const T*>(a.wpe), a.tok_in,
+                                              static_cast<const T*>(a.x_emb), a.length, E, V,
+                                              a.n_pos, x);
+  LAUNCH_CHECK();
+  for (int l = 0; l < L; ++l) {
+    const float* sm = a.smalls + (size_t)l * 13 * E;
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(attn_w + l * 3 * E_ * E, 3 * E, E, B, x, sm,
+                                                   sm + E, a.ln_eps, sm + 4 * E, qkv, nullptr,
+                                                   nullptr, 0, nullptr, st)));
+    AttnParams ap{};
+    SlotStrides ss{};
+    layer_panes<T>(ap, ss, a.k, a.v, a.ks, a.vs, a.k_kind, a.v_kind, l, B, C, E);
+    ss.qkv = 3 * E;
+    ss.out = E;
+    ap.qkv = qkv;
+    ap.length = a.length;
+    ap.capacity = C;
+    ap.n_head = a.n_head;
+    ap.q_width = ap.kv_width = E;
+    ap.group = 1;
+    ap.sm_scale = 1.0f / sqrtf((float)(E / a.n_head));
+    ap.quant_eps = a.quant_eps;
+    ap.out = attn;
+    RETURN_IF(attention_batch<T>(ap, ss, B, a.k_kind, a.v_kind, E / a.n_head, st));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(proj_w + l * E_ * E, E, E, B, attn,
+                                                       nullptr, nullptr, 0.0f, sm + 7 * E, x,
+                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(fc_w + l * 4 * E_ * E, 4 * E, E, B, x,
+                                                  sm + 2 * E, sm + 3 * E, a.ln_eps, sm + 8 * E,
+                                                  ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(fcp_w + l * 4 * E_ * E, E, 4 * E, B, ffn,
+                                                       nullptr, nullptr, 0.0f, sm + 12 * E, x,
+                                                       nullptr, nullptr, 0, nullptr, st)));
+  }
+  int lm_grid = 0;
+  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(wte, V, E, B, x, a.lnf, a.lnf + E, a.ln_eps,
+                                                  nullptr, nullptr, a.lm_val, a.lm_idx,
+                                                  a.lm_blocks, &lm_grid, st)));
+  argmax_batch_kernel<<<B, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.advance,
+                                              a.tok_out, a.length);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+template <typename T>
+int llama_step(const LlamaBatchArgs& a, cudaStream_t st) {
+  const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
+  const int B = a.batch, C = a.capacity;
+  const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
+  const size_t E_ = E;
+  const T* qkv_w = static_cast<const T*>(a.qkv_w);
+  const T* o_w = static_cast<const T*>(a.o_w);
+  const T* gu_w = static_cast<const T*>(a.gu_w);
+  const T* down_w = static_cast<const T*>(a.down_w);
+  T* x = static_cast<T*>(a.x);
+  T* qkv = static_cast<T*>(a.qkv);
+  T* attn = static_cast<T*>(a.attn);
+  T* ffn = static_cast<T*>(a.ffn);
+
+  llama_embed_batch<T><<<B, kThreads, 0, st>>>(static_cast<const T*>(a.embed), a.tok_in,
+                                               static_cast<const T*>(a.x_emb), E, V, x);
+  LAUNCH_CHECK();
+  for (int l = 0; l < L; ++l) {
+    const float* nm = a.norms + (size_t)l * 2 * E;
+    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_STORE, 1>(
+        qkv_w + l * NQKV * E_, NQKV, E, B, x, nm, nullptr, a.rms_eps,
+        a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv, nullptr, nullptr, 0, nullptr, st)));
+    AttnParams ap{};
+    SlotStrides ss{};
+    layer_panes<T>(ap, ss, a.k, a.v, a.ks, a.vs, a.k_kind, a.v_kind, l, B, C, KW);
+    ss.qkv = NQKV;
+    ss.out = QW;
+    ap.qkv = qkv;
+    ap.length = a.length;
+    ap.cos = a.cos;
+    ap.sin = a.sin;
+    ap.n_pos = a.n_pos;
+    ap.capacity = C;
+    ap.n_head = a.n_head;
+    ap.q_width = QW;
+    ap.kv_width = KW;
+    ap.group = a.n_head / a.n_kv_head;
+    ap.sm_scale = 1.0f / sqrtf((float)D);
+    ap.quant_eps = a.quant_eps;
+    ap.out = attn;
+    RETURN_IF(attention_batch<T>(ap, ss, B, a.k_kind, a.v_kind, D, st));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(o_w + l * E_ * QW, E, QW, B, attn,
+                                                       nullptr, nullptr, 0.0f, nullptr, x,
+                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(gu_w + l * 2 * (size_t)I * E, 2 * I, E, B,
+                                                     x, nm + E, nullptr, a.rms_eps, nullptr,
+                                                     ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(down_w + l * E_ * I, E, I, B, ffn,
+                                                       nullptr, nullptr, 0.0f, nullptr, x,
+                                                       nullptr, nullptr, 0, nullptr, st)));
+  }
+  int lm_grid = 0;
+  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(static_cast<const T*>(a.head), V, E, B, x,
+                                                   a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
+                                                   a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid,
+                                                   st)));
+  argmax_batch_kernel<<<B, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.advance,
+                                              a.tok_out, a.length);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int run_gpt2(const Gpt2BatchArgs* a, void* stream, bool quant) {
+  if (a == nullptr) return (int)cudaErrorInvalidValue;
+  const bool q = a->k_kind != 0 || a->v_kind != 0;
+  const int E = a->n_embd, H = a->n_head;
+  const bool int4 = a->k_kind == 4 || a->v_kind == 4;
+  if (q != quant || a->batch < 1 || a->batch > kMaxBatch || H <= 0 || E % H || E % 128 ||
+      a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
+      (q && (!a->ks || !a->vs)) || (int4 && (E / 2) % (E / H)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->dtype == 0) return gpt2_step<float>(*a, st);
+  if (a->dtype == 1) return gpt2_step<__nv_bfloat16>(*a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int run_llama(const LlamaBatchArgs* a, void* stream, bool quant) {
+  if (a == nullptr) return (int)cudaErrorInvalidValue;
+  const bool q = a->k_kind != 0 || a->v_kind != 0;
+  const int D = a->head_dim, Hq = a->n_head, Hkv = a->n_kv_head;
+  const bool int4 = a->k_kind == 4 || a->v_kind == 4;
+  // 16-byte weight rows need widths that are multiples of 8 values
+  if (q != quant || a->batch < 1 || a->batch > kMaxBatch || (D != 64 && D != 128) ||
+      Hkv <= 0 || Hq % Hkv || a->n_embd % 8 || a->inter % 8 || a->capacity <= 0 ||
+      a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 || !a->cos || !a->sin ||
+      (q && (!a->ks || !a->vs)) || (int4 && (Hkv * D / 2) % D))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->dtype == 0) return llama_step<float>(*a, st);
+  if (a->dtype == 1) return llama_step<__nv_bfloat16>(*a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int elit_gpt2_megabatch(const Gpt2BatchArgs* a, void* stream) {
+  return run_gpt2(a, stream, false);
+}
+
+extern "C" int elit_gpt2_megabatch_quant(const Gpt2BatchArgs* a, void* stream) {
+  return run_gpt2(a, stream, true);
+}
+
+extern "C" int elit_llama_megabatch(const LlamaBatchArgs* a, void* stream) {
+  return run_llama(a, stream, false);
+}
+
+extern "C" int elit_llama_megabatch_quant(const LlamaBatchArgs* a, void* stream) {
+  return run_llama(a, stream, true);
+}
+
+extern "C" const char* elit_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,9 +1,10 @@
 // Device code shared by the whole-step decode chains (gpt2_megastep.cu,
-// llama_megastep.cu): conversions, 16-byte weight streaming, block
-// reductions, the GEMV kernel with its norm prologues and fused epilogues,
-// decode attention over fp / int8 / half-split int4 panes with
-// quantize-on-write, and the final argmax. Each including source gets its own
-// copy (anonymous namespace); the host sides stay in the sources.
+// llama_megastep.cu, and the batched chains of megabatch.cu): conversions,
+// 16-byte weight streaming, block reductions, the GEMV kernel with its norm
+// prologues and fused epilogues, decode attention over fp / int8 / half-split
+// int4 panes with quantize-on-write, and the final argmax. Each including
+// source gets its own copy (anonymous namespace); the host sides stay in the
+// sources.
 //
 // Numerics (the JAX kernels' rounding points): the norm output, q, k, v, the
 // attention output, the activation output and every residual add round to the
@@ -276,9 +277,11 @@ gemv_kernel(const T* __restrict__ W, int N, int K, const T* __restrict__ in,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-argmax_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx, int n,
-              int V, int advance, int* __restrict__ tok_out, int* __restrict__ length) {
+// The first maximum over n per-block (max, argmax) partials -> *tok_out; with
+// `advance`, the token is clamped to [0, V-1] and *length incremented.
+__device__ void argmax_block(const float* __restrict__ part_val, const int* __restrict__ part_idx,
+                             int n, int V, int advance, int* __restrict__ tok_out,
+                             int* __restrict__ length) {
   __shared__ float sv[kWarps];
   __shared__ int si[kWarps];
   float v = -INFINITY;
@@ -303,6 +306,12 @@ argmax_kernel(const float* __restrict__ part_val, const int* __restrict__ part_i
     }
     *tok_out = i;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+argmax_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx, int n,
+              int V, int advance, int* __restrict__ tok_out, int* __restrict__ length) {
+  argmax_block(part_val, part_idx, n, V, advance, tok_out, length);
 }
 
 // --------------------------------------------------------------- attention
@@ -424,7 +433,7 @@ struct AttnParams {
   void* out;           // [QW] in T
 };
 
-// Blocks 0..H-1: attention of query head blockIdx.x. Block H: writes row
+// Blocks 0..H-1: attention of query head `block`. Block H: writes row
 // `length` of the layer's panes (never read by this step; with RoPE it first
 // rotates the whole k row into shared memory). Phase 1: scores of the visible
 // rows into shared memory, D/8 lanes per row (8 dims each, one shuffle
@@ -432,7 +441,7 @@ struct AttnParams {
 // over the warp's row slots by shuffles and over the warps through shared
 // memory; the current token (from qkv) enters the same softmax.
 template <typename T, int KK, int VK, int D>
-__global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p) {
+__device__ __forceinline__ void attention_block(const AttnParams& p, const int block) {
   constexpr int LPR = D / 8;        // lanes per row in phase 1
   constexpr int RPW = 32 / LPR;     // rows per warp and pass
   constexpr int DPT = D / 32;       // dims per lane of the current token's score
@@ -456,7 +465,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p)
     sn = p.sin + (size_t)pos * D;
   }
 
-  if (blockIdx.x == p.n_head) {  // the new row of this layer
+  if (block == p.n_head) {  // the new row of this layer
     if (raw_len >= 0 && raw_len < C) {
       if (cs != nullptr) {
         for (int e = threadIdx.x; e < KW; e += kThreads)
@@ -470,7 +479,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p)
     }
     return;
   }
-  const int h = blockIdx.x, hk = h / p.group;
+  const int h = block, hk = h / p.group;
   const T* qh = q + h * D;
   const T* kh = kc + hk * D;
   const Pane<T, KK> kpane{p.k, KW};
@@ -551,6 +560,11 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p)
     num += p_cur * to_f32(vc[hk * D + d]);
     static_cast<T*>(p.out)[h * D + d] = from_f32<T>(num / denom);
   }
+}
+
+template <typename T, int KK, int VK, int D>
+__global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p) {
+  attention_block<T, KK, VK, D>(p, blockIdx.x);
 }
 
 // ------------------------------------------------------------------- host

@@ -9,6 +9,8 @@ loop over a static-capacity cache. Eligible greedy batch-1 decode (full_cache,
 and quant_* at per_token granularity) runs the whole-step megakernel when
 `Config.resolved_megakernel()` is on (the default on a CUDA device), as the
 JAX engine does on a TPU (`_mega_spec`, `_mega_quant_spec`).
+`generate_batch` decodes B prompts together through the batched whole-step
+kernels (`_mega_batch_spec`), or prompt by prompt where they do not apply.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ from ..models import gpt2 as gpt2_mod
 from ..models import llama as llama_mod
 from ..models.registry import ModelSpec, spec_by_name
 from ..ops import megakernel as mk
+from ..ops import megakernel_batch as mkb
+from ..ops import megakernel_batch_quant as mbq
 from ..ops import megakernel_llama as ml
 from ..ops import megakernel_quant as mq
-from .generate import SamplingParams, bucket_for, make_generate
+from .generate import SamplingParams, bucket_for, make_generate, make_generate_batch
 
 VALID_METHODS = [
     "no_cache",
@@ -56,6 +60,12 @@ _MEGA = {
     "gpt2": (mk.mega_supported, mq.mega_quant_supported, mk.pack_gpt2_mega),
     "llama": (ml.mega_supported, mq.llama_mega_quant_supported,
               ml.pack_llama_mega),
+}
+
+# Per model family: batched eligibility for full-precision and quantized panes.
+_MEGA_BATCH = {
+    "gpt2": (mkb.mega_batch_supported, mbq.mega_batch_quant_supported),
+    "llama": (mkb.llama_mega_batch_supported, mbq.llama_mega_batch_quant_supported),
 }
 
 # Paths where the reference truncates prompts at prompt_cap.
@@ -207,6 +217,29 @@ class InferenceEngine:
         return {"packed": packed, "cfg": self.model.config, "capacity": cap8,
                 "kind": self.model.name, "kv_mode": kv_mode}
 
+    def _mega_batch_spec(self, cap: int, batch: int,
+                         kv_mode: Optional[str] = None) -> Optional[dict]:
+        """Batched-megakernel eligibility (greedy, GPT-2 or Llama family,
+        weights packable; ops/megakernel_batch.py, or
+        ops/megakernel_batch_quant.py when `kv_mode` asks for int8/int4/mixed
+        panes)."""
+        if not self.config.resolved_megakernel() or self.model.name not in _MEGA_BATCH:
+            return None
+        cap8 = -(-cap // 8) * 8
+        fp_ok, quant_ok = _MEGA_BATCH[self.model.name]
+        cfg = self.model.config
+        if not (quant_ok(cfg, cap8, self.params, batch, kv_mode) if kv_mode
+                else fp_ok(cfg, cap8, self.params, batch)):
+            return None
+        packed = self._packed()
+        if packed is None:
+            return None
+        spec = {"packed": packed, "cfg": cfg, "capacity": cap8,
+                "kind": self.model.name}
+        if kv_mode:
+            spec["kv_mode"] = kv_mode
+        return spec
+
     def _encode(self, prompt: str, method: str) -> List[int]:
         ids = self.tokenizer.encode(prompt)
         cap = (
@@ -280,6 +313,58 @@ class InferenceEngine:
             prompt, method, max_new_tokens, forced=forced_t, allow_mega=False,
             **kw)
         return toks[0].tolist(), torch.cat(step_logits, dim=0)
+
+    def generate_batch(self, prompts: List[str], max_new_tokens: int = 32,
+                       kv_mode: Optional[str] = None, mesh=None,
+                       mesh_axis: str = "data") -> List[str]:
+        """Static-batch greedy generation: B prompts decode together.
+
+        Where the batched whole-step kernels take the model and B (see
+        `_mega_batch_spec`), every decode step is one launch of the batched
+        chain for all B prompts; otherwise each prompt runs through
+        `generate` on its own, as the JAX engine falls back. With `kv_mode`
+        in {"int8", "int4", "mixed"} the panes are quantized and each row
+        matches `generate(p, f"quant_{kv_mode}")`; without it, each row
+        matches `generate(p, "full_cache")`. The token ids (prompt +
+        generation) of each row are kept in `last_batch_ids`.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-sharded batched serving is not ported yet: the parallel "
+                "package is ROADMAP.md Queue 1 item 12")
+        if not prompts:
+            raise ValueError("empty prompt batch")
+        # encode as the method this batch emulates: quant_* methods do not
+        # truncate at prompt_cap, so the batch and its fallback agree
+        method = f"quant_{kv_mode}" if kv_mode else "full_cache"
+        ids_list = [self._encode(p, method) for p in prompts]
+        true_lens = [len(i) for i in ids_list]
+        if min(true_lens) == 0:
+            raise ValueError("empty prompt")
+        B = len(prompts)
+        bucket = min(bucket_for(max(true_lens)), self.model.n_positions)
+        mega = self._mega_batch_spec(bucket + max_new_tokens, B, kv_mode)
+        if mega is None:  # the reference's fallback: one stream at a time
+            texts, ids = [], []
+            for p in prompts:
+                texts.append(self.generate(p, method, max_new_tokens))
+                ids.append(self.last_generation_ids)
+            self.last_batch_ids = ids
+            return texts
+        key = ("batch", B, bucket, max_new_tokens, kv_mode)
+        if key not in self._fns:
+            strategy = DenseKV(**dict(self._dense_kw(mega["capacity"]), batch=B))
+            self._fns[key] = (make_generate_batch(self.model, strategy,
+                                                  max_new_tokens, mega), strategy)
+        fn, _ = self._fns[key]
+        buf = torch.zeros((B, bucket), dtype=torch.long)
+        for b, ids in enumerate(ids_list):
+            buf[b, :len(ids)] = torch.tensor(ids, dtype=torch.long)
+        toks, _ = fn(self.params, buf.to(self.config.device), true_lens)
+        rows = toks.tolist()  # the one host sync of a batch
+        self.last_batch_ids = [ids + row for ids, row in zip(ids_list, rows)]
+        return [self.tokenizer.decode(ids, skip_special_tokens=True)
+                for ids in self.last_batch_ids]
 
     # ------------------------------------------------------------------
     def generate_with_cache(self, prompt: str, max_new_tokens: int = 32):

@@ -19,6 +19,13 @@ Two decode loops, as in the JAX package:
   per generation (the port's counterpart of the JAX `jax.lax.scan` under
   `jax.jit`); on the CPU the steps run the plain versions in a loop.
 
+Static-batch generation (`make_generate_batch`, JAX `make_generate_batch` /
+`_make_generate_batch_quant`) runs B prompts together: one batched eager
+prefill with per-row lengths, the panes converted once ([L, B, C, W], or
+quantized by `quantize_panes_batch`), and N steps of the batched chains
+(ops/megakernel_batch.py, ops/megakernel_batch_quant.py) replayed from one
+CUDA graph per built configuration.
+
 Either way a generation synchronises with the host only when its caller
 reads the tokens. Positional quirk kept for parity: the new token's
 position is the current cache length.
@@ -40,6 +47,18 @@ from ..ops.megakernel import (
     gpt2_megastep,
     gpt2_megastep_plain,
     to_mega_layout,
+)
+from ..ops.megakernel_batch import (
+    GPT2BatchLauncher,
+    LlamaBatchLauncher,
+    gpt2_megabatch,
+    llama_megabatch,
+    to_mega_layout_batch,
+)
+from ..ops.megakernel_batch_quant import (
+    gpt2_megabatch_quant,
+    llama_megabatch_quant,
+    quantize_panes_batch,
 )
 from ..ops.megakernel_quant import _kv_kinds, to_mega_quant_layout
 
@@ -211,7 +230,7 @@ def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
                     k_kind=k_kind, v_kind=v_kind, quant_eps=eps)
             for name, t in panes.items():
                 graph.panes[name].copy_(t)
-            return graph.run(tok0, length).clone()
+            return graph.run(tok0, length)[:, 0].clone()
         toks, tok = [], tok0
         for _ in range(max_new_tokens):
             toks.append(tok)
@@ -221,6 +240,89 @@ def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
         return torch.stack(toks)
 
     return decode
+
+
+# Per model kind: the batched step's launcher and its fp and quantized-pane
+# wrappers (each counts its launches; on the CPU each runs its plain version).
+_BATCH_STEPS = {
+    "gpt2": (GPT2BatchLauncher, gpt2_megabatch, gpt2_megabatch_quant),
+    "llama": (LlamaBatchLauncher, llama_megabatch, llama_megabatch_quant),
+}
+
+
+def make_generate_batch(model: ModelSpec, strategy, max_new_tokens: int,
+                        mega: dict):
+    """generate(params, tokens [B, Tpad], true_lens [B]) -> (tokens [B, N],
+    final lengths [B]): B prompts decoded together, greedy.
+
+    `strategy` is a DenseKV of batch B at `mega["capacity"]` (engine
+    `_mega_batch_spec`: "packed", "cfg", "capacity", "kind", and "kv_mode"
+    for quantized panes, whose scales take eps = mega.get("eps", 1e-8), as
+    the JAX engine's). The prefill is one batched forward pass
+    with a per-row `seq_mask`; row b's first token is the argmax of its
+    logits at true_lens[b] - 1. The panes convert once; each of the N steps
+    embeds every slot's token at its own position, runs the batched chain,
+    clamps the tokens to [0, V-1] and increments every slot's length on the
+    device.
+    """
+    cfg, packed = mega["cfg"], mega["packed"]
+    kv_mode = mega.get("kv_mode")
+    eps = mega.get("eps", 1e-8)
+    V, P = model.vocab_size, model.n_positions
+    launcher, fp_step, quant_step = _BATCH_STEPS[mega["kind"]]
+    graph = None  # the captured loop (the configuration's device is fixed)
+
+    def embed(params, toks, lengths):  # [B] tokens and lengths -> [B, E]
+        if model.name == "llama":
+            return params["embed"][toks.long()]
+        wte, wpe = params["wte"], params["wpe"]
+        return (wte[toks.long()] + wpe[lengths.clamp(max=P - 1).long()]).to(wte.dtype)
+
+    def step(panes, lengths, x):
+        if kv_mode:
+            return quant_step(packed, panes["k"], panes["v"], panes["ks"], panes["vs"],
+                              lengths, x, cfg=cfg, kv_mode=kv_mode, eps=eps)[0]
+        return fp_step(packed, panes["k"], panes["v"], lengths, x, cfg=cfg)[0]
+
+    def generate(params, tokens: torch.Tensor, true_lens):
+        nonlocal graph
+        B, Tpad = tokens.shape
+        dev = tokens.device
+        lens = torch.as_tensor(true_lens, dtype=torch.long).to(dev)
+        cache = strategy.init()
+        idx = torch.arange(Tpad, device=dev)
+        pos = torch.clamp(idx, max=P - 1).expand(B, Tpad)
+        seq_mask = idx[None, :] < lens[:, None]
+        logits, cache = model.forward(params, tokens, pos, cache, strategy, seq_mask)
+        last = logits[torch.arange(B, device=dev), lens - 1]  # [B, V]
+        tok0 = torch.argmax(last, dim=-1).clamp(0, V - 1).to(torch.int32)
+        kb, vb = to_mega_layout_batch(cache["k"]), to_mega_layout_batch(cache["v"])
+        if kv_mode:
+            panes = dict(zip(("k", "v", "ks", "vs"),
+                             quantize_panes_batch(kb, vb, kv_mode, eps)))
+        else:
+            panes = {"k": kb, "v": vb}
+        lengths = lens.to(torch.int32)
+        if dev.type == "cuda":
+            if graph is None:
+                k_kind, v_kind = _kv_kinds(kv_mode) if kv_mode else ("fp", "fp")
+                static = {n: torch.empty_like(t) for n, t in panes.items()}
+                graph = MegaDecodeGraph(
+                    packed, cfg, max_new_tokens, static,
+                    quant_step if kv_mode else fp_step, launcher=launcher,
+                    k_kind=k_kind, v_kind=v_kind, quant_eps=eps)
+            for name, t in panes.items():
+                graph.panes[name].copy_(t)
+            toks = graph.run(tok0, lengths).t().clone()
+            return toks, lengths + max_new_tokens
+        toks, tok = [], tok0
+        for _ in range(max_new_tokens):
+            toks.append(tok)
+            tok = step(panes, lengths, embed(params, tok, lengths)).clamp(0, V - 1)
+            lengths = lengths + 1
+        return torch.stack(toks, dim=1), lengths
+
+    return generate
 
 
 def bucket_for(

@@ -284,17 +284,18 @@ class Workspace:
     """Scratch of one step, preallocated so a captured step allocates
     nothing: the residual stream x, q|k|v, the attention and MLP activations
     (model dtype, of the given widths) and the LM head's per-block (max,
-    argmax) partials, one per block of the LM-head kernel."""
+    argmax) partials, one per block of the LM-head kernel; each once per
+    row (slot) of the step."""
 
     def __init__(self, dtype: torch.dtype, device, vocab: int, *, x: int,
-                 qkv: int, attn: int, ffn: int):
+                 qkv: int, attn: int, ffn: int, rows: int = 1):
         self.n_lm = min(-(-vocab // _THREADS_WARPS), _LM_MAX_BLOCKS)
-        self.x = torch.empty(x, dtype=dtype, device=device)
-        self.qkv = torch.empty(qkv, dtype=dtype, device=device)
-        self.attn = torch.empty(attn, dtype=dtype, device=device)
-        self.ffn = torch.empty(ffn, dtype=dtype, device=device)
-        self.lm_val = torch.empty(self.n_lm, dtype=torch.float32, device=device)
-        self.lm_idx = torch.empty(self.n_lm, dtype=torch.int32, device=device)
+        self.x = torch.empty(rows * x, dtype=dtype, device=device)
+        self.qkv = torch.empty(rows * qkv, dtype=dtype, device=device)
+        self.attn = torch.empty(rows * attn, dtype=dtype, device=device)
+        self.ffn = torch.empty(rows * ffn, dtype=dtype, device=device)
+        self.lm_val = torch.empty(rows * self.n_lm, dtype=torch.float32, device=device)
+        self.lm_idx = torch.empty(rows * self.n_lm, dtype=torch.int32, device=device)
 
 
 def _check(name, t, dtype, shape, device):
@@ -304,19 +305,42 @@ def _check(name, t, dtype, shape, device):
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _slots(launcher, k: torch.Tensor) -> tuple:
+    """(B, lead dims of the panes) of a launcher: single-stream panes are
+    [L, C, W], a batched launcher's [L, B, C, W] with
+    1 <= B <= launcher.max_rows."""
+    if k.dim() != 3 + launcher.batched:
+        raise ValueError(f"k: {k.dim()}-d panes for a "
+                         f"{'batched' if launcher.batched else 'single-stream'} step")
+    if not launcher.batched:
+        return 1, ()
+    B = k.shape[1]
+    if not 1 <= B <= launcher.max_rows:
+        raise NotImplementedError(f"batched megakernel: batch {B} outside "
+                                  f"1..{launcher.max_rows}")
+    return B, (B,)
+
+
 class StepLauncher:
     """The prepared arguments of one configuration's step; `launch()` issues
     the chain on the current stream and allocates nothing, so it can be
     captured. `tok_in`/`tok_out`/`length` are device int32 tensors: the
-    step reads the current token (or `x_emb`) and `length` on the device."""
+    step reads the current token (or `x_emb`) and `length` on the device.
+    A subclass with `batched = True` (ops/megakernel_batch.py) takes
+    [L, B, C, W] panes, [B] tokens and lengths and a [B, E] x_emb, and
+    passes B first in its args struct."""
 
     entry = {False: "elit_gpt2_megastep", True: "elit_gpt2_megastep_quant"}
+    args_type = MegaArgs
+    batched = False
+    max_rows = 1
 
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
                  k_kind: str = "fp", v_kind: str = "fp",
                  quant_eps: float = 1e-8, advance: bool = False):
-        E, L, C = cfg.n_embd, cfg.n_layer, k.shape[1]
+        B, lead = _slots(self, k)
+        E, L, C = cfg.n_embd, cfg.n_layer, k.shape[-2]
         dtype = packed["wte"].dtype
         dev = k.device
         if dev.type != "cuda":
@@ -338,27 +362,27 @@ class StepLauncher:
         store = {"fp": (dtype, E), "int8": (torch.int8, E), "int4": (torch.int8, E // 2)}
         for name, pane, kind in (("k", k, k_kind), ("v", v, v_kind)):
             dt, width = store[kind]
-            _check(name, pane, dt, (L, C, width), dev)
+            _check(name, pane, dt, (L, *lead, C, width), dev)
         if k_kind != "fp" or v_kind != "fp":
             if k_kind == "fp" or v_kind == "fp":
                 raise ValueError("quantized K and V panes go together")
             if "int4" in (k_kind, v_kind) and (E // 2) % cfg.head_dim:
                 raise NotImplementedError("int4 panes need whole heads per half")
-            _check("ks", ks, torch.float32, (L, C), dev)
-            _check("vs", vs, torch.float32, (L, C), dev)
-        _check("length", length, torch.int32, (1,), dev)
-        _check("tok_out", tok_out, torch.int32, (1,), dev)
+            _check("ks", ks, torch.float32, (L, *lead, C), dev)
+            _check("vs", vs, torch.float32, (L, *lead, C), dev)
+        _check("length", length, torch.int32, (B,), dev)
+        _check("tok_out", tok_out, torch.int32, (B,), dev)
         if x_emb is not None:
-            _check("x_emb", x_emb.reshape(E), dtype, (E,), dev)
+            _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
         else:
-            _check("tok_in", tok_in, torch.int32, (1,), dev)
-        ws = Workspace(dtype, dev, V, x=E, qkv=3 * E, attn=E, ffn=4 * E)
+            _check("tok_in", tok_in, torch.int32, (B,), dev)
+        ws = Workspace(dtype, dev, V, x=E, qkv=3 * E, attn=E, ffn=4 * E, rows=B)
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
         self.quant = k_kind != "fp"
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        self.args = MegaArgs(
-            _DTYPE_CODE[dtype], L, E, cfg.n_head, V, P, C,
+        self.args = self.args_type(
+            *lead, _DTYPE_CODE[dtype], L, E, cfg.n_head, V, P, C,
             KIND_CODE[k_kind], KIND_CODE[v_kind], int(advance), ws.n_lm,
             cfg.layer_norm_epsilon, quant_eps,
             ptr(packed["attn_w"]), ptr(packed["proj_w"]), ptr(packed["fc_w"]),
@@ -376,8 +400,7 @@ class StepLauncher:
         self.args.tok_in = tok_in.data_ptr()
         self.args.tok_out = tok_out.data_ptr()
 
-    @staticmethod
-    def library() -> ctypes.CDLL:
+    def library(self) -> ctypes.CDLL:
         return kernels()
 
     def launch(self) -> None:
@@ -389,9 +412,11 @@ class StepLauncher:
 
 
 def _length_tensor(length, device) -> torch.Tensor:
+    """int32 [n] on `device`: a length (int or tensor) or per-slot lengths."""
     if isinstance(length, torch.Tensor):
-        return length.reshape(1).to(device=device, dtype=torch.int32)
-    return torch.tensor([int(length)], dtype=torch.int32, device=device)
+        return length.reshape(-1).to(device=device, dtype=torch.int32)
+    values = list(length) if isinstance(length, (list, tuple)) else [length]
+    return torch.tensor([int(n) for n in values], dtype=torch.int32, device=device)
 
 
 def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
@@ -426,40 +451,48 @@ class MegaDecodeGraph:
     once as a CUDA graph and replayed per generation (the port's
     counterpart of the JAX package's `jax.lax.scan` under `jax.jit`).
 
-    Static state: the KV panes (and scales), `toks` int32 [N + 1] (slot 0
-    is the prefill's token, step i reads slot i and writes slot i + 1) and
-    `length` int32 [1], which each step increments on the device. `run`
-    copies a prompt's state in, replays, and adds N to the wrapper's launch
-    count (`counter.launches`): each replay launches the step chain N times.
-    `launcher` is the model's step launcher (`StepLauncher` for GPT-2,
-    ops.megakernel_llama.LlamaStepLauncher for the Llama family).
+    Static state: the KV panes (and scales), `toks` int32 [N + 1, rows]
+    (row 0 holds the prefill's tokens, step i reads row i and writes row
+    i + 1) and `length` int32 [rows], which each step increments on the
+    device; rows is 1 for the single-stream steps and the panes' B for a
+    batched launcher (ops/megakernel_batch.py). `run` copies a generation's state in,
+    replays, and adds N to the wrapper's launch count (`counter.launches`):
+    each replay launches the step chain N times. `launcher` is the model's
+    step launcher (`StepLauncher` for GPT-2,
+    ops.megakernel_llama.LlamaStepLauncher for the Llama family, or a
+    batched one).
     """
 
     def __init__(self, packed: dict, cfg, n_steps: int, panes: dict, counter,
                  launcher=StepLauncher, **launch_kw):
         dev = panes["k"].device
+        rows = panes["k"].shape[1] if launcher.batched else 1
         self.n = n_steps
         self.panes = panes
         self.counter = counter
-        self.toks = torch.zeros(n_steps + 1, dtype=torch.int32, device=dev)
-        self.length = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.toks = torch.zeros(n_steps + 1, rows, dtype=torch.int32, device=dev)
+        self.length = torch.zeros(rows, dtype=torch.int32, device=dev)
         self.step = launcher(
-            packed, cfg, panes["k"], panes["v"], self.length, self.toks[1:2],
-            tok_in=self.toks[0:1], ks=panes.get("ks"), vs=panes.get("vs"),
+            packed, cfg, panes["k"], panes["v"], self.length, self.toks[1],
+            tok_in=self.toks[0], ks=panes.get("ks"), vs=panes.get("vs"),
             advance=True, **launch_kw)
         self.step.library()  # build and load outside the capture
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             for i in range(n_steps):
-                self.step.set_tokens(self.toks[i:i + 1], self.toks[i + 1:i + 2])
+                self.step.set_tokens(self.toks[i], self.toks[i + 1])
                 self.step.launch()
 
-    def run(self, tok0: torch.Tensor, length: int) -> torch.Tensor:
+    def run(self, tok0: torch.Tensor, length) -> torch.Tensor:
         """Decode N tokens from the panes' current contents; returns the
-        tokens [N] (int32, on the device): tok0 and the N - 1 that follow,
-        as the JAX scan emits them."""
-        self.toks[0:1].copy_(tok0.reshape(1))
-        self.length.fill_(length)
+        tokens [N, rows] (int32, on the device): tok0 and the N - 1 that
+        follow, as the JAX scan emits them. `length`: an int, or int32
+        [rows] per row."""
+        self.toks[0].copy_(tok0.reshape(-1))
+        if isinstance(length, torch.Tensor):
+            self.length.copy_(length)
+        else:
+            self.length.fill_(length)
         self.graph.replay()
         self.counter.launches += self.n
         return self.toks[:self.n]

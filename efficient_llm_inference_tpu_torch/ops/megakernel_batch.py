@@ -1,0 +1,224 @@
+"""Batched whole-step decode: B independent streams, one kernel chain a step.
+
+Port of efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py
+(`to_mega_layout_batch`, `from_mega_layout_batch`, `mega_batch_supported`,
+`llama_mega_batch_supported`, `gpt2_megabatch`, `llama_megabatch`;
+full-precision weights). The TPU program streams the weights once per step
+for all B slots; on the H100 the step is the single-stream chain of
+ops/megakernel.py / ops/megakernel_llama.py with a slot dimension,
+`csrc/megabatch.cu`: every weight row is read once and applied to the B
+slots' activations, and attention runs one block per (query head, slot).
+The engine (engine/generate.py `make_generate_batch`) captures the N steps
+of a generation in one CUDA graph (ops/megakernel.py `MegaDecodeGraph` with
+B rows). The quantized-pane variant is ops/megakernel_batch_quant.py.
+
+Slots are independent streams: slot b reads only its own pane columns
+t < lengths[b] plus its current token, writes its new K/V row at column
+lengths[b] (nothing when lengths[b] >= C), and takes its position (GPT-2's
+position embedding, which the caller adds, and Llama's RoPE row) at
+min(lengths[b], n_positions - 1). Panes are [L, B, C, W]. Per slot, the
+numerics are the single-stream step's, so the plain versions here apply the
+single-stream plain steps slot by slot.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from . import megakernel as mk
+from . import megakernel_llama as ml
+
+# The kernels' largest batch: B fp32 accumulators a lane in the GEMVs and a
+# B-row epilogue, and B rows staged per block (csrc/megabatch.cu kMaxBatch).
+MAX_BATCH = 8
+
+
+def to_mega_layout_batch(buf: torch.Tensor) -> torch.Tensor:
+    """[L, B, H, C, D] cache buffer -> [L, B, C, H*D] kernel layout (a copy)."""
+    L, B, H, C, D = buf.shape
+    return buf.permute(0, 1, 3, 2, 4).reshape(L, B, C, H * D).contiguous()
+
+
+def from_mega_layout_batch(kb: torch.Tensor, H: int) -> torch.Tensor:
+    """[L, B, C, H*D] kernel layout -> [L, B, H, C, D] cache buffer (a view)."""
+    L, B, C, HD = kb.shape
+    return kb.reshape(L, B, C, H, HD // H).permute(0, 1, 3, 2, 4)
+
+
+def _batch_ok(batch: int) -> bool:
+    return 1 <= batch <= MAX_BATCH
+
+
+def mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
+    """Can the batched GPT-2 step run this geometry? The JAX package's
+    structure (uniform full-precision weights, E % 128 == 0,
+    capacity % 8 == 0, batch >= 1) and the kernels' limits: head_dim 64 or
+    128, capacity <= 8192, batch <= MAX_BATCH. The JAX package's VMEM
+    budget (`_pick_tps_batch`) is a TPU limit and is not carried over: the
+    GEMVs stage their inputs in K-chunks that fit shared memory at any
+    width."""
+    return mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+
+
+def llama_mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
+    """Can the batched Llama/Qwen step run this geometry? The JAX package's
+    structure (full-precision weights, an lm_head when untied, TC % 128,
+    KW % 128, TR % 8, even head_dim, capacity % 8, batch >= 1; the copied
+    `_tile_geometry`) and the kernels' limits (`megakernel_llama.
+    mega_supported`, batch <= MAX_BATCH). The TPU memory envelopes (the VMEM
+    budget `_llama_pick_tps_batch`, the 4 GiB stream cap, the 2048-tile DMA
+    gate) are not carried over."""
+    return ml.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (any device): the single-stream plain steps, slot by
+# slot, on views of the [L, B, C, W] panes (so the new rows land in place).
+
+
+def _per_slot(step, k, v, lengths, x_emb, *rest):
+    """Run `step(k_b, v_b, *rest_b, length_b, x_b)` for every slot b; returns
+    (tokens int32 [B], fp32 logits [B, V])."""
+    toks, logits = [], []
+    for b, cur in enumerate(mk._length_tensor(lengths, "cpu").tolist()):
+        out = step(k[:, b], v[:, b], *(t[:, b] for t in rest), cur, x_emb[b:b + 1])
+        toks.append(out[0])
+        logits.append(out[-1])
+    return torch.stack(toks), torch.stack(logits)
+
+
+def gpt2_megabatch_plain(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
+                         x_emb: torch.Tensor, *, cfg, return_logits: bool = False):
+    """Plain PyTorch version of `gpt2_megabatch`: returns (tokens int32 [B],
+    k, v), every slot's row lengths[b] written in place; with
+    `return_logits`, the fp32 logits [B, V] come fourth."""
+    def step(kb, vb, cur, x):
+        return mk.gpt2_megastep_plain(packed, kb, vb, cur, x, cfg=cfg, return_logits=True)
+
+    toks, logits = _per_slot(step, k, v, lengths, x_emb)
+    return (toks, k, v, logits) if return_logits else (toks, k, v)
+
+
+def llama_megabatch_plain(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
+                          x_emb: torch.Tensor, *, cfg, return_logits: bool = False):
+    """Plain PyTorch version of `llama_megabatch` (as `gpt2_megabatch_plain`)."""
+    def step(kb, vb, cur, x):
+        return ml.llama_megastep_plain(packed, kb, vb, cur, x, cfg=cfg, return_logits=True)
+
+    toks, logits = _per_slot(step, k, v, lengths, x_emb)
+    return (toks, k, v, logits) if return_logits else (toks, k, v)
+
+
+# ---------------------------------------------------------------------------
+# The kernels: the single-stream launchers with a slot dimension.
+
+
+class GPT2BatchArgs(ctypes.Structure):
+    """Mirror of `struct Gpt2BatchArgs` in csrc/megabatch.cu: B, then
+    ops/megakernel.py's MegaArgs."""
+
+    _fields_ = [("batch", ctypes.c_int)] + mk.MegaArgs._fields_
+
+
+class LlamaBatchArgs(ctypes.Structure):
+    """Mirror of `struct LlamaBatchArgs` in csrc/megabatch.cu: B, then
+    ops/megakernel_llama.py's LlamaArgs."""
+
+    _fields_ = [("batch", ctypes.c_int)] + ml.LlamaArgs._fields_
+
+
+_lib = None
+
+
+def kernels() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("megabatch")
+        for fn, args in ((lib.elit_gpt2_megabatch, GPT2BatchArgs),
+                         (lib.elit_gpt2_megabatch_quant, GPT2BatchArgs),
+                         (lib.elit_llama_megabatch, LlamaBatchArgs),
+                         (lib.elit_llama_megabatch_quant, LlamaBatchArgs)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+class GPT2BatchLauncher(mk.StepLauncher):
+    """The prepared arguments of one configuration's batched GPT-2 step
+    ([L, B, C, W] panes, [B] tokens and lengths)."""
+
+    entry = {False: "elit_gpt2_megabatch", True: "elit_gpt2_megabatch_quant"}
+    args_type = GPT2BatchArgs
+    batched = True
+    max_rows = MAX_BATCH
+
+    def library(self) -> ctypes.CDLL:
+        return kernels()
+
+
+class LlamaBatchLauncher(ml.LlamaStepLauncher):
+    """The prepared arguments of one configuration's batched Llama/Qwen step."""
+
+    entry = {False: "elit_llama_megabatch", True: "elit_llama_megabatch_quant"}
+    args_type = LlamaBatchArgs
+    batched = True
+    max_rows = MAX_BATCH
+
+    def library(self) -> ctypes.CDLL:
+        return kernels()
+
+
+def launch_batch(launcher, counter, packed, cfg, k, v, lengths, x_emb, **kw):
+    """One launch of a batched chain on CUDA tensors; returns tokens [B]."""
+    tok = torch.empty(k.shape[1], dtype=torch.int32, device=k.device)
+    launcher(packed, cfg, k, v, mk._length_tensor(lengths, k.device), tok,
+             x_emb=x_emb.contiguous(), **kw).launch()
+    counter.launches += 1
+    return tok
+
+
+def gpt2_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
+                   x_emb: torch.Tensor, *, cfg):
+    """One decode step of B independent GPT-2 streams (greedy). Returns
+    (tokens int32 [B], k, v).
+
+    packed: ops.megakernel.pack_gpt2_mega(params, cfg); k, v: [L, B, C, E]
+    panes in the model dtype, slot b's row lengths[b] written in place;
+    lengths: int32 [B] (tensor or ints); x_emb: [B, E] token + position
+    embeddings in the model dtype. On a CUDA tensor it launches the GPT-2
+    chain of `csrc/megabatch.cu` and counts one launch in
+    `gpt2_megabatch.launches`; on a CPU tensor it runs
+    `gpt2_megabatch_plain`.
+    """
+    if k.device.type == "cpu":
+        return gpt2_megabatch_plain(packed, k, v, lengths, x_emb, cfg=cfg)
+    return launch_batch(GPT2BatchLauncher, gpt2_megabatch, packed, cfg, k, v,
+                        lengths, x_emb), k, v
+
+
+gpt2_megabatch.launches = 0
+
+
+def llama_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
+                    x_emb: torch.Tensor, *, cfg):
+    """One decode step of B independent Llama/Qwen streams (greedy). Returns
+    (tokens int32 [B], k, v).
+
+    packed: ops.megakernel_llama.pack_llama_mega(params, cfg); k, v:
+    [L, B, C, KW] panes; x_emb: [B, E] token embeddings; slot b's RoPE row is
+    min(lengths[b], P - 1) of the packed tables. On a CUDA tensor it launches
+    the Llama chain of `csrc/megabatch.cu` and counts one launch in
+    `llama_megabatch.launches`; on a CPU tensor it runs
+    `llama_megabatch_plain`.
+    """
+    if k.device.type == "cpu":
+        return llama_megabatch_plain(packed, k, v, lengths, x_emb, cfg=cfg)
+    return launch_batch(LlamaBatchLauncher, llama_megabatch, packed, cfg, k, v,
+                        lengths, x_emb), k, v
+
+
+llama_megabatch.launches = 0

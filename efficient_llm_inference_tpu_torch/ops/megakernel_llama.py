@@ -49,6 +49,7 @@ from ..models.llama import WEIGHT_NAMES, _rms_norm, apply_rope, rope_cos_sin
 from . import _build
 from .megakernel import (
     _DTYPE_CODE,
+    _slots,
     HEAD_DIMS,
     KIND_CODE,
     MAX_CAPACITY,
@@ -271,12 +272,14 @@ class LlamaStepLauncher(StepLauncher):
     ops.megakernel.StepLauncher's."""
 
     entry = {False: "elit_llama_megastep", True: "elit_llama_megastep_quant"}
+    args_type = LlamaArgs
 
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
                  k_kind: str = "fp", v_kind: str = "fp",
                  quant_eps: float = 1e-8, advance: bool = False):
-        E, L, C, D = cfg.hidden_size, cfg.n_layer, k.shape[1], cfg.head_dim
+        B, lead = _slots(self, k)
+        E, L, C, D = cfg.hidden_size, cfg.n_layer, k.shape[-2], cfg.head_dim
         I, V, P = cfg.intermediate_size, cfg.vocab_size, cfg.n_positions
         QW, KW = cfg.n_head * D, cfg.n_kv_head * D
         dtype = packed["embed"].dtype
@@ -303,27 +306,27 @@ class LlamaStepLauncher(StepLauncher):
         store = {"fp": (dtype, KW), "int8": (torch.int8, KW), "int4": (torch.int8, KW // 2)}
         for name, pane, kind in (("k", k, k_kind), ("v", v, v_kind)):
             dt, width = store[kind]
-            _check(name, pane, dt, (L, C, width), dev)
+            _check(name, pane, dt, (L, *lead, C, width), dev)
         if k_kind != "fp" or v_kind != "fp":
             if k_kind == "fp" or v_kind == "fp":
                 raise ValueError("quantized K and V panes go together")
             if "int4" in (k_kind, v_kind) and (KW // 2) % D:
                 raise NotImplementedError("int4 panes need whole heads per half")
-            _check("ks", ks, torch.float32, (L, C), dev)
-            _check("vs", vs, torch.float32, (L, C), dev)
-        _check("length", length, torch.int32, (1,), dev)
-        _check("tok_out", tok_out, torch.int32, (1,), dev)
+            _check("ks", ks, torch.float32, (L, *lead, C), dev)
+            _check("vs", vs, torch.float32, (L, *lead, C), dev)
+        _check("length", length, torch.int32, (B,), dev)
+        _check("tok_out", tok_out, torch.int32, (B,), dev)
         if x_emb is not None:
-            _check("x_emb", x_emb.reshape(E), dtype, (E,), dev)
+            _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
         else:
-            _check("tok_in", tok_in, torch.int32, (1,), dev)
-        ws = Workspace(dtype, dev, V, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I)
+            _check("tok_in", tok_in, torch.int32, (B,), dev)
+        ws = Workspace(dtype, dev, V, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I, rows=B)
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
         self.quant = k_kind != "fp"
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        self.args = LlamaArgs(
-            _DTYPE_CODE[dtype], L, E, cfg.n_head, cfg.n_kv_head, D, I, V, P, C,
+        self.args = self.args_type(
+            *lead, _DTYPE_CODE[dtype], L, E, cfg.n_head, cfg.n_kv_head, D, I, V, P, C,
             KIND_CODE[k_kind], KIND_CODE[v_kind], int(advance), ws.n_lm,
             cfg.rms_eps, quant_eps,
             *(ptr(packed.get(n)) for n in (
@@ -334,8 +337,7 @@ class LlamaStepLauncher(StepLauncher):
             ptr(ws.ffn), ptr(ws.lm_val), ptr(ws.lm_idx))
         self.device = dev
 
-    @staticmethod
-    def library() -> ctypes.CDLL:
+    def library(self) -> ctypes.CDLL:
         return kernels()
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes on one GPU.
 
-    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...]
+    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...] [--batch B]
 
 A model of the registry at full width (GPT-2 small by default; random
 weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
@@ -22,6 +22,13 @@ prints one JSON line with:
   / (NEW_TOKENS - 1), the wall time of one decode step with the prefill
   taken out;
 - kernels_per_generation, and the six kernels with the most device time.
+
+With `--batch B` it profiles static-batch serving instead:
+`generate_batch` of B prompts (256 tokens each, one per seed) with 64 new
+tokens for kv_mode None, int8, int4 and mixed (the batched whole-step
+kernels, replayed from a CUDA graph); tokens_per_s is then B x 64 over
+wall_ms, step_ms the wall of one batched step, and the ten kernels with the
+most device time are listed.
 
 If the profiler records no device activity, kernel_ms and idle_share are
 null ("not measured"). Imports nothing of JAX.
@@ -64,20 +71,70 @@ def wall_ms(eng, text: str, method: str, n_new: int = NEW_TOKENS) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", default="gpt2", help="registry name")
-    model = parser.parse_args().model
-    if not torch.cuda.is_available():
-        print("torch_decode_profile: no CUDA device", file=sys.stderr)
-        return 1
+def run_batch(eng, texts, kv_mode, n_new: int = NEW_TOKENS) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate_batch(texts, n_new, kv_mode=kv_mode)  # reads the tokens
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profiled(fn):
+    """(kernel_ms or None, kernel count, {name: [count, ms]}) of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in device:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    kernel_ms = sum(v[1] for v in by_name.values()) if device else None
+    return kernel_ms, len(device), by_name
+
+
+def profile_batch(model: str, batch: int) -> None:
+    texts = [prompt(seed) for seed in range(batch)]
+    eng = InferenceEngine.from_model_name(model)
+    for kv_mode in (None, "int8", "int4", "mixed"):
+        run_batch(eng, texts, kv_mode)  # build, load, capture, warm
+        walls = [run_batch(eng, texts, kv_mode) for _ in range(5)]
+        run_batch(eng, texts, kv_mode, 1)
+        wall_1 = statistics.median(run_batch(eng, texts, kv_mode, 1) for _ in range(5))
+        kernel_ms, count, by_name = profiled(
+            lambda: eng.generate_batch(texts, NEW_TOKENS, kv_mode=kv_mode))
+        wall = statistics.median(walls)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        print(json.dumps({
+            "model": model, "batch": batch, "kv_mode": kv_mode,
+            "wall_ms": wall, "wall_ms_runs": walls,
+            "tokens_per_s": batch * NEW_TOKENS / wall * 1e3,
+            "step_ms": (wall - wall_1) / (NEW_TOKENS - 1),
+            "kernel_ms": kernel_ms,
+            "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
+            "kernels_per_generation": count,
+            "top": [{"name": n[:160], "count": c, "ms": ms} for n, (c, ms) in top],
+        }), flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", default="gpt2", help="registry name")
+    parser.add_argument("--batch", type=int, default=0,
+                        help="profile generate_batch of this many prompts")
+    args = parser.parse_args()
+    model = args.model
+    if not torch.cuda.is_available():
+        print("torch_decode_profile: no CUDA device", file=sys.stderr)
+        return 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    if args.batch:
+        profile_batch(model, args.batch)
+        return 0
     text = prompt()
     t0 = time.perf_counter()
     base = InferenceEngine.from_model_name(
@@ -91,15 +148,8 @@ def main() -> int:
             walls = [wall_ms(eng, text, method) for _ in range(5)]
             eng.generate_ids(text, method, 1)
             wall_1 = statistics.median(wall_ms(eng, text, method, 1) for _ in range(5))
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                eng.generate_ids(text, method, NEW_TOKENS)
-            device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            by_name = defaultdict(lambda: [0, 0.0])
-            for e in device:
-                by_name[e.name][0] += 1
-                by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
-            kernel_ms = sum(v[1] for v in by_name.values()) if device else None
+            kernel_ms, count, by_name = profiled(
+                lambda: eng.generate_ids(text, method, NEW_TOKENS))
             wall = statistics.median(walls)
             top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
             print(json.dumps({
@@ -112,7 +162,7 @@ def main() -> int:
                 "step_ms": (wall - wall_1) / (NEW_TOKENS - 1),
                 "kernel_ms": kernel_ms,
                 "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
-                "kernels_per_generation": len(device),
+                "kernels_per_generation": count,
                 "top": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top],
             }), flush=True)
         del eng

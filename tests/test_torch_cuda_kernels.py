@@ -13,7 +13,10 @@ whole-step megakernels (GPT-2 and Llama/Qwen) against their plain steps in
 fp32: the token equal wherever the plain top-2 logit gap is at least 1e-4,
 new K/V rows within 1e-5 (of the row's largest value, at least 1e-5, for the
 Llama step; codes within one step, scales within 1e-5 relative, for
-quantized panes), every other row untouched.
+quantized panes), every other row untouched. The batched whole-step kernels
+(#14-#17) likewise per slot, B in {1, 3, 8}, and in bf16 with chip_smoke.py's
+tolerances (a token within 2e-2 of the plain maximum logit, fp rows within
+1.6e-2 of their largest value, quantized rows within two steps).
 """
 
 import numpy as np
@@ -26,6 +29,8 @@ from efficient_llm_inference_tpu_torch.models import llama as tllama
 from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
 from efficient_llm_inference_tpu_torch.ops import attention as tattn
 from efficient_llm_inference_tpu_torch.ops import megakernel as tmk
+from efficient_llm_inference_tpu_torch.ops import megakernel_batch as tmb
+from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as tmbq
 from efficient_llm_inference_tpu_torch.ops import megakernel_llama as tml
 from efficient_llm_inference_tpu_torch.ops import megakernel_quant as tmq
 from efficient_llm_inference_tpu_torch.ops import quantize as trows
@@ -380,3 +385,151 @@ def test_engine_llama_megakernel_graph_matches_plain_steps(cuda, method):
     clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
     first_unclear = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
     assert got[:len(got) - n + first_unclear] == want[:len(want) - n + first_unclear]
+
+
+# ------------------------------------------------------- batched (#14-#17)
+
+BATCH_LENGTHS = [0, 37, 127, 5, 64, 126, 1, 100]  # C = 128: no visible row, the last column
+
+
+def _batch_case(family, mode, dtype, B, device):
+    """(packed, cfg, panes and scales [L, B, C, W], x [B, E]) of a model of
+    `family`: "gpt2" E = 256, head_dim 128; "gpt2-full" GPT-2 small at full
+    width (a 48 KB staged input at B = 8 in bf16: the shared-memory opt-in);
+    "llama" G = 2, KW = 256."""
+    C = 128
+    if family.startswith("gpt2"):
+        cfg = tgpt2.GPT2Config(**MEGA_CFGS["small-test" if family == "gpt2" else "gpt2"])
+        params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(1), cfg,
+                                        torch.float32, device)
+        packed, W, E = tmk.pack_gpt2_mega(params, cfg), cfg.n_embd, cfg.n_embd
+    else:
+        cfg = _llama_cfg("g2")
+        packed = tml.pack_llama_mega(_llama_params(cfg, device), cfg)
+        W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
+    packed = {k: (v.to(dtype) if v.dtype == torch.float32 and k not in (
+        "smalls", "lnf", "norms", "cos", "sin", "qkvb") else v) for k, v in packed.items()}
+    g = torch.Generator(device="cpu").manual_seed(B * 7 + len(mode))
+    L = cfg.n_layer
+    x = (torch.randn((B, E), generator=g) * 0.5).to(dtype).to(device)
+    if mode == "fp":
+        return packed, cfg, [(torch.randn((L, B, C, W), generator=g) * 0.5).to(dtype)
+                             .to(device) for _ in range(2)], x
+
+    def pane(kind):
+        width = W if kind == "int8" else W // 2
+        lo = -127 if kind == "int8" else -128
+        return torch.randint(lo, 128, (L, B, C, width), generator=g,
+                             dtype=torch.int32).to(torch.int8).to(device)
+
+    scales = [(torch.rand((L, B, C), generator=g) * 0.02 + 1e-3).to(device)
+              for _ in range(2)]
+    return packed, cfg, [pane(k) for k in tmq._kv_kinds(mode)] + scales, x
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "llama"])
+def test_megabatch_matches_plain(cuda, family, mode, dtype, B):
+    """#14-#17 against their plain versions, B slots at mixed lengths. fp32:
+    tokens equal where the plain top-2 gap is at least 1e-4, new fp rows
+    within 1e-5 of the row's largest value (at least 1e-5), codes within one
+    step, scales within rtol 1e-5. bf16: a token whose plain logit is within
+    2e-2 of the maximum, fp rows within 1.6e-2 of the row's largest value,
+    dequantized rows within two steps (chip_smoke.py's tolerances)."""
+    packed, cfg, state, x = _batch_case(family, mode, dtype, B, cuda)
+    lengths = BATCH_LENGTHS[:B]
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    gpt2 = family.startswith("gpt2")
+    if mode == "fp":
+        kern = tmb.gpt2_megabatch if gpt2 else tmb.llama_megabatch
+        plain = tmb.gpt2_megabatch_plain if gpt2 else tmb.llama_megabatch_plain
+        kw = {}
+    else:
+        kern = tmbq.gpt2_megabatch_quant if gpt2 else tmbq.llama_megabatch_quant
+        plain = tmbq.gpt2_megabatch_quant_plain if gpt2 else tmbq.llama_megabatch_quant_plain
+        kw = {"kv_mode": mode}
+    before = kern.launches
+    toks = kern(packed, *got, torch.tensor(lengths, dtype=torch.int32, device=cuda), x,
+                cfg=cfg, **kw)[0]
+    assert kern.launches == before + 1 and toks.shape == (B,)
+    logits = plain(packed, *want, lengths, x, cfg=cfg, return_logits=True, **kw)[-1]
+    torch.cuda.synchronize()
+    for b in range(B):
+        top2 = logits[b].topk(2).values
+        tok = int(toks[b])
+        if dtype == torch.float32:
+            assert tok == int(logits[b].argmax()) or float(top2[0] - top2[1]) < 1e-4
+        else:
+            assert float(logits[b, tok]) >= float(top2[0]) - 2e-2
+    C = state[0].shape[2]
+    for b, length in enumerate(lengths):
+        others = torch.arange(C, device=cuda) != length
+        for g_, w_, b_ in zip(got, want, state):
+            assert torch.equal(g_[:, b][:, others], b_[:, b][:, others])
+            assert torch.equal(w_[:, b][:, others], b_[:, b][:, others])
+        if mode == "fp":
+            for g_, w_ in zip(got, want):
+                gn, wn = g_[:, b, length].float(), w_[:, b, length].float()
+                rel = 1e-5 if dtype == torch.float32 else 1.6e-2
+                assert (gn - wn).abs().max() <= rel * max(1.0, wn.abs().max().item())
+            continue
+        steps = 1 if dtype == torch.float32 else 2
+        for kind, g_, w_, gs, ws in zip(tmq._kv_kinds(mode), got[:2], want[:2],
+                                        got[2:], want[2:]):
+            gv = tmq.pane_values(g_[:, b, length], kind) * gs[:, b, length, None]
+            wv = tmq.pane_values(w_[:, b, length], kind) * ws[:, b, length, None]
+            step = max(gs[:, b, length].max().item(), ws[:, b, length].max().item())
+            assert (gv - wv).abs().max() <= steps * step * 1.01
+            if dtype == torch.float32:
+                torch.testing.assert_close(gs[:, b, length], ws[:, b, length],
+                                           rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("kv_mode", [None, "int8", "int4", "mixed"])
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_engine_generate_batch_graph_matches_plain(cuda, family, kv_mode):
+    """generate_batch on the card (the batched chain replayed from one CUDA
+    graph) against the same engine's plain batched steps on the CPU, fp32:
+    each row's tokens agree while the plain logits' top-2 gap stays at least
+    1e-4; every step is one launch of the batched chain and the
+    single-stream counters stay at 0."""
+    if family == "gpt2":
+        cfg = tgpt2.GPT2Config(vocab_size=256, n_positions=128, n_embd=256,
+                               n_layer=2, n_head=4)
+        spec = gpt2_spec(cfg)
+        make = lambda dev: tgpt2.init_gpt2_params(  # noqa: E731
+            torch.Generator().manual_seed(0), cfg, torch.float32, dev)
+    else:
+        cfg = _llama_cfg("g2")
+        spec = tllama.llama_spec(cfg)
+        make = lambda dev: _llama_params(cfg, dev)  # noqa: E731
+    engines = {dev: InferenceEngine(spec, make(dev), config=Config(
+        model_name="t", device=dev, dtype=torch.float32, megakernel=True))
+        for dev in ("cpu", "cuda")}
+    counter = {("gpt2", False): tmb.gpt2_megabatch, ("gpt2", True): tmbq.gpt2_megabatch_quant,
+               ("llama", False): tmb.llama_megabatch,
+               ("llama", True): tmbq.llama_megabatch_quant}[(family, kv_mode is not None)]
+    singles = (tmk.gpt2_megastep, tmq.gpt2_megastep_quant, tml.llama_megastep,
+               tmq.llama_megastep_quant)
+    prompts = ["Graphs replay the decode loop.", "Batched slots", "x",
+               "Every slot has its own length and position."]
+    n = 16
+    for _ in range(2):  # the second call replays the captured graph
+        before = counter.launches
+        single_before = [f.launches for f in singles]
+        engines["cuda"].generate_batch(prompts, n, kv_mode=kv_mode)
+        assert counter.launches == before + n
+        assert [f.launches for f in singles] == single_before
+    got = engines["cuda"].last_batch_ids
+    engines["cpu"].generate_batch(prompts, n, kv_mode=kv_mode)
+    want = engines["cpu"].last_batch_ids
+    method = f"quant_{kv_mode}" if kv_mode else "full_cache"
+    for p, g_, w_ in zip(prompts, got, want):
+        _, logits = engines["cpu"].generate_logits(p, method, n, forced=w_[-n:])
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+        first = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
+        assert g_[:len(g_) - n + first] == w_[:len(w_) - n + first]

@@ -86,3 +86,61 @@ def jax_rope_rows(jcfg, length: int):
         return jnp.tile(cos[0], (1, jcfg.n_head)), jnp.tile(sin[0], (1, jcfg.n_head))
 
     return rows(jnp.int32(pos))
+
+
+# ------------------------------------------------- static-batch serving
+
+PROMPTS = ["the quick brown fox", "pack my box with five dozen liquor jugs", "a"]
+
+
+def engine_pair(spec_j, spec_t, np_p, params_t):
+    """A JAX engine and a port engine over the same numpy params, fp32 on
+    the CPU, megakernel on (the Pallas kernels in interpret mode, the port's
+    plain steps)."""
+    import jax.numpy as jnp
+    import torch
+
+    from efficient_llm_inference_tpu.core.config import Config as JaxConfig
+    from efficient_llm_inference_tpu.engine.engine import InferenceEngine as JaxEngine
+    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+
+    jeng = JaxEngine(spec_j, to_jax(np_p), config=JaxConfig(
+        model_name="t", device="cpu", dtype=jnp.float32, megakernel=True))
+    teng = InferenceEngine(spec_t, params_t, config=Config(
+        model_name="t", device="cpu", dtype=torch.float32, megakernel=True))
+    return jeng, teng
+
+
+def jax_batch_ids(jeng, prompts, n, kv_mode=None):
+    """(texts, token ids per row) of the JAX engine's generate_batch: its
+    texts, then its built batch function called again for the raw tokens
+    (the texts drop ids >= 256)."""
+    import jax.numpy as jnp
+
+    from efficient_llm_inference_tpu.engine.generate import bucket_for
+
+    texts = jeng.generate_batch(prompts, max_new_tokens=n, kv_mode=kv_mode)
+    method = f"quant_{kv_mode}" if kv_mode else "full_cache"
+    ids = [jeng._encode(p, method) for p in prompts]
+    bucket = min(bucket_for(max(len(i) for i in ids)), jeng.model.n_positions)
+    _, fn, _, mega = jeng._fns[("batch", len(prompts), bucket, n, kv_mode)]
+    buf = np.zeros((len(prompts), bucket), np.int32)
+    for b, row in enumerate(ids):
+        buf[b, :len(row)] = row
+    toks, _ = fn(dict(jeng.params, __mega_packed__=mega["packed"]), jnp.asarray(buf),
+                 jnp.asarray([len(i) for i in ids], jnp.int32))
+    return texts, [row + np.asarray(toks)[b].tolist() for b, row in enumerate(ids)]
+
+
+def check_generate_batch(engines, kv_mode, n=7):
+    """The port's generate_batch took the batched path, and its ids equal
+    the JAX engine's generate_batch and the port's per-prompt generate."""
+    jeng, teng = engines
+    method = f"quant_{kv_mode}" if kv_mode else "full_cache"
+    texts = teng.generate_batch(PROMPTS, max_new_tokens=n, kv_mode=kv_mode)
+    got = teng.last_batch_ids
+    assert any(k[0] == "batch" and k[-1] == kv_mode for k in teng._fns)
+    want_texts, want = jax_batch_ids(jeng, PROMPTS, n, kv_mode)
+    assert got == want and texts == want_texts
+    assert got == [teng.generate_ids(p, method, n) for p in PROMPTS]
+    assert any(len(set(row[-n:])) > 1 for row in got)  # not one repeated token
