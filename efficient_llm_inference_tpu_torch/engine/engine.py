@@ -11,6 +11,9 @@ and quant_* at per_token granularity) runs the whole-step megakernel when
 JAX engine does on a TPU (`_mega_spec`, `_mega_quant_spec`).
 `generate_batch` decodes B prompts together through the batched whole-step
 kernels (`_mega_batch_spec`), or prompt by prompt where they do not apply.
+`generate_speculative` (n-gram, self-draft or draft-model proposals, one
+k-row verify a round) and `generate_speculative_auto` decode one prompt
+speculatively (engine/speculative.py), with output equal to plain greedy.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ from ..models.registry import ModelSpec, spec_by_name
 from ..ops import megakernel as mk
 from ..ops import megakernel_batch as mkb
 from ..ops import megakernel_batch_quant as mbq
+from ..ops import megakernel_draft as md
 from ..ops import megakernel_llama as ml
 from ..ops import megakernel_quant as mq
+from . import speculative as spec_mod
 from .generate import SamplingParams, bucket_for, make_generate, make_generate_batch
 
 VALID_METHODS = [
@@ -60,6 +65,13 @@ _MEGA = {
     "gpt2": (mk.mega_supported, mq.mega_quant_supported, mk.pack_gpt2_mega),
     "llama": (ml.mega_supported, mq.llama_mega_quant_supported,
               ml.pack_llama_mega),
+}
+
+# Per model family, for a speculative draft: the JAX package's structure for
+# full-precision weights, and the draft burst's packer.
+_MEGA_DRAFT = {
+    "gpt2": (mk.jax_structure_ok, md.pack_gpt2_draft),
+    "llama": (ml.jax_structure_ok, md.pack_llama_draft),
 }
 
 # Per model family: batched eligibility for full-precision and quantized panes.
@@ -365,6 +377,162 @@ class InferenceEngine:
         self.last_batch_ids = [ids + row for ids, row in zip(ids_list, rows)]
         return [self.tokenizer.decode(ids, skip_special_tokens=True)
                 for ids in self.last_batch_ids]
+
+    # ------------------------------------------------------------------
+    def _spec_mega(self, bucket: int, max_new_tokens: int, k: int) -> Optional[dict]:
+        """The target's megakernel spec of a speculative generation: the JAX
+        engine's `_mega_spec(bucket + N + k + 1)`, and the kernels' limits
+        at the generation's capacity (spec_capacity: 8 rows more, the JAX
+        verify kernels' rule capacity >= roundup8(cur + R) + 8)."""
+        mega = self._mega_spec(bucket + max_new_tokens + k + 1, None)
+        if mega is None:
+            return None
+        cap = spec_mod.spec_capacity(bucket, max_new_tokens, k, True)
+        if not _MEGA[self.model.name][0](self.model.config, cap, self.params):
+            return None
+        return mega
+
+    @staticmethod
+    def _draft_kernels(dspec: ModelSpec, dparams: dict,
+                       mega: Optional[dict]) -> Optional[Tuple[bool, bool]]:
+        """(the port's whole-step kernels take the draft at the generation's
+        capacity, the JAX engine would pack it for a burst: full-precision
+        GPT-2 or a tied full-precision Llama), or None where the JAX engine
+        gives the draft no megakernel spec (no mega target, another family,
+        or the JAX structure refuses the draft at the target's capacity)."""
+        if mega is None or dspec.name not in _MEGA_DRAFT:
+            return None
+        cfg = dspec.config
+        if not _MEGA_DRAFT[dspec.name][0](cfg, mega["capacity"], dparams):
+            return None
+        cap = mega["capacity"] + 8  # spec_capacity of the mega path
+        return (_MEGA[dspec.name][0](cfg, cap, dparams),
+                dspec.name == "gpt2" or cfg.tie_embeddings)
+
+    def _draft_mega_spec(self, dspec: ModelSpec, dparams: dict,
+                         mega: Optional[dict]) -> Optional[dict]:
+        """Megakernel spec of a speculative DRAFT (JAX `_draft_mega_spec`),
+        packed once per build (drafts are small): "packed" where the port's
+        whole-step kernels take it, "burst_packed" where the JAX engine
+        packs a burst (`_draft_kernels`); engine/speculative.py
+        `draft_route` picks among them."""
+        kernels = self._draft_kernels(dspec, dparams, mega)
+        if kernels is None:
+            return None
+        step_ok, burst_ok = kernels
+        packed = _MEGA_DRAFT[dspec.name][1](dparams, dspec.config)
+        return {"cfg": dspec.config, "kind": dspec.name,
+                "packed": packed if step_ok else None,
+                "burst_packed": packed if burst_ok else None}
+
+    def generate_speculative(self, prompt: str, max_new_tokens: int = 32,
+                             mode: str = "ngram", k: int = 8, draft_layers: int = 1,
+                             draft: Optional[tuple] = None, stats: bool = False):
+        """Speculative greedy generation (beyond the reference).
+
+        mode "ngram" = draft-free prompt-lookup proposals; "self_draft" = a
+        truncated `draft_layers`-layer self-draft; "draft" = an external
+        draft passed as `draft=(spec, params)` (sharing the target's
+        vocabulary). Where the whole-step megakernel takes the model
+        (`_mega_spec`), each round's k-row verify is one launch of
+        `gpt2_megaverify` / `llama_megaverify` and a draft runs on the
+        device (engine/speculative.py `draft_route`); otherwise the model's
+        k-row forward pass verifies. Output is exactly plain full_cache
+        greedy in fp32. Returns (text, n_new) — or, with `stats=True`,
+        (text, n_new, {"n_rounds", "tokens_per_round"}), tokens_per_round =
+        (n_new - 1) / n_rounds. The ids (prompt + generation) are kept in
+        `last_generation_ids`, the host's reads of the emitted count (before
+        the final read of the tokens) in `last_spec_host_syncs`.
+        """
+        ids = self._encode(prompt, "full_cache")
+        true_len = len(ids)
+        if true_len == 0:
+            raise ValueError("empty prompt")
+        bucket = min(bucket_for(true_len), self.model.n_positions)
+        key = ("speculative", mode, bucket, max_new_tokens, k, draft_layers, stats,
+               id(draft[1]) if draft is not None else None)
+        if key not in self._fns:
+            mega = self._spec_mega(bucket, max_new_tokens, k)
+            dtype = self.config.dtype
+            if mode == "ngram":
+                gen = spec_mod.make_ngram_speculative_generate(
+                    self.model, max_new_tokens, k=k, prompt_bucket=bucket, mega=mega,
+                    dtype=dtype, stats=stats)
+                args = ()
+            elif mode in ("self_draft", "draft"):
+                if mode == "draft":
+                    if draft is None:
+                        raise ValueError("mode='draft' needs draft=(spec, params)")
+                    dspec, dparams = draft
+                else:
+                    dspec, dparams = spec_mod.make_self_draft(self.model, self.params,
+                                                              draft_layers)
+                gen = spec_mod.make_speculative_generate(
+                    self.model, dspec, max_new_tokens, k=k, prompt_bucket=bucket,
+                    mega=mega, dtype=dtype, stats=stats,
+                    draft_mega=self._draft_mega_spec(dspec, dparams, mega))
+                args = (dparams,)
+            else:
+                raise ValueError(f"unknown speculative mode: {mode}")
+            self._fns[key] = (gen, args, mega)
+        gen, args, _ = self._fns[key]
+        buf = torch.zeros((1, bucket), dtype=torch.long)
+        buf[0, :true_len] = torch.tensor(ids, dtype=torch.long)
+        res = gen(self.params, *args, buf.to(self.config.device), true_len)
+        out, n = res[0], int(res[1])
+        out_ids = ids + out[:n].tolist()
+        self.last_generation_ids = out_ids
+        self.last_spec_host_syncs = gen.host_syncs
+        text = self.tokenizer.decode(out_ids, skip_special_tokens=True)
+        if stats:
+            n_rounds = int(res[2])
+            return text, n, {"n_rounds": n_rounds,
+                             "tokens_per_round": (n - 1) / max(n_rounds, 1)}
+        return text, n
+
+    def generate_speculative_auto(self, prompt: str, max_new_tokens: int = 32,
+                                  draft: Optional[tuple] = None, stats: bool = False):
+        """Acceptance-driven speculation (JAX `generate_speculative_auto`):
+        the candidates ngram k=8 / k=4, plus draft k=8 / k=4 when
+        `draft=(spec, params)` is given, are each probed once, then the
+        engine commits to the best expected tokens per round-cost
+        (acceptance EMA / cost; a round costs 1 target pass for ngram and
+        1 + k * max(draft/target layer-width ratio, 0.02) for a draft),
+        re-probing the runner-up every 8th call. Output equals plain greedy
+        for any candidate."""
+        cands = [("ngram", 8, None), ("ngram", 4, None)]
+        if draft is not None:
+            cands += [("draft", 8, draft), ("draft", 4, draft)]
+        draft_id = id(draft[1]) if draft is not None else None
+        st = getattr(self, "_spec_auto", None)
+        if st is None or st["draft_id"] != draft_id:
+            st = self._spec_auto = {"acc": {}, "calls": 0, "draft_id": draft_id}
+
+        def width(cfg):
+            return getattr(cfg, "hidden_size", None) or getattr(cfg, "n_embd", 1)
+
+        def cost(mode, k, d):
+            if mode == "ngram":
+                return 1.0
+            rel = (d[0].n_layer * width(d[0].config) ** 2) / max(
+                self.model.n_layer * width(self.model.config) ** 2, 1)
+            return 1.0 + k * max(rel, 0.02)
+
+        unprobed = [c for c in cands if (c[0], c[1]) not in st["acc"]]
+        if unprobed:
+            mode, k, d = unprobed[0]
+        else:
+            scored = sorted(cands, key=lambda c: st["acc"][(c[0], c[1])] / cost(*c),
+                            reverse=True)
+            mode, k, d = scored[1] if st["calls"] % 8 == 7 and len(scored) > 1 else scored[0]
+        st["calls"] += 1
+        text, n_new, s = self.generate_speculative(prompt, max_new_tokens, mode=mode, k=k,
+                                                   draft=d, stats=True)
+        prev = st["acc"].get((mode, k))
+        obs = s["tokens_per_round"]
+        st["acc"][(mode, k)] = obs if prev is None else 0.5 * prev + 0.5 * obs
+        s = dict(s, mode=mode, k=k)
+        return (text, n_new, s) if stats else (text, n_new)
 
     # ------------------------------------------------------------------
     def generate_with_cache(self, prompt: str, max_new_tokens: int = 32):

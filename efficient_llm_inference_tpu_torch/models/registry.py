@@ -53,6 +53,18 @@ GPT2_SIZES = {
 }
 
 
+def spec_with_config(spec: ModelSpec, cfg) -> ModelSpec:
+    """Rebuild a spec after a dataclasses.replace on its model config (e.g.
+    a truncated self-draft's n_layer)."""
+    if spec.name == "gpt2":
+        return gpt2_spec(cfg)
+    if spec.name == "llama":
+        from . import llama as llama_mod
+
+        return llama_mod.llama_spec(cfg)
+    raise ValueError(f"Unknown model family: {spec.name}")
+
+
 def spec_by_name(name: str) -> ModelSpec:
     if name in GPT2_SIZES:
         return gpt2_spec(GPT2_SIZES[name]())

@@ -1,13 +1,16 @@
 """Whole-step GPT-2 decode: one chain of CUDA kernels per batch-1 step.
 
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel.py
-(gpt2_megastep, to_mega_layout, mega_supported, pack_gpt2_mega). The TPU
-program streams every weight through a VMEM ring; on the H100 the step is a
-fixed chain of hand-written kernels from `csrc/gpt2_megastep.cu`, launched by
-one host call (`gpt2_megastep`) and, in the engine's decode loop, captured
-once into a CUDA graph (`MegaDecodeGraph`) that replays all N steps of a
-generation. The quantized-KV variant (ops/megakernel_quant.py) shares this
-module's packing, launcher and graph.
+(gpt2_megastep, gpt2_megaverify, to_mega_layout, mega_supported,
+pack_gpt2_mega). The TPU program streams every weight through a VMEM ring;
+on the H100 the step is a fixed chain of hand-written kernels from
+`csrc/gpt2_megastep.cu`, launched by one host call (`gpt2_megastep`) and, in
+the engine's decode loop, captured once into a CUDA graph
+(`MegaDecodeGraph`) that replays all N steps of a generation. The
+quantized-KV variant (ops/megakernel_quant.py) shares this module's packing,
+launcher and graph. The speculative verify pass (`gpt2_megaverify`: R <= 8
+rows of one sequence, in-block causal) is the chain of `csrc/megaverify.cu`
+over the same packing.
 
 Layouts:
 
@@ -89,6 +92,15 @@ def mega_supported(cfg, capacity: int, params: dict) -> bool:
     the kernels' own limits: head_dim 64 or 128 and capacity <= 8192. The
     JAX package's VMEM budget is a TPU limit and is not carried over."""
     return _full_precision_dtype(params) is not None and _geometry_ok(cfg, capacity)
+
+
+def jax_structure_ok(cfg, capacity: int, params: dict) -> bool:
+    """The JAX package's eligibility for full-precision weights without its
+    VMEM budget (uniform full-precision weights, E % 128 == 0,
+    capacity % 8 == 0): what decides the JAX engine's routes for a small
+    speculative draft."""
+    return (_full_precision_dtype(params) is not None and cfg.n_embd % 128 == 0
+            and capacity % 8 == 0)
 
 
 def _geometry_ok(cfg, capacity: int) -> bool:
@@ -335,11 +347,19 @@ class StepLauncher:
     batched = False
     max_rows = 1
 
+    def layout(self, k, rows: Optional[int]) -> tuple:
+        """(token rows B, lead dims of the panes, entries of `length`, the
+        args struct's leading fields): a step has one row per slot; a verify
+        launcher overrides it (R rows of one sequence)."""
+        B, lead = _slots(self, k)
+        return B, lead, B, lead
+
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
                  k_kind: str = "fp", v_kind: str = "fp",
-                 quant_eps: float = 1e-8, advance: bool = False):
-        B, lead = _slots(self, k)
+                 quant_eps: float = 1e-8, advance: bool = False,
+                 rows: Optional[int] = None):
+        B, lead, n_len, prefix = self.layout(k, rows)
         E, L, C = cfg.n_embd, cfg.n_layer, k.shape[-2]
         dtype = packed["wte"].dtype
         dev = k.device
@@ -370,7 +390,7 @@ class StepLauncher:
                 raise NotImplementedError("int4 panes need whole heads per half")
             _check("ks", ks, torch.float32, (L, *lead, C), dev)
             _check("vs", vs, torch.float32, (L, *lead, C), dev)
-        _check("length", length, torch.int32, (B,), dev)
+        _check("length", length, torch.int32, (n_len,), dev)
         _check("tok_out", tok_out, torch.int32, (B,), dev)
         if x_emb is not None:
             _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
@@ -382,7 +402,7 @@ class StepLauncher:
         self.quant = k_kind != "fp"
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         self.args = self.args_type(
-            *lead, _DTYPE_CODE[dtype], L, E, cfg.n_head, V, P, C,
+            *prefix, _DTYPE_CODE[dtype], L, E, cfg.n_head, V, P, C,
             KIND_CODE[k_kind], KIND_CODE[v_kind], int(advance), ws.n_lm,
             cfg.layer_norm_epsilon, quant_eps,
             ptr(packed["attn_w"]), ptr(packed["proj_w"]), ptr(packed["fc_w"]),
@@ -444,6 +464,159 @@ def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
 
 
 gpt2_megastep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The speculative verify pass: R rows of one sequence in one weight stream.
+
+# The verify chains' largest R (csrc/megaverify.cu shares the batched GEMV's
+# kMaxBatch), the JAX kernels' limit.
+MAX_VERIFY_ROWS = 8
+
+
+def verify_rows_check(k: torch.Tensor, length, R: int) -> None:
+    """The JAX verify kernels' limits: 1 <= R <= 8, and, where the length is
+    known on the host, capacity >= roundup8(length + R) + 8 (the JAX
+    kernels' 16-row write window; the port keeps the rule so capacities and
+    results match)."""
+    if not 1 <= R <= MAX_VERIFY_ROWS:
+        raise NotImplementedError(f"verify of {R} rows: the kernels take "
+                                  f"1..{MAX_VERIFY_ROWS}")
+    if isinstance(length, torch.Tensor) and length.is_cuda:
+        return
+    cur, C = int(length), k.shape[-2]
+    if C < -(-(cur + R) // 8) * 8 + 8:
+        raise ValueError(f"verify of {R} rows at length {cur} needs capacity "
+                         f">= roundup8({cur + R}) + 8, got {C}")
+
+
+def _verify_rows(packed: dict, x: torch.Tensor, cur: int, n_positions: int):
+    """[R, E] inputs of the plain verify: `x` itself, or, for token ids, the
+    token + position embeddings min(cur + t, P - 1) in the model dtype."""
+    if x.is_floating_point():
+        return x
+    wte, wpe = packed["wte"], packed["wpe"]
+    pos = torch.clamp(torch.arange(x.shape[0], device=x.device) + cur, max=n_positions - 1)
+    return (wte[x.long()] + wpe[pos]).to(wte.dtype)
+
+
+def verify_plain(step, packed: dict, k, v, cur: int, rows: torch.Tensor):
+    """R plain steps at lengths cur .. cur + R - 1, each writing its row: the
+    in-block causal verify (row t attends the cache rows < cur and the verify
+    rows j <= t), the same function as one R-row pass. Returns (tokens int32
+    [R], fp32 logits [R, V])."""
+    toks, logits = [], []
+    for t in range(rows.shape[0]):
+        out = step(packed, k, v, cur + t, rows[t:t + 1])
+        toks.append(out[0])
+        logits.append(out[-1])
+    return torch.stack(toks), torch.stack(logits)
+
+
+def gpt2_megaverify_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
+                          length, x: torch.Tensor, *, cfg,
+                          return_logits: bool = False):
+    """Plain PyTorch version of `gpt2_megaverify`, the same function on any
+    device: returns (tokens int32 [R], k, v), rows length .. length + R - 1
+    of every layer written in place (none at or past capacity); with
+    `return_logits`, the fp32 logits [R, V] come fourth."""
+    cur = int(length)
+    verify_rows_check(k, cur, x.shape[0])
+
+    def step(pk, kk, vv, n, xr):
+        return gpt2_megastep_plain(pk, kk, vv, n, xr, cfg=cfg, return_logits=True)
+
+    toks, logits = verify_plain(step, packed, k, v, cur,
+                                _verify_rows(packed, x, cur, cfg.n_positions))
+    return (toks, k, v, logits) if return_logits else (toks, k, v)
+
+
+class GPT2VerifyArgs(ctypes.Structure):
+    """Mirror of `struct Gpt2VerifyArgs` in csrc/megaverify.cu: R, then
+    MegaArgs."""
+
+    _fields_ = [("rows", ctypes.c_int)] + MegaArgs._fields_
+
+
+_verify_lib = None
+
+
+def verify_kernels() -> ctypes.CDLL:
+    """csrc/megaverify.cu, loaded with both entry points typed (the Llama
+    verify's struct is ops/megakernel_llama.py's)."""
+    global _verify_lib
+    if _verify_lib is None:
+        from .megakernel_llama import LlamaVerifyArgs
+
+        lib = _build.load("megaverify")
+        for fn, args in ((lib.elit_gpt2_megaverify, GPT2VerifyArgs),
+                         (lib.elit_llama_megaverify, LlamaVerifyArgs)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        _verify_lib = lib
+    return _verify_lib
+
+
+class VerifyLayout:
+    """The verify launchers' layout: [L, C, W] panes of one sequence, R
+    token rows, one length, R first in the args struct; fp panes only."""
+
+    def layout(self, k, rows: Optional[int]) -> tuple:
+        if k.dim() != 3:
+            raise ValueError(f"k: {k.dim()}-d panes for a verify pass")
+        if rows is None or not 1 <= rows <= MAX_VERIFY_ROWS:
+            raise NotImplementedError(f"verify of {rows} rows: the kernels take "
+                                      f"1..{MAX_VERIFY_ROWS}")
+        return rows, (), 1, (rows,)
+
+    def library(self) -> ctypes.CDLL:
+        return verify_kernels()
+
+
+class GPT2VerifyLauncher(VerifyLayout, StepLauncher):
+    """The prepared arguments of one GPT-2 verify pass (R rows)."""
+
+    entry = {False: "elit_gpt2_megaverify"}
+    args_type = GPT2VerifyArgs
+
+
+def launch_verify(launcher, counter, packed, cfg, k, v, length, x):
+    """One verify launch on CUDA tensors; returns the tokens [R]. `x`:
+    [R, E] embeddings, or [R] integer token ids embedded on the device."""
+    R = x.shape[0]
+    verify_rows_check(k, length, R)
+    tok = torch.empty(R, dtype=torch.int32, device=k.device)
+    kw = ({"x_emb": x.contiguous()} if x.is_floating_point()
+          else {"tok_in": x.to(torch.int32).contiguous()})
+    launcher(packed, cfg, k, v, _length_tensor(length, k.device), tok, rows=R,
+             **kw).launch()
+    counter.launches += 1
+    return tok
+
+
+def gpt2_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
+                    x: torch.Tensor, *, cfg):
+    """Verify R <= 8 draft rows in one weight-streaming pass (greedy).
+    Returns (tokens int32 [R], k, v).
+
+    Row t carries the t-th verify token at position length + t: x is [R, E]
+    token + position embeddings (wpe[min(length + t, P - 1)]) in the model
+    dtype, or [R] integer token ids embedded on the device. Its K/V rows are
+    written to row length + t of every layer (in place; none at or past
+    capacity) and it attends the cache rows < length plus the verify rows
+    j <= t; tokens[t] is its greedy argmax. k, v: [L, C, E] panes in the
+    model dtype; length: int or int32 tensor. On a CUDA tensor it launches
+    the chain of `csrc/megaverify.cu` and counts one launch in
+    `gpt2_megaverify.launches`; on a CPU tensor it runs
+    `gpt2_megaverify_plain`.
+    """
+    if k.device.type == "cpu":
+        return gpt2_megaverify_plain(packed, k, v, length, x, cfg=cfg)
+    return launch_verify(GPT2VerifyLauncher, gpt2_megaverify, packed, cfg, k, v,
+                         length, x), k, v
+
+
+gpt2_megaverify.launches = 0
 
 
 class MegaDecodeGraph:

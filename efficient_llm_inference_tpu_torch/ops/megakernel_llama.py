@@ -1,7 +1,8 @@
 """Whole-step Llama/Qwen decode: one chain of CUDA kernels per batch-1 step.
 
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel_llama.py
-(`_llama_megapass` through `llama_megastep`, the R = 1 decode row;
+(`_llama_megapass` through `llama_megastep`, the R = 1 decode row, and
+through `llama_megaverify`, R <= 8 verify rows of one sequence;
 `mega_supported`, `pack_llama_mega`; full-precision weights). The TPU
 program streams a uniform [TR, TC] tile grid of every weight through VMEM;
 on the H100 the step is a fixed chain of hand-written kernels from
@@ -9,7 +10,9 @@ on the H100 the step is a fixed chain of hand-written kernels from
 in the engine's decode loop, captured once into a CUDA graph
 (ops/megakernel.py `MegaDecodeGraph`) that replays all N steps of a
 generation. The quantized-KV variant (ops/megakernel_quant.py
-`llama_megastep_quant`) shares this module's packing and launcher.
+`llama_megastep_quant`) shares this module's packing and launcher, and so
+does the verify pass (`llama_megaverify`, the chain of `csrc/megaverify.cu`;
+row t takes its RoPE row at min(length + t, n_positions - 1)).
 
 Layouts:
 
@@ -49,16 +52,19 @@ from ..models.llama import WEIGHT_NAMES, _rms_norm, apply_rope, rope_cos_sin
 from . import _build
 from .megakernel import (
     _DTYPE_CODE,
-    _slots,
     HEAD_DIMS,
     KIND_CODE,
     MAX_CAPACITY,
     StepLauncher,
+    VerifyLayout,
     Workspace,
     _check,
     _length_tensor,
     _mv,
     attend_plain,
+    launch_verify,
+    verify_plain,
+    verify_rows_check,
 )
 
 
@@ -105,18 +111,31 @@ def _tile_geometry(cfg):
     return TR, TC, I
 
 
-def _geometry_ok(cfg, capacity: int) -> bool:
+def _jax_geometry_ok(cfg, capacity: int) -> bool:
     """The JAX package's structural conditions (TC % 128, KW % 128, TR % 8,
-    even head_dim, capacity % 8) and the kernels' limits: head_dim 64 or
-    128, capacity <= 8192, whole query groups, and widths that are
-    multiples of 8 (16-byte weight rows)."""
+    even head_dim, capacity % 8)."""
     TR, TC, _ = _tile_geometry(cfg)
-    D, Hq, Hkv = cfg.head_dim, cfg.n_head, cfg.n_kv_head
-    return (TC % 128 == 0 and (Hkv * D) % 128 == 0 and TR % 8 == 0
-            and D % 2 == 0 and capacity % 8 == 0
-            and D in HEAD_DIMS and 0 < capacity <= MAX_CAPACITY
-            and Hq % Hkv == 0 and cfg.hidden_size % 8 == 0
+    D = cfg.head_dim
+    return (TC % 128 == 0 and (cfg.n_kv_head * D) % 128 == 0 and TR % 8 == 0
+            and D % 2 == 0 and capacity % 8 == 0)
+
+
+def _geometry_ok(cfg, capacity: int) -> bool:
+    """The JAX package's structural conditions and the kernels' limits:
+    head_dim 64 or 128, capacity <= 8192, whole query groups, and widths
+    that are multiples of 8 (16-byte weight rows)."""
+    return (_jax_geometry_ok(cfg, capacity)
+            and cfg.head_dim in HEAD_DIMS and 0 < capacity <= MAX_CAPACITY
+            and cfg.n_head % cfg.n_kv_head == 0 and cfg.hidden_size % 8 == 0
             and cfg.intermediate_size % 8 == 0)
+
+
+def jax_structure_ok(cfg, capacity: int, params: dict) -> bool:
+    """The JAX package's eligibility for full-precision weights without its
+    TPU memory envelopes: what decides the JAX engine's routes for a small
+    speculative draft."""
+    return (_full_precision_dtype(params, cfg) is not None
+            and _jax_geometry_ok(cfg, capacity))
 
 
 def mega_supported(cfg, capacity: int, params: dict) -> bool:
@@ -277,8 +296,9 @@ class LlamaStepLauncher(StepLauncher):
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
                  k_kind: str = "fp", v_kind: str = "fp",
-                 quant_eps: float = 1e-8, advance: bool = False):
-        B, lead = _slots(self, k)
+                 quant_eps: float = 1e-8, advance: bool = False,
+                 rows: Optional[int] = None):
+        B, lead, n_len, prefix = self.layout(k, rows)
         E, L, C, D = cfg.hidden_size, cfg.n_layer, k.shape[-2], cfg.head_dim
         I, V, P = cfg.intermediate_size, cfg.vocab_size, cfg.n_positions
         QW, KW = cfg.n_head * D, cfg.n_kv_head * D
@@ -314,7 +334,7 @@ class LlamaStepLauncher(StepLauncher):
                 raise NotImplementedError("int4 panes need whole heads per half")
             _check("ks", ks, torch.float32, (L, *lead, C), dev)
             _check("vs", vs, torch.float32, (L, *lead, C), dev)
-        _check("length", length, torch.int32, (B,), dev)
+        _check("length", length, torch.int32, (n_len,), dev)
         _check("tok_out", tok_out, torch.int32, (B,), dev)
         if x_emb is not None:
             _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
@@ -326,7 +346,7 @@ class LlamaStepLauncher(StepLauncher):
         self.quant = k_kind != "fp"
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         self.args = self.args_type(
-            *lead, _DTYPE_CODE[dtype], L, E, cfg.n_head, cfg.n_kv_head, D, I, V, P, C,
+            *prefix, _DTYPE_CODE[dtype], L, E, cfg.n_head, cfg.n_kv_head, D, I, V, P, C,
             KIND_CODE[k_kind], KIND_CODE[v_kind], int(advance), ws.n_lm,
             cfg.rms_eps, quant_eps,
             *(ptr(packed.get(n)) for n in (
@@ -366,3 +386,62 @@ def llama_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
 
 
 llama_megastep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The speculative verify pass (JAX `llama_megaverify`: `_llama_megapass` at
+# R > 1).
+
+
+def llama_megaverify_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
+                           length, x: torch.Tensor, *, cfg,
+                           return_logits: bool = False):
+    """Plain PyTorch version of `llama_megaverify`, the same function on any
+    device: returns (tokens int32 [R], k, v), rows length .. length + R - 1
+    written in place; with `return_logits`, the fp32 logits [R, V] come
+    fourth."""
+    cur = int(length)
+    verify_rows_check(k, cur, x.shape[0])
+    rows = x if x.is_floating_point() else packed["embed"][x.long()]
+
+    def step(pk, kk, vv, n, xr):
+        return llama_megastep_plain(pk, kk, vv, n, xr, cfg=cfg, return_logits=True)
+
+    toks, logits = verify_plain(step, packed, k, v, cur, rows)
+    return (toks, k, v, logits) if return_logits else (toks, k, v)
+
+
+class LlamaVerifyArgs(ctypes.Structure):
+    """Mirror of `struct LlamaVerifyArgs` in csrc/megaverify.cu: R, then
+    LlamaArgs."""
+
+    _fields_ = [("rows", ctypes.c_int)] + LlamaArgs._fields_
+
+
+class LlamaVerifyLauncher(VerifyLayout, LlamaStepLauncher):
+    """The prepared arguments of one Llama/Qwen verify pass (R rows)."""
+
+    entry = {False: "elit_llama_megaverify"}
+    args_type = LlamaVerifyArgs
+
+
+def llama_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
+                     x: torch.Tensor, *, cfg):
+    """Verify R <= 8 draft rows of a Llama/Qwen model in one weight-streaming
+    pass (greedy). Returns (tokens int32 [R], k, v).
+
+    As `ops.megakernel.gpt2_megaverify`: x is [R, E] token embeddings in the
+    model dtype or [R] integer token ids; row t is rotated at
+    min(length + t, P - 1) from the packed RoPE tables (the JAX kernel takes
+    the same rows as cos_q/sin_q inputs). k, v: [L, C, KW] panes. On a CUDA
+    tensor it launches the chain of `csrc/megaverify.cu` and counts one
+    launch in `llama_megaverify.launches`; on a CPU tensor it runs
+    `llama_megaverify_plain`.
+    """
+    if k.device.type == "cpu":
+        return llama_megaverify_plain(packed, k, v, length, x, cfg=cfg)
+    return launch_verify(LlamaVerifyLauncher, llama_megaverify, packed, cfg, k, v,
+                         length, x), k, v
+
+
+llama_megaverify.launches = 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes on one GPU.
 
-    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...] [--batch B]
+    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...] [--batch B | --spec]
 
 A model of the registry at full width (GPT-2 small by default; random
 weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
@@ -29,6 +29,14 @@ tokens for kv_mode None, int8, int4 and mixed (the batched whole-step
 kernels, replayed from a CUDA graph); tokens_per_s is then B x 64 over
 wall_ms, step_ms the wall of one batched step, and the ten kernels with the
 most device time are listed.
+
+With `--spec` it profiles speculative decoding instead: the same prompt
+and 64 new tokens through `generate_speculative` mode "ngram" (k = 8) and
+"self_draft" (1 layer, k = 4), megakernel on (every round one launch of the
+verify kernel, replayed from a CUDA graph), beside full_cache; n_rounds,
+tokens_per_round, host_syncs (reads of the emitted count a generation) and
+round_ms = (wall_ms - the wall of a 1-token full_cache generation) /
+n_rounds, with the eight kernels with the most device time.
 
 If the profiler records no device activity, kernel_ms and idle_share are
 null ("not measured"). Imports nothing of JAX.
@@ -118,11 +126,49 @@ def profile_batch(model: str, batch: int) -> None:
         }), flush=True)
 
 
+def profile_spec(model: str) -> None:
+    text = prompt()
+    eng = InferenceEngine.from_model_name(model)
+    for n in (NEW_TOKENS, 1):
+        eng.generate_ids(text, "full_cache", n)  # build, load, capture, warm
+    full = statistics.median(wall_ms(eng, text, "full_cache") for _ in range(5))
+    wall_1 = statistics.median(wall_ms(eng, text, "full_cache", 1) for _ in range(5))
+    for mode, k in (("ngram", 8), ("self_draft", 4)):
+        def run():
+            return eng.generate_speculative(text, NEW_TOKENS, mode=mode, k=k, stats=True)
+
+        run()  # build, load, capture
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st = run()[2]  # reads the tokens: synchronises
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kernel_ms, count, by_name = profiled(run)
+        wall = statistics.median(walls)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        print(json.dumps({
+            "model": model, "mode": mode, "k": k,
+            "wall_ms": wall, "wall_ms_runs": walls,
+            "tokens_per_s": NEW_TOKENS / wall * 1e3,
+            "full_cache_wall_ms": full,
+            "full_cache_tokens_per_s": NEW_TOKENS / full * 1e3,
+            "n_rounds": st["n_rounds"], "tokens_per_round": st["tokens_per_round"],
+            "host_syncs": eng.last_spec_host_syncs,
+            "round_ms": (wall - wall_1) / st["n_rounds"],
+            "kernel_ms": kernel_ms,
+            "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
+            "kernels_per_generation": count,
+            "top": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top],
+        }), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="gpt2", help="registry name")
     parser.add_argument("--batch", type=int, default=0,
                         help="profile generate_batch of this many prompts")
+    parser.add_argument("--spec", action="store_true",
+                        help="profile generate_speculative (ngram, self_draft)")
     args = parser.parse_args()
     model = args.model
     if not torch.cuda.is_available():
@@ -134,6 +180,9 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     if args.batch:
         profile_batch(model, args.batch)
+        return 0
+    if args.spec:
+        profile_spec(model)
         return 0
     text = prompt()
     t0 = time.perf_counter()

@@ -19,6 +19,8 @@ tolerances (a token within 2e-2 of the plain maximum logit, fp rows within
 1.6e-2 of their largest value, quantized rows within two steps).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -533,3 +535,208 @@ def test_engine_generate_batch_graph_matches_plain(cuda, family, kv_mode):
         clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
         first = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
         assert g_[:len(g_) - n + first] == w_[:len(w_) - n + first]
+
+
+# ------------------------------------------------- speculative decoding
+
+VERIFY_FAMILIES = ["gpt2", "gpt2-full", "g2", "g4-untied", "g7-qwen", "d128"]
+
+
+def _verify_case(family, dtype, device):
+    """(kind, packed, cfg) of a verify target: GPT-2 at E = 256 or GPT-2
+    small's full width, or a small Llama/Qwen geometry of LLAMA_CFGS."""
+    if family.startswith("gpt2"):
+        cfg = tgpt2.GPT2Config(**MEGA_CFGS["small-test" if family == "gpt2" else "gpt2"])
+        params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(2), cfg,
+                                        torch.float32, device)
+        packed, kind = tmk.pack_gpt2_mega(params, cfg), "gpt2"
+    else:
+        cfg = _llama_cfg(family)
+        packed, kind = tml.pack_llama_mega(_llama_params(cfg, device), cfg), "llama"
+    packed = {k: (v.to(dtype) if v.dtype == torch.float32 and k not in (
+        "smalls", "lnf", "norms", "cos", "sin", "qkvb") else v) for k, v in packed.items()}
+    return kind, packed, cfg
+
+
+def _token_close(tok, logits, dtype):
+    top2 = logits.topk(2).values
+    if dtype == torch.float32:
+        return tok == int(logits.argmax()) or float(top2[0] - top2[1]) < 1e-4
+    return float(logits[tok]) >= float(top2[0]) - 2e-2
+
+
+def _rows_close(got, want, dtype):
+    """New fp rows: fp32 within 1e-5, bf16 within 1.6e-2, of the rows'
+    largest value (at least 1)."""
+    rel = 1e-5 if dtype == torch.float32 else 1.6e-2
+    g_, w_ = got.float(), want.float()
+    return (g_ - w_).abs().max().item() <= rel * max(1.0, w_.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur", [0, 7, 47])
+@pytest.mark.parametrize("R", [1, 4, 8])
+@pytest.mark.parametrize("family", VERIFY_FAMILIES)
+def test_megaverify_matches_plain(cuda, family, R, cur, dtype):
+    """#10 gpt2_megaverify and #13 at R > 1 (llama_megaverify) against their
+    plain versions (R plain steps), C = 64: per row the token (chip_smoke.py's
+    tolerances), the R new rows (fp32 1e-5, bf16 1.6e-2 of their largest
+    value), every other row untouched; fed token ids (embedded on the
+    device) and embeddings."""
+    kind, packed, cfg = _verify_case(family, dtype, cuda)
+    kern = tmk.gpt2_megaverify if kind == "gpt2" else tml.llama_megaverify
+    plain = tmk.gpt2_megaverify_plain if kind == "gpt2" else tml.llama_megaverify_plain
+    L = cfg.n_layer
+    W = cfg.n_embd if kind == "gpt2" else cfg.n_kv_head * cfg.head_dim
+    C = 64
+    g = torch.Generator(device="cpu").manual_seed(R * 100 + cur)
+    state = [(torch.randn((L, C, W), generator=g) * 0.5).to(dtype).to(cuda) for _ in range(2)]
+    ids = torch.randint(0, cfg.vocab_size, (R,), generator=g).to(cuda)
+    length = torch.tensor([cur], dtype=torch.int32, device=cuda)
+    want = [t.clone() for t in state]
+    _, _, _, logits = plain(packed, *want, cur, ids, cfg=cfg, return_logits=True)
+    rows = torch.arange(cur, cur + R, device=cuda)
+    others = torch.ones(C, dtype=torch.bool, device=cuda)
+    others[rows] = False
+    for x in (ids.to(torch.int32), None):
+        if x is None:  # the embeddings the engine's eager glue would build
+            if kind == "gpt2":
+                pos = torch.clamp(rows, max=cfg.n_positions - 1)
+                x = (packed["wte"][ids] + packed["wpe"][pos]).to(dtype)
+            else:
+                x = packed["embed"][ids]
+        got = [t.clone() for t in state]
+        before = kern.launches
+        toks = kern(packed, *got, length, x, cfg=cfg)[0]
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1 and toks.shape == (R,)
+        for t in range(R):
+            assert _token_close(int(toks[t]), logits[t], dtype), (t, int(toks[t]))
+        for g_, w_, b_ in zip(got, want, state):
+            assert torch.equal(g_[:, others], b_[:, others])
+            assert _rows_close(g_[:, rows], w_[:, rows], dtype)
+
+
+DRAFT_CFGS = {  # the repo's byte-vocab drafts (examples/train_scale_models.py)
+    "draft_gpt2": lambda: tgpt2.GPT2Config(vocab_size=256, n_positions=256, n_embd=128,
+                                           n_layer=2, n_head=4),
+    "draft_llama": lambda: tllama.LlamaConfig(
+        vocab_size=256, n_positions=256, hidden_size=256, intermediate_size=512, n_layer=1,
+        n_head=4, n_kv_head=2, rope_theta=10000.0, tie_embeddings=True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dlen", [0, 17])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("name", list(DRAFT_CFGS))
+def test_draft_burst_matches_plain(cuda, name, k, dlen, dtype):
+    """#22 gpt2_draft_burst and #23 llama_draft_burst (one cluster launch, k
+    steps) against the plain steps teacher-forced with the kernel's tokens,
+    C = 64: each proposal is the plain step's token (chip_smoke.py's
+    tolerances), the k new rows within the megastep tolerances, every other
+    row untouched. Block weights at std 0.15, so that the proposals vary
+    (at std 0.02 a tied draft repeats its input token)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_draft as tmd
+
+    cfg = DRAFT_CFGS[name]()
+    llama = name == "draft_llama"
+    if llama:
+        params = _llama_params(cfg, cuda)
+        packed, W = tmd.pack_llama_draft(params, cfg), cfg.n_kv_head * cfg.head_dim
+        kern, step = tmd.llama_draft_burst, tml.llama_megastep_plain
+    else:
+        params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(3), cfg,
+                                        torch.float32, cuda)
+        for name_, t in params["blocks"].items():  # std 0.15: the proposals vary
+            if name_.endswith("_w"):
+                t.mul_(7.5)
+        packed, W = tmd.pack_gpt2_draft(params, cfg), cfg.n_embd
+        kern, step = tmd.gpt2_draft_burst, tmk.gpt2_megastep_plain
+    packed = {k_: (v.to(dtype) if v.dtype == torch.float32 and k_ not in (
+        "smalls", "lnf", "norms", "cos", "sin", "qkvb") else v) for k_, v in packed.items()}
+    C = 64
+    assert (tmd.llama_draft_burst_supported if llama else tmd.gpt2_draft_burst_supported)(
+        cfg, C, dtype)
+    g = torch.Generator(device="cpu").manual_seed(k * 10 + dlen)
+    state = [(torch.randn((cfg.n_layer, C, W), generator=g) * 0.5).to(dtype).to(cuda)
+             for _ in range(2)]
+    cur = 65
+    got = [t.clone() for t in state]
+    before = kern.launches
+    props = kern(packed, *got, torch.tensor([dlen], dtype=torch.int32, device=cuda),
+                 torch.tensor([cur], dtype=torch.int32, device=cuda), cfg=cfg, k=k)[0]
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and props.shape == (k,)
+    want = [t.clone() for t in state]
+    tok = cur
+    for s in range(k):
+        if llama:
+            x = packed["embed"][tok][None]
+        else:
+            x = (packed["wte"][tok] + packed["wpe"][min(dlen + s, cfg.n_positions - 1)])[None]
+            x = x.to(dtype)
+        logits = step(packed, *want, dlen + s, x, cfg=cfg, return_logits=True)[-1]
+        assert _token_close(int(props[s]), logits, dtype), (s, int(props[s]))
+        tok = int(props[s])
+    rows = torch.arange(dlen, dlen + k, device=cuda)
+    others = torch.ones(C, dtype=torch.bool, device=cuda)
+    others[rows] = False
+    for g_, w_, b_ in zip(got, want, state):
+        assert torch.equal(g_[:, others], b_[:, others])
+        assert _rows_close(g_[:, rows], w_[:, rows], dtype)
+
+
+@pytest.mark.parametrize("mode", ["ngram", "self_draft", "draft"])
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_engine_generate_speculative_graph(cuda, family, mode):
+    """generate_speculative on the card (one captured round replayed; fp32)
+    equals the CPU engine's full_cache greedy up to the first step whose
+    plain top-2 gap is under 1e-4; the verify kernel launches once a round,
+    the burst once a round (mode "draft": draft_gpt2 / draft_llama), the
+    1-layer self-draft's whole-step kernel k times a round (its vocabulary
+    of 4096 is past the burst's 2048)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_draft as tmd
+
+    V = 4096 if mode == "self_draft" else 256
+    if family == "gpt2":
+        cfg = tgpt2.GPT2Config(vocab_size=V, n_positions=256, n_embd=256, n_layer=2,
+                               n_head=4)
+        spec = gpt2_spec(cfg)
+        make = lambda dev: tgpt2.init_gpt2_params(  # noqa: E731
+            torch.Generator().manual_seed(0), cfg, torch.float32, dev)
+        dcfg = DRAFT_CFGS["draft_gpt2"]()
+        dspec = gpt2_spec(dcfg)
+        dmake = lambda dev: tgpt2.init_gpt2_params(  # noqa: E731
+            torch.Generator().manual_seed(5), dcfg, torch.float32, dev)
+        verify, burst, step = tmk.gpt2_megaverify, tmd.gpt2_draft_burst, tmk.gpt2_megastep
+    else:
+        cfg = dataclasses.replace(_llama_cfg("g2"), vocab_size=V)
+        spec = tllama.llama_spec(cfg)
+        make = lambda dev: _llama_params(cfg, dev)  # noqa: E731
+        dcfg = DRAFT_CFGS["draft_llama"]()
+        dspec = tllama.llama_spec(dcfg)
+        dmake = lambda dev: _llama_params(dcfg, dev)  # noqa: E731
+        verify, burst, step = tml.llama_megaverify, tmd.llama_draft_burst, tml.llama_megastep
+    engines = {dev: InferenceEngine(spec, make(dev), config=Config(
+        model_name="t", device=dev, dtype=torch.float32, megakernel=True))
+        for dev in ("cpu", "cuda")}
+    kw = {"draft": (dspec, dmake("cuda"))} if mode == "draft" else {}
+    prompt, n, k = "the cat sat on the mat and the cat sat on the hat", 24, 4
+    counters = (verify, burst, step)
+    for _ in range(2):  # the second call replays the captured round
+        before = [c.launches for c in counters]
+        _, got_n, st = engines["cuda"].generate_speculative(prompt, n, mode=mode, k=k,
+                                                            stats=True, **kw)
+        rounds = st["n_rounds"]
+        added = [c.launches - b for c, b in zip(counters, before)]
+        assert got_n == n and added[0] == rounds
+        assert added[1] == (rounds if mode == "draft" else 0)
+        assert added[2] == (k * rounds if mode == "self_draft" else 0)
+    got = engines["cuda"].last_generation_ids
+    want = engines["cpu"].generate_ids(prompt, "full_cache", n)
+    _, logits = engines["cpu"].generate_logits(prompt, "full_cache", n, forced=want[-n:])
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+    first = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
+    assert got[:len(got) - n + first] == want[:len(want) - n + first]
