@@ -85,6 +85,32 @@ three more phases:
   ngram and self_draft, both pairs' draft) equals the megakernel greedy ids
   up to the first step whose top-2 gap is under 1e-4.
 
+Continuous batching (`MegaBatchServer`: the batched chains past 8 slots,
+the batched verify kernels #18-#21 of csrc/megabatch_verify.cu) runs in
+four more phases:
+- in the batch kernels: #14/#16 at B = 16 (and #14 at B = 32) on GPT-2
+  small, #15/#17 at B = 16 on Llama-3.2-1B, the lengths above repeated,
+  with the same tolerances, timed in bf16;
+- batched verify kernels, after the speculation kernels: #18/#19 at GPT-2
+  small's width on 16 slots and #20/#21 at Llama-3.2-1B's on 8, R in
+  {2, 8} rows a slot fed as token ids, C = 128, slot lengths 0, 7, 8, 55
+  and C - 16 repeated, fp/int8/int4/mixed panes, fp32 and bf16, against the
+  plain versions per slot and row (the tolerances of phase 2 with its
+  deep-bf16 allowance for Llama; over quantized panes each row against the
+  plain step on the kernel's own earlier rows), every other column
+  untouched; timed in bf16 at R = 8;
+- server main path, after the speculation main path: MegaBatchServer.run
+  on the engines' models in bf16, the protocol of
+  scripts/measure_megaserver.py ("Question i: " + 6-10 words, 64 new
+  tokens, C = 128, chunks of 32; 32 requests on 16 slots for GPT-2 small,
+  16 on 8 for Llama-3.2-1B), plain and spec="ngram" (k = 8), pools in bf16
+  and int8: the batched chain launches once a step, the batched verify
+  once a round, nothing else; aggregate tokens/s, tokens a slot-round and
+  the final verify width;
+- in the fp32 hold: GPT-2 small's plain and spec servers at C = 256 (every
+  request fits): each request equals the single-stream megakernel greedy
+  ids up to the first step whose top-2 gap is under 1e-4.
+
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero without that line. Float32 matrix products run in full fp32 (TF32
@@ -383,18 +409,22 @@ def _mega_step(mode, packed, cfg, state, length, x, plain=False, family="gpt2"):
                                              kv_mode=mode, **kw)
 
 
-def _token_ok(tok: int, logits: torch.Tensor, dtype, deep_bf16: bool = False) -> bool:
+def _token_ok(tok: int, logits: torch.Tensor, dtype, deep_bf16: bool = False,
+              bf16_tol: float = None) -> bool:
     """fp32: the plain argmax unless its top-2 gap is under 1e-4; bf16: any
     token whose plain logit is within 2e-2 of the maximum (the kernel and
     the plain step round to bf16 at the same points, in other sum orders).
     `deep_bf16` (a Llama-3.2-1B verify pass): within 4e-2, the allowance
     once more, as for its rows in `_rows_err` (the 16 bf16 layers and the
     earlier verify rows compound the rounding flips; measured: a kernel
-    token 0.027 under the plain maximum, PERF.md §6)."""
+    token 0.027 under the plain maximum, PERF.md §6). `bf16_tol` replaces
+    the bf16 tolerance (LLAMA_VERIFY_BF16_TOL for the batched verify)."""
     top2 = logits.topk(2).values
     if dtype == torch.float32:
         return tok == int(logits.argmax()) or float(top2[0] - top2[1]) < 1e-4
-    return float(logits[tok]) >= float(top2[0]) - 2e-2 * (2 if deep_bf16 else 1)
+    if bf16_tol is None:
+        bf16_tol = 2e-2 * (2 if deep_bf16 else 1)
+    return float(logits[tok]) >= float(top2[0]) - bf16_tol
 
 
 def _new_row_err(mode, dtype, got, want, before, row=MEGA_LEN,
@@ -409,7 +439,7 @@ def _new_row_err(mode, dtype, got, want, before, row=MEGA_LEN,
     ulps of their largest value)."""
     from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
 
-    others = torch.arange(MEGA_C, device=before[0].device) != row
+    others = torch.arange(before[0].shape[1], device=before[0].device) != row
     for g_, w_, b_ in zip(got, want, before):
         if not (torch.equal(g_[:, others], b_[:, others])
                 and torch.equal(w_[:, others], b_[:, others])):
@@ -666,13 +696,15 @@ def _batch_bound(mode, dtype, cfg, family, lengths) -> tuple:
     return bound_ms(n_bytes, flops, rate)
 
 
-def check_megabatches(family: str, cfg, params_for) -> dict:
+def check_megabatches(family: str, cfg, params_for, wide: dict) -> dict:
     """#14/#16 (GPT-2) or #15/#17 (Llama) against their plain batched steps:
     B = 8 slots at BATCH_LENGTHS, C = 320, fp, int8, int4 and mixed panes,
     fp32 and bf16 (`params_for(dtype)` gives the weights); per slot the
     token and the new rows under the megastep tolerances, every other column
-    untouched. Device ms by CUDA-graph replay in bf16 at B = 8 and at B = 1
-    (one slot at length 319), beside the bound and the plain step."""
+    untouched. Then past 8 slots (each batched GEMV launched once per group
+    of 8 rows): `wide[mode]` slot counts at the same lengths, repeated. Device ms
+    by CUDA-graph replay in bf16 at B = 8, at B = 1 (one slot at length 319)
+    and at each wide B, beside the bound and the plain step."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
 
@@ -681,7 +713,6 @@ def check_megabatches(family: str, cfg, params_for) -> dict:
     W = cfg.n_kv_head * cfg.head_dim if llama else cfg.n_embd
     E = cfg.hidden_size if llama else cfg.n_embd
     B = len(BATCH_LENGTHS)
-    dev_len = torch.tensor(BATCH_LENGTHS, dtype=torch.int32, device="cuda")
     one_len = torch.tensor([MEGA_LEN], dtype=torch.int32, device="cuda")
     names = ("llama_megabatch", "llama_megabatch_quant") if llama else (
         "gpt2_megabatch", "gpt2_megabatch_quant")
@@ -690,47 +721,67 @@ def check_megabatches(family: str, cfg, params_for) -> dict:
         params = params_for(dtype)
         packed = pack(params, cfg)
         for i, mode in enumerate(MODES):
-            state, x = _batch_state(mode, dtype, 300 + i, cfg.n_layer, W, E, B)
-            got = [t.clone() for t in state]
-            want = [t.clone() for t in state]
-            toks = _batch_step(mode, packed, cfg, got, dev_len, x, family=family)[0]
-            logits = _batch_step(mode, packed, cfg, want, list(BATCH_LENGTHS), x,
-                                 plain=True, family=family)[-1]
-            torch.cuda.synchronize()
-            err = 0.0
-            for b, length in enumerate(BATCH_LENGTHS):
-                tok = int(toks[b])
-                if not _token_ok(tok, logits[b], dtype):
-                    raise AssertionError(
-                        f"{names[mode != 'fp']} {mode} {dtype} slot {b} (length {length}): "
-                        f"token {tok}, plain argmax {int(logits[b].argmax())}")
-                err = max(err, _new_row_err(mode, dtype, [t[:, b] for t in got],
-                                            [t[:, b] for t in want],
-                                            [t[:, b] for t in state], row=length,
-                                            deep_bf16=llama))
-            entry = {"max_abs_err": err}
-            line = (f"  {names[mode != 'fp']} {mode} {str(dtype)[6:]} B=8 C=320 lengths "
-                    f"{list(BATCH_LENGTHS)}: tokens {toks.tolist()} (plain "
-                    f"{logits.argmax(-1).tolist()}), new rows max|kernel-plain| {err:.2e}")
-            if dtype == torch.bfloat16:
-                one = [t[:, 7:8].clone() for t in got]
-                x1 = x[7:8].contiguous()
-                b8, by = _batch_bound(mode, dtype, cfg, family, BATCH_LENGTHS)
-                b1, _ = _batch_bound(mode, dtype, cfg, family, (MEGA_LEN,))
-                entry.update({
-                    "ms": device_ms(lambda: _batch_step(mode, packed, cfg, got, dev_len, x,
-                                                        family=family), calls=10),
-                    "ms_b1": device_ms(lambda: _batch_step(mode, packed, cfg, one, one_len,
-                                                           x1, family=family), calls=10),
-                    "plain_ms": device_ms(lambda: _batch_step(
-                        mode, packed, cfg, want, list(BATCH_LENGTHS), x, plain=True,
-                        family=family), calls=1, replays=3),
-                    "bound_ms": b8, "bound_by": by, "bound_ms_b1": b1, "library_ms": None,
-                })
-                line += (f"; device ms B=8 {entry['ms']:.5f} (bound {b8:.5f}, {by}), "
-                         f"B=1 {entry['ms_b1']:.5f} (bound {b1:.5f}), plain B=8 "
-                         f"{entry['plain_ms']:.5f}; per token B=8 {entry['ms'] / B:.5f}")
-            log(line)
+            name = names[mode != "fp"]
+            entry = {"max_abs_err": 0.0}
+            for n_slots in (B,) + wide["fp" if mode == "fp" else "quant"]:
+                lengths = [BATCH_LENGTHS[b % B] for b in range(n_slots)]
+                dev_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+                if n_slots == B:
+                    state, x = _batch_state(mode, dtype, 300 + i, cfg.n_layer, W, E, B)
+                else:  # drawn on the card: the host draws of _batch_state take seconds
+                    state = _verify_state(mode, dtype, 300 + i + 100 * n_slots, cfg.n_layer,
+                                          n_slots, W, C=MEGA_C)
+                    g = torch.Generator(device="cuda").manual_seed(n_slots)
+                    x = (torch.randn((n_slots, E), generator=g, device="cuda") * 0.3).to(dtype)
+                got = [t.clone() for t in state]
+                want = [t.clone() for t in state]
+                toks = _batch_step(mode, packed, cfg, got, dev_len, x, family=family)[0]
+                logits = _batch_step(mode, packed, cfg, want, lengths, x, plain=True,
+                                     family=family)[-1]
+                torch.cuda.synchronize()
+                err = 0.0
+                for b, length in enumerate(lengths):
+                    tok = int(toks[b])
+                    if not _token_ok(tok, logits[b], dtype):
+                        raise AssertionError(
+                            f"{name} {mode} {dtype} B={n_slots} slot {b} (length {length}): "
+                            f"token {tok}, plain argmax {int(logits[b].argmax())}")
+                    err = max(err, _new_row_err(mode, dtype, [t[:, b] for t in got],
+                                                [t[:, b] for t in want],
+                                                [t[:, b] for t in state], row=length,
+                                                deep_bf16=llama))
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                line = (f"  {name} {mode} {str(dtype)[6:]} B={n_slots} C=320 lengths "
+                        f"{lengths[:8]}{' (repeated)' if n_slots > B else ''}: tokens "
+                        f"{toks.tolist()[:8]} (plain {logits.argmax(-1).tolist()[:8]}), new "
+                        f"rows max|kernel-plain| {err:.2e}")
+                if dtype == torch.bfloat16:
+                    bnd, by = _batch_bound(mode, dtype, cfg, family, lengths)
+                    ms = device_ms(lambda: _batch_step(mode, packed, cfg, got, dev_len, x,
+                                                       family=family), calls=10)
+                    if n_slots == B:
+                        one = [t[:, 7:8].clone() for t in got]
+                        x1 = x[7:8].contiguous()
+                        b1, _ = _batch_bound(mode, dtype, cfg, family, (MEGA_LEN,))
+                        entry.update({
+                            "ms": ms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                            "ms_b1": device_ms(lambda: _batch_step(
+                                mode, packed, cfg, one, one_len, x1, family=family),
+                                calls=10),
+                            "plain_ms": device_ms(lambda: _batch_step(
+                                mode, packed, cfg, want, lengths, x, plain=True,
+                                family=family), calls=1, replays=3),
+                            "bound_ms_b1": b1,
+                        })
+                        line += (f"; device ms B=8 {ms:.5f} (bound {bnd:.5f}, {by}), B=1 "
+                                 f"{entry['ms_b1']:.5f} (bound {b1:.5f}), plain B=8 "
+                                 f"{entry['plain_ms']:.5f}; per token B=8 {ms / B:.5f}")
+                    else:
+                        entry[f"ms_b{n_slots}"] = ms
+                        entry[f"bound_ms_b{n_slots}"] = bnd
+                        line += (f"; device ms B={n_slots} {ms:.5f} (bound {bnd:.5f}, "
+                                 f"{by}); per token {ms / n_slots:.5f}")
+                log(line)
             reports[(mode, dtype)] = entry
         del params, packed
     return _mega_reports(reports, *names)
@@ -854,6 +905,218 @@ def check_megaverify(family: str, cfg, params_for) -> dict:
         del params, packed
     report["max_abs_err"] = worst
     return {name: report}
+
+
+SERVER_C = 128  # the server protocol's pane length (scripts/measure_megaserver.py)
+# bf16 tokens of Llama-3.2-1B's batched verify: within 5e-2 of the plain
+# maximum logit. scripts/torch_verify_drift.py read 640 rows of these cases
+# (this script's seeds and a second set): the largest shortfall 0.0445 (int8
+# panes, R = 8; the second set 0.0361), one row past the single-stream
+# verify's 4e-2 (`deep_bf16`), and on every row the single-stream kernels
+# (#13 verify, #12 step) on the same pane and rows chose the same token.
+LLAMA_VERIFY_BF16_TOL = 5e-2
+VERIFY_LENGTHS = (0, 7, 8, 55, SERVER_C - 16)  # C - 16: the deepest block of the window
+
+
+def _verify_batch_bound(mode, dtype, cfg, family, lengths, R) -> tuple:
+    """Least time of one batched verify pass: every weight read once for all
+    B x R rows, the norms and biases, the rows' embeddings (and RoPE rows),
+    each slot's cur visible K/V rows (and scales) read once and its R new
+    rows written once; two operations per weight element and row, plus the
+    attention's four per value of each row's cur + t + 1 keys and query
+    head."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    N = len(lengths) * R
+    if family == "gpt2":
+        L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
+        weights, QW, W = L * 12 * E * E + V * E, E, E
+        small = (L * 13 * E + 2 * E) * 4 + N * 2 * E * item
+    else:
+        E, I, L, V, D = (cfg.hidden_size, cfg.intermediate_size, cfg.n_layer,
+                         cfg.vocab_size, cfg.head_dim)
+        QW, W = cfg.n_head * D, cfg.n_kv_head * D
+        weights = L * (E * (QW + 2 * W) + QW * E + 3 * E * I) + V * E
+        small = ((L * 2 * E + E + (L * (QW + 2 * W) if cfg.qkv_bias else 0)) * 4
+                 + N * (E * item + 2 * D * 4))
+    rows = sum(cur + R for cur in lengths)
+    n_bytes = weights * item + small + _kv_bytes(mode, item, L, W, rows)
+    keys = sum(cur + t + 1 for cur in lengths for t in range(R))
+    flops = 2 * weights * N + L * 4 * keys * QW
+    rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def _verify_state(mode, dtype, seed, L, B, W, C=SERVER_C):
+    """Random [L, B, C, W] panes (codes and [L, B, C] scales for quantized
+    modes), drawn on the card."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (L, B, C)
+    if mode == "fp":
+        return [(torch.randn(shape + (W,), generator=g, device="cuda") * 0.5).to(dtype)
+                for _ in range(2)]
+    panes = [torch.randint(-127 if kind == "int8" else -128, 128,
+                           shape + (mq._pane_width(kind, W),), generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.int8) for kind in mq._kv_kinds(mode)]
+    return panes + [torch.rand(shape, generator=g, device="cuda") * 0.02 + 1e-3
+                    for _ in range(2)]
+
+
+def _teacher_forced_rows(mode, dtype, packed, cfg, family, state, got, toks, ids,
+                        lengths, name) -> tuple:
+    """Each row of a quantized batched verify block against the plain step
+    on the kernel's own earlier rows: row t of slot b is the plain quantized
+    step at lengths[b] + t over slot b's panes as they were, with the
+    kernel's rows lengths[b] .. lengths[b] + t - 1 (codes and scales) in
+    place, fed row t's token. (The plain verify runs on its own earlier
+    rows, whose codes may differ from the kernel's by a step, and a later
+    row attends them: in bf16 a tenth of int4 codes flip, which moved a
+    Llama-3.2-1B row's logits by 0.15.) The kernel's token under the token
+    rule (LLAMA_VERIFY_BF16_TOL for Llama in bf16) and its new row under the
+    megastep tolerances with the deep-bf16 allowance for both families: the
+    bf16 values a row quantizes may differ by the fp rows' 1.6e-2 of their
+    largest value (scripts/torch_verify_drift.py: GPT-2 rows up to 1.127x
+    two steps, the single-stream quant step on the same input the same);
+    every column outside the block untouched. Returns
+    (max |kernel - plain| of the rows, the tokens' largest shortfall under
+    the plain maximum logit)."""
+    R = toks.shape[1]
+    llama = family == "llama"
+    err = short = 0.0
+    for b, cur in enumerate(lengths):
+        block = torch.zeros(state[0].shape[2], dtype=torch.bool, device="cuda")
+        block[cur:cur + R] = True
+        if not all(torch.equal(g_[:, b][:, ~block], s_[:, b][:, ~block])
+                   for g_, s_ in zip(got, state)):
+            raise AssertionError(f"{name} {mode} {dtype}: slot {b} changed outside its block")
+        for t in range(R):
+            panes = [s_[:, b].clone() for s_ in state]
+            for p_, g_ in zip(panes, got):
+                p_[:, cur:cur + t] = g_[:, b, cur:cur + t]
+            before = [p_.clone() for p_ in panes]
+            tok_id = ids[b * R + t].long()
+            if llama:
+                x = packed["embed"][tok_id][None]
+            else:
+                pos = min(cur + t, cfg.n_positions - 1)
+                x = (packed["wte"][tok_id] + packed["wpe"][pos])[None].to(dtype)
+            logits = _mega_step(mode, packed, cfg, panes, cur + t, x, plain=True,
+                                family=family)[-1]
+            tok = int(toks[b, t])
+            short = max(short, float(logits.max() - logits[tok]))
+            if not _token_ok(tok, logits, dtype,
+                             bf16_tol=LLAMA_VERIFY_BF16_TOL if llama else None):
+                raise AssertionError(f"{name} {mode} {dtype} slot {b} (length {cur}) row {t}: "
+                                     f"token {tok}, plain argmax {int(logits.argmax())}, "
+                                     f"{float(logits.max() - logits[tok]):.4f} under the "
+                                     f"plain maximum")
+            kern = [p_.clone() for p_ in before]
+            for k_, g_ in zip(kern, got):
+                k_[:, cur + t] = g_[:, b, cur + t]
+            err = max(err, _new_row_err(mode, dtype, kern, panes, before, row=cur + t,
+                                        deep_bf16=True))
+    return err, short
+
+
+def check_megabatch_verify(family: str, cfg, params_for, n_slots: int) -> dict:
+    """#18/#19 (GPT-2) or #20/#21 (Llama) against their plain versions (R
+    sequential plain steps a slot): n_slots slots at VERIFY_LENGTHS
+    (repeated) of C = SERVER_C, R in {2, 8} rows a slot fed as token ids, fp,
+    int8, int4 and mixed panes, fp32 and bf16; per slot and row the token
+    and the new rows under the megastep tolerances (with the deep-bf16
+    allowance for Llama's rows, LLAMA_VERIFY_BF16_TOL for its bf16 tokens),
+    every other column and scale untouched; over
+    quantized panes each row against the plain step on the kernel's own
+    earlier rows (`_teacher_forced_rows`). Device ms in bf16 at R = 8, the
+    server protocol's shape."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as mbv
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    llama = family == "llama"
+    pack = ml.pack_llama_mega if llama else mk.pack_gpt2_mega
+    W = cfg.n_kv_head * cfg.head_dim if llama else cfg.n_embd
+    E = cfg.hidden_size if llama else cfg.n_embd
+    names = (f"{family}_megabatch_verify", f"{family}_megabatch_verify_quant")
+    fns = {(False, False): mbv.gpt2_megabatch_verify,
+           (False, True): mbv.gpt2_megabatch_verify_plain,
+           (True, False): mbv.gpt2_megabatch_verify_quant,
+           (True, True): mbv.gpt2_megabatch_verify_quant_plain}
+    if llama:
+        fns = {(False, False): mbv.llama_megabatch_verify,
+               (False, True): mbv.llama_megabatch_verify_plain,
+               (True, False): mbv.llama_megabatch_verify_quant,
+               (True, True): mbv.llama_megabatch_verify_quant_plain}
+    lengths = [VERIFY_LENGTHS[b % len(VERIFY_LENGTHS)] for b in range(n_slots)]
+    dev_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    reports = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = params_for(dtype)
+        packed = pack(params, cfg)
+        for i, mode in enumerate(MODES):
+            quant = mode != "fp"
+            kw = {"kv_mode": mode} if quant else {}
+            entry = {"max_abs_err": 0.0}
+            for R in (2, 8):
+                g = torch.Generator().manual_seed(500 + 10 * R + i)
+                ids = torch.randint(0, cfg.vocab_size, (n_slots * R,), generator=g)
+                ids = ids.to(torch.int32).cuda()
+                t0 = time.perf_counter()
+                state = _verify_state(mode, dtype, 600 + 10 * R + i, cfg.n_layer, n_slots, W)
+                got = [t.clone() for t in state]
+                want = [t.clone() for t in state]
+
+                def kernel():
+                    return fns[(quant, False)](packed, *got, dev_len, ids, cfg=cfg, **kw)
+
+                def plain_fn():
+                    return fns[(quant, True)](packed, *want, lengths, ids, cfg=cfg,
+                                              return_logits=True, **kw)
+
+                toks = kernel()[0]
+                # quantized panes are held row by row (the plain verify runs
+                # on its own earlier rows): the plain pass only for its time
+                logits = None if quant else plain_fn()[-1]
+                torch.cuda.synchronize()
+                if quant:
+                    err, short = _teacher_forced_rows(mode, dtype, packed, cfg, family, state,
+                                                      got, toks, ids, lengths, names[1])
+                else:
+                    err, short = 0.0, 0.0
+                    for b, cur in enumerate(lengths):
+                        for t in range(R):
+                            tok, lg = int(toks[b, t]), logits[b, t]
+                            short = max(short, float(lg.max() - lg[tok]))
+                            if not _token_ok(tok, lg, dtype,
+                                             bf16_tol=LLAMA_VERIFY_BF16_TOL if llama else None):
+                                raise AssertionError(
+                                    f"{names[0]} {dtype} R={R} slot {b} (length {cur}) row "
+                                    f"{t}: token {tok}, plain argmax {int(lg.argmax())}")
+                        slot = [[x[:, b] for x in v] for v in (got, want, state)]
+                        err = max(err, _rows_err(names[0], dtype, *slot,
+                                                 torch.arange(cur, cur + R, device="cuda"),
+                                                 deep_bf16=llama))
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                line = (f"  {names[quant]} {mode} {str(dtype)[6:]} B={n_slots} R={R} "
+                        f"C={SERVER_C} lengths {lengths[:5]} (repeated): tokens "
+                        f"{toks[:2].tolist()}, new rows max|kernel-plain| {err:.2e}, tokens "
+                        f"at most {short:.4f} under the plain maximum logit (checked in "
+                        f"{time.perf_counter() - t0:.1f} s)")
+                if dtype == torch.bfloat16 and R == 8:
+                    bnd, by = _verify_batch_bound(mode, dtype, cfg, family, lengths, R)
+                    entry.update({
+                        "ms": device_ms(kernel, calls=5),
+                        "plain_ms": device_ms(plain_fn, calls=1, replays=1),
+                        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                    })
+                    line += (f"; device ms kernel {entry['ms']:.5f}, plain "
+                             f"{entry['plain_ms']:.5f}, bound {bnd:.5f} ({by}); per row "
+                             f"{entry['ms'] / (n_slots * R):.5f}")
+                log(line)
+            reports[(mode, dtype)] = entry
+        del params, packed
+    return _mega_reports(reports, *names)
 
 
 DRAFT_C = 208  # the draft main path's capacity: roundup8(128 + 64 + 4 + 1) + 8
@@ -996,9 +1259,14 @@ def _prompts(n: int, seed: int):
 def counters():
     from efficient_llm_inference_tpu_torch.ops import (
         attention, megakernel, megakernel_batch, megakernel_batch_quant,
-        megakernel_draft, megakernel_llama, megakernel_quant, quantize)
+        megakernel_batch_verify, megakernel_draft, megakernel_llama, megakernel_quant,
+        quantize)
 
     return {
+        "gpt2_megabatch_verify": megakernel_batch_verify.gpt2_megabatch_verify,
+        "gpt2_megabatch_verify_quant": megakernel_batch_verify.gpt2_megabatch_verify_quant,
+        "llama_megabatch_verify": megakernel_batch_verify.llama_megabatch_verify,
+        "llama_megabatch_verify_quant": megakernel_batch_verify.llama_megabatch_verify_quant,
         "gpt2_megaverify": megakernel.gpt2_megaverify,
         "llama_megaverify": megakernel_llama.llama_megaverify,
         "gpt2_draft_burst": megakernel_draft.gpt2_draft_burst,
@@ -1286,6 +1554,131 @@ def phase_spec_draft_main_path(launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
+SERVER_WORDS = ["weather", "mountain", "river", "engine", "tensor", "kernel", "stream",
+                "window", "matrix", "garden"]
+
+
+def _server_prompts(tokenizer, n: int) -> list:
+    """The server protocol's prompts (scripts/measure_megaserver.py:101-129):
+    "Question i: " and 6-10 words of its list, default_rng(0), byte
+    tokens."""
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        words = max(3, 8 + int(rng.integers(-2, 3)))
+        out.append(tokenizer.encode(f"Question {i}: " + " ".join(rng.choice(SERVER_WORDS,
+                                                                             words))))
+    return out
+
+
+def _server(eng, n_slots, kv, spec, capacity=SERVER_C):
+    """A MegaBatchServer over the engine's model and weights (its pools on
+    the card in the weights' dtype), chunks of 32 steps, k = SPEC_K."""
+    from efficient_llm_inference_tpu_torch import MegaBatchServer, MegaPoolConfig
+
+    return MegaBatchServer(eng.model, eng.params,
+                           pool=MegaPoolConfig(n_slots=n_slots, capacity=capacity,
+                                               max_chunk=32),
+                           kv_mode=kv, spec=spec, spec_k=SPEC_K)
+
+
+def _serve(srv, prompts):
+    """One run of the server over one request a prompt of NEW_TOKENS;
+    returns (requests, wall s, steps or rounds dispatched)."""
+    from efficient_llm_inference_tpu_torch import Request
+
+    reqs = [Request(rid=i, prompt_ids=list(p), max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    steps = [0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.run(reqs, progress=lambda n, _: steps.append(n))
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, steps[-1]
+
+
+def phase_server_main_path(launches: dict, name: str, eng, n_slots: int,
+                           n_requests: int) -> None:
+    """MegaBatchServer.run on the engine's model and weights as a user makes
+    them (bf16 on the card): the server protocol (n_requests requests of
+    "Question i: " + 6-10 words, NEW_TOKENS new tokens each, n_slots slots
+    of C = SERVER_C, chunks of 32 steps), plain and spec="ngram" (k = 8),
+    pools in bf16 and int8. A first run builds the chunks' CUDA graphs (and
+    warms the acceptance estimate, which a server keeps across runs); the
+    launch counters are zeroed just before and read just after a second run
+    of the same server over fresh requests: plain, the batched chain launches once a step
+    dispatched; spec, the batched verify once a round dispatched; no other
+    kernel of the port runs (the prefill is dense). Aggregate tokens/s =
+    requests x NEW_TOKENS over the second run's wall."""
+    family = eng.model.name
+    assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
+    prompts = _server_prompts(eng.tokenizer, n_requests)
+    tps = {}
+    for spec in (None, "ngram"):
+        for kv in (None, "int8"):
+            srv = _server(eng, n_slots, kv, spec)
+            _serve(srv, prompts)  # builds and captures
+            (reqs, wall, steps), got = _counted(launches, lambda: _serve(srv, prompts))
+            kernel = f"{family}_mega{'batch_verify' if spec else 'batch'}"
+            want = {k: 0 for k in counters()}
+            want[kernel + ("_quant" if kv else "")] = steps
+            if got != want or steps == 0:
+                raise AssertionError(f"{name} server spec={spec} kv_mode={kv}: launches "
+                                     f"{got}, expected {want}")
+            assert all(r.done and len(r.out_ids) == NEW_TOKENS for r in reqs)
+            assert all(0 <= t < eng.model.vocab_size for r in reqs for t in r.out_ids)
+            tps[(spec, kv)] = n_requests * NEW_TOKENS / wall
+            stats = srv.spec_stats
+            extra = (f", {stats['tokens'] / max(stats['rounds'], 1):.3f} tokens a round "
+                     f"({stats['tokens']} in {stats['rounds']} slot-rounds), final R "
+                     f"{srv._spec_R}" if spec else "")
+            log(f"  {name} MegaBatchServer spec={spec} kv_mode={kv} {n_slots} slots C="
+                f"{SERVER_C}: {tps[(spec, kv)]:.1f} tokens/s aggregate ({n_requests} x "
+                f"{NEW_TOKENS} new tokens, wall {wall * 1e3:.2f} ms, {steps} "
+                f"{'rounds' if spec else 'steps'} dispatched){extra}; launches "
+                f"{json.dumps({k: v for k, v in got.items() if v})}; request 0 first "
+                f"tokens {reqs[0].out_ids[:8]}")
+    for kv in (None, "int8"):
+        log(f"  {name} MegaBatchServer kv_mode={kv}: spec {tps[('ngram', kv)]:.1f} "
+            f"against plain {tps[(None, kv)]:.1f} tokens/s "
+            f"({tps[('ngram', kv)] / tps[(None, kv)]:.2f}x)")
+
+
+def phase_server_fp32_hold(eng) -> None:
+    """GPT-2 small in fp32 on the card, 16 slots of C = 256 (every request
+    fits the pane): each request of the plain and the spec="ngram" server
+    equals the single-stream megakernel greedy ids of its prompt
+    (generate_ids full_cache) up to the first step whose top-2 logit gap
+    (megakernel-off logits, teacher-forced) is under 1e-4."""
+    assert eng.config.dtype == torch.float32
+    prompts = _server_prompts(eng.tokenizer, 32)
+    text = [eng.tokenizer.decode(p) for p in prompts]
+    for spec in (None, "ngram"):
+        reqs, _, _ = _serve(_server(eng, 16, None, spec, capacity=256), prompts)
+        equal, cut = 0, []
+        for p, req in zip(text, reqs):
+            want = eng.generate_ids(p, "full_cache", NEW_TOKENS)
+            assert want[:len(req.prompt_ids)] == req.prompt_ids
+            row = req.prompt_ids + req.out_ids
+            if row == want:
+                equal += 1
+                continue
+            _, logits = eng.generate_logits(p, "full_cache", NEW_TOKENS,
+                                            forced=want[-NEW_TOKENS:])
+            top2 = logits.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+            first = int((~clear).nonzero()[0]) if not bool(clear.all()) else NEW_TOKENS
+            n = len(req.prompt_ids) + first
+            if row[:n] != want[:n]:
+                raise AssertionError(f"fp32 server spec={spec}: request {req.rid} differs "
+                                     f"from generate_ids before its first unclear step "
+                                     f"{first}")
+            cut.append(first)
+        log(f"  fp32 MegaBatchServer gpt2 spec={spec}: {equal} of {len(reqs)} requests "
+            f"equal the single-stream megakernel tokens; the rest equal up to a step with "
+            f"a top-2 gap under 1e-4 (at {cut})")
+
+
 def _hold_spec(eng, name: str, runs) -> None:
     """fp32: each speculative generation's ids equal the megakernel greedy
     ids (generate_ids full_cache) up to the first step whose top-2 logit gap
@@ -1452,7 +1845,8 @@ def main() -> int:
 
     gpt2_cfg = gpt2_mod.GPT2Config.small()
     reports.update(check_megabatches("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
-        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda")))
+        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"),
+        wide={"fp": (16, 32), "quant": (16,)}))
     log(f"phase batch kernels, gpt2: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1468,7 +1862,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports.update(check_megabatches("llama", llama.model.config,
-                                     lambda dtype: _cast_params(llama.params, dtype)))
+                                     lambda dtype: _cast_params(llama.params, dtype),
+                                     wide={"fp": (16,), "quant": (16,)}))
     log(f"phase batch kernels, llama: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1478,6 +1873,14 @@ def main() -> int:
                                     lambda dtype: _cast_params(llama.params, dtype)))
     reports.update(check_draft_bursts())
     log(f"phase speculation kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reports.update(check_megabatch_verify(
+        "gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
+            torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"), 16))
+    reports.update(check_megabatch_verify("llama", llama.model.config,
+                                          lambda dtype: _cast_params(llama.params, dtype), 8))
+    log(f"phase batched verify kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches: dict = {}
@@ -1499,9 +1902,14 @@ def main() -> int:
     prompts = _prompts(N_PROMPTS, SEED)
     phase_spec_main_path(launches, "gpt2", gpt2, prompts)
     phase_spec_main_path(launches, "llama-3-1b", llama, prompts)
-    del gpt2
     phase_spec_draft_main_path(launches)
     log(f"phase speculation main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_server_main_path(launches, "gpt2", gpt2, n_slots=16, n_requests=32)
+    phase_server_main_path(launches, "llama-3-1b", llama, n_slots=8, n_requests=16)
+    del gpt2
+    log(f"phase server main path: {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main path")
@@ -1513,6 +1921,7 @@ def main() -> int:
     phase_fp32_mega_hold(gpt2_32)
     phase_batch_fp32_hold(gpt2_32)
     phase_spec_fp32_hold(gpt2_32)
+    phase_server_fp32_hold(gpt2_32)
     del gpt2_32
     for family, (cfg, dcfg) in _scale_pairs().items():
         eng32, draft32 = _scale_engine(family, cfg, dcfg, torch.float32)
@@ -1577,6 +1986,18 @@ def main() -> int:
         "llama_draft_burst": (
             "efficient_llm_inference_tpu_torch/csrc/draft_burst.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_draft.py:290"),
+        "gpt2_megabatch_verify": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch_verify.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py:118"),
+        "gpt2_megabatch_verify_quant": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch_verify.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py:591"),
+        "llama_megabatch_verify": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch_verify.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py:1177"),
+        "llama_megabatch_verify_quant": (
+            "efficient_llm_inference_tpu_torch/csrc/megabatch_verify.cu",
+            "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py:1758"),
     }
     kernels = []
     for name, (source, replaces) in where.items():

@@ -7,3 +7,5 @@ __version__ = "0.1.0"
 
 from .core.config import Config  # noqa: F401
 from .engine.engine import InferenceEngine  # noqa: F401
+from .engine.batching import Request  # noqa: F401
+from .engine.megaserver import MegaBatchServer, MegaPoolConfig  # noqa: F401

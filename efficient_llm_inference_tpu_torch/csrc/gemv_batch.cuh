@@ -1,8 +1,9 @@
 // The batched GEMV shared by the chains that apply every weight row to
 // several input rows at once: the static-batch steps of megabatch.cu (B
-// slots) and the speculative verify passes of megaverify.cu (R verify rows of
-// one sequence). Included after megastep_common.cuh, whose prologues and
-// epilogues it reuses; like it, each including source gets its own copy
+// slots), the speculative verify passes of megaverify.cu (R verify rows of
+// one sequence) and the batched verify passes of megabatch_verify.cu (R rows
+// of each of B slots). Included after megastep_common.cuh, whose prologues
+// and epilogues it reuses; like it, each including source gets its own copy
 // (anonymous namespace).
 
 #pragma once
@@ -13,7 +14,8 @@
 
 namespace {
 
-constexpr int kMaxBatch = 8;
+constexpr int kMaxRows = 128;  // input rows of one batched GEMV
+constexpr int kGroup = 8;      // input rows of one gemv_batch_kernel launch
 
 #define RETURN_IF(rc_expr)          \
   do {                              \
@@ -23,17 +25,21 @@ constexpr int kMaxBatch = 8;
 
 // ----------------------------------------------------------- batched GEMV
 //
-// y[b, row] = sum_k in[b, k] * W[row, k] for the B rows of in [B, K] over a
-// row-major [N, K] weight, with the single-stream gemv_kernel's prologues and
-// epilogues. A block stages the B input rows (norm applied, rounded to T) in
-// shared memory, then walks its row groups: KS warps split a row's K, and
-// each warp streams RW rows at once (RW independent 16-byte loads in flight a
-// lane), applying every weight chunk to the B staged rows from registers.
-// The input is staged once per block when B x K values fit kStageMax bytes
-// (the grid is then at most the resident blocks, so a block serves many row
-// groups); otherwise in K-chunks, one row group per block. Outputs are
-// [B, N] ([B, N/2] for SwiGLU); the argmax partials of slot b go to
-// part_val[b * gridDim.x + blockIdx.x].
+// y[b, row] = sum_k in[b, k] * W[row, k] for the B <= kMaxRows rows of
+// in [B, K] over a row-major [N, K] weight, with the single-stream
+// gemv_kernel's prologues and epilogues. One launch of gemv_batch_kernel
+// takes up to kGroup = 8 input rows: a block stages them (norm applied,
+// rounded to T) in shared memory, then walks its row groups: KS warps split
+// a row's K, and each warp streams RW rows at once (RW independent 16-byte
+// loads in flight a lane), applying every weight chunk to the staged rows
+// from registers (RW x 8 fp32 accumulators a lane). Past 8 input rows the
+// host launches it once per group of 8 rows, each launch streaming the
+// weights again (a row's sums do not depend on its group). The input is
+// staged once per block when 8 x K values fit kStageMax bytes (the grid is
+// then at most the resident blocks, so a block serves many row groups);
+// otherwise in K-chunks, one row group per block. Outputs are [B, N]
+// ([B, N/2] for SwiGLU); the argmax partials of input row b go to
+// part_val[b * grid + blockIdx.x], one grid for every group.
 
 constexpr int kStageMax = 200 * 1024;  // dynamic shared memory for staged inputs
 
@@ -62,8 +68,8 @@ gemv_batch_kernel(const T* __restrict__ W, int N, int K, int B, int KC,
   static_assert(EPI != EPI_SWIGLU || RPB % 2 == 0, "SwiGLU pairs rows within a pass");
   extern __shared__ __align__(16) unsigned char stage_raw[];
   T* h = reinterpret_cast<T*>(stage_raw);  // [B, KC]
-  __shared__ float part[kWarps][RW][kMaxBatch];
-  __shared__ float stat[2][kMaxBatch];
+  __shared__ float part[kWarps][RW][kGroup];
+  __shared__ float stat[2][kGroup];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r = warp / KS, ks = warp % KS;
   const int n_kc = (K + KC - 1) / KC;
@@ -141,13 +147,13 @@ gemv_batch_kernel(const T* __restrict__ W, int N, int K, int B, int KC,
     }
   };
 
-  float acc[RW][kMaxBatch];
+  float acc[RW][kGroup];
   auto apply = [&](const uint4 (&u)[RW], int cl) {  // chunk cl (VN values) of the stage
     float w[RW][VN];
 #pragma unroll
     for (int i = 0; i < RW; ++i) unpack16(u[i], w[i]);
 #pragma unroll
-    for (int b = 0; b < kMaxBatch; ++b) {
+    for (int b = 0; b < kGroup; ++b) {
       if (b < B) {
         float hv[VN];
         unpack16(*reinterpret_cast<const uint4*>(h + (size_t)b * KC + cl * VN), hv);
@@ -174,7 +180,7 @@ gemv_batch_kernel(const T* __restrict__ W, int N, int K, int B, int KC,
 #pragma unroll
     for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int b = 0; b < kMaxBatch; ++b) acc[i][b] = 0.0f;
+      for (int b = 0; b < kGroup; ++b) acc[i][b] = 0.0f;
     for (int kc = 0; kc < n_kc; ++kc) {
       if (kc != staged) {  // uniform over the block
         __syncthreads();
@@ -214,7 +220,7 @@ gemv_batch_kernel(const T* __restrict__ W, int N, int K, int B, int KC,
 #pragma unroll
     for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int b = 0; b < kMaxBatch; ++b) {
+      for (int b = 0; b < kGroup; ++b) {
         if (b < B) {
           const float v = warp_sum(acc[i][b]);
           if (lane == 0) part[warp][i][b] = v;
@@ -251,8 +257,8 @@ gemv_batch_kernel(const T* __restrict__ W, int N, int K, int B, int KC,
     __syncthreads();  // part[] is rewritten by the next pass
   }
   if (EPI == EPI_ARGMAX) {
-    __shared__ float bv[kMaxBatch][RPB];
-    __shared__ int bi[kMaxBatch][RPB];
+    __shared__ float bv[kGroup][RPB];
+    __shared__ int bi[kGroup][RPB];
     if (threadIdx.x < RPB * B) {
       bv[threadIdx.x / RPB][threadIdx.x % RPB] = best;
       bi[threadIdx.x / RPB][threadIdx.x % RPB] = best_idx;
@@ -281,20 +287,23 @@ int sm_count() {
   return n;
 }
 
-// One batched GEMV. RW = 4 (or 2) rows a warp where that still leaves a row
-// group for every SM, else 1. Whole-K staging when it fits kStageMax: at most two
-// resident blocks an SM (or `max_grid`), each serving many row groups;
-// K-chunked: one row group a block. The grid used is stored in *grid_used.
+// One batched GEMV, launched once per group of 8 input rows. RW = 4 (or 2)
+// rows a warp where that still leaves a row group for every SM, else 1.
+// Whole-K staging when a full group fits kStageMax: at most two resident
+// blocks an SM (or `max_grid`), each serving many row groups; K-chunked:
+// one row group a block. Every group runs the same chunking and grid, which
+// is stored in *grid_used.
 template <typename T, int PRO, int EPI, int KS, int RW>
 int gemv_batch_rw(const T* W, int N, int K, int B, const T* in, const float* g,
                   const float* beta, float eps, const float* bias, T* out, float* pv, int* pi,
                   int max_grid, int* grid_used, cudaStream_t st) {
   constexpr int RPB = kWarps / KS * RW;
   const size_t item = sizeof(T);
+  const int G = std::min(B, kGroup);
   int KC = K;
-  if ((size_t)B * K * item > (size_t)kStageMax)
-    KC = (int)(kStageMax / (B * item)) / 256 * 256;
-  const size_t smem = (size_t)B * KC * item;
+  if ((size_t)G * K * item > (size_t)kStageMax)
+    KC = (int)(kStageMax / (G * item)) / 256 * 256;
+  const size_t smem = (size_t)G * KC * item;
   auto kernel = gemv_batch_kernel<T, PRO, EPI, KS, RW>;
   if (smem > 32 * 1024)  // above 48 KB with the static shared memory: opt in
     RETURN_IF((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -306,8 +315,16 @@ int gemv_batch_rw(const T* W, int N, int K, int B, const T* in, const float* g,
   }
   if (max_grid > 0) grid = std::min(grid, max_grid);
   if (grid_used != nullptr) *grid_used = grid;
-  kernel<<<grid, kThreads, smem, st>>>(W, N, K, B, KC, in, g, beta, eps, bias, out, pv, pi);
-  LAUNCH_CHECK();
+  const size_t n_out = EPI == EPI_SWIGLU ? N / 2 : N;
+  const bool lm = pv != nullptr;
+  for (int b0 = 0; b0 < B; b0 += kGroup) {
+    kernel<<<grid, kThreads, smem, st>>>(W, N, K, std::min(kGroup, B - b0), KC,
+                                         in + (size_t)b0 * K, g, beta, eps, bias,
+                                         out ? out + b0 * n_out : nullptr,
+                                         lm ? pv + (size_t)b0 * grid : nullptr,
+                                         lm ? pi + (size_t)b0 * grid : nullptr);
+    LAUNCH_CHECK();
+  }
   return 0;
 }
 

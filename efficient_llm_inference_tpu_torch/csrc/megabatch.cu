@@ -1,4 +1,4 @@
-// One decode step of B independent streams (greedy, 1 <= B <= 8) as a fixed
+// One decode step of B independent streams (greedy, 1 <= B <= 32) as a fixed
 // chain of kernels, for GPT-2 and for Llama/Qwen.
 //
 // Replaces efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:
@@ -36,11 +36,14 @@
 // rounded to T, or activations already in T) with 16-byte loads, once for
 // all its rows when they fit (up to 200 KB, opted into; Llama-3.2-1B's down-projection at B = 8
 // in bf16 takes 128 KB), and each warp streams RW = 1 or 4 weight rows with
-// 16-byte non-caching loads, applying every chunk to the B staged rows (B x
-// RW fp32 accumulators a lane). The norm statistics are computed by warp b
-// for slot b in every block that consumes them. Left for later: tensor cores
-// (mma/wgmma over the B rows; at B = 8 the step stays byte-bound), and the
-// single-stream chain's open items (launch gaps, attention split).
+// 16-byte non-caching loads, applying every chunk to the staged rows (B x RW
+// fp32 accumulators a lane). Above 8 slots each GEMV is launched once per
+// group of 8 slots, streaming the weights again. The norm statistics are
+// computed by warp b for slot b of the group in every block that consumes
+// them. Left for later: tensor cores (mma/wgmma over the B rows: at B = 8
+// the step stays byte-bound, at 16-32 slots they would read the weights
+// once), and the single-stream chain's open items (launch gaps, attention
+// split).
 //
 // Numerics: per slot, the single-stream chains' rounding points
 // (megastep_common.cuh); the fp32 sums of the norm statistics and of a row
@@ -55,6 +58,10 @@
 // [B, width], lm_val/lm_idx [B, lm_blocks].
 
 #include "gemv_batch.cuh"
+
+namespace {
+constexpr int kMaxSlots = 32;  // the largest batch: the JAX server's largest admission wave
+}  // namespace
 
 // Mirrored by ops/megakernel_batch.py's GPT2BatchArgs (ctypes).
 struct Gpt2BatchArgs {
@@ -123,12 +130,6 @@ namespace {
 
 // -------------------------------------------------------------- attention
 
-// What separates slot b from slot 0 in one layer's tensors.
-struct SlotStrides {
-  size_t k_bytes, v_bytes;  // one slot's [C, W] pane
-  int qkv, out, scales;     // elements of q|k|v, of the output, of a scale row (C)
-};
-
 template <typename T, int KK, int VK, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_batch_kernel(AttnParams p, const SlotStrides s) {
@@ -169,19 +170,6 @@ int attention_batch(const AttnParams& p, const SlotStrides& s, int B, int k_kind
   if (k_kind == 4 && v_kind == 4) return launch_attention_batch<T, 4, 4>(p, s, B, head_dim, st);
   if (k_kind == 8 && v_kind == 4) return launch_attention_batch<T, 8, 4>(p, s, B, head_dim, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// Layer l's attention parameters over [L, B, C, W] panes and [L, B, C] scales.
-template <typename T>
-void layer_panes(AttnParams& p, SlotStrides& s, void* k, void* v, float* ks, float* vs,
-                 int k_kind, int v_kind, int l, int B, int C, int W) {
-  p.k = static_cast<char*>(k) + pane_offset(k_kind, sizeof(T), l, B * C, W);
-  p.v = static_cast<char*>(v) + pane_offset(v_kind, sizeof(T), l, B * C, W);
-  p.ks = ks ? ks + (size_t)l * B * C : nullptr;
-  p.vs = vs ? vs + (size_t)l * B * C : nullptr;
-  s.k_bytes = pane_offset(k_kind, sizeof(T), 1, C, W);
-  s.v_bytes = pane_offset(v_kind, sizeof(T), 1, C, W);
-  s.scales = C;
 }
 
 // ------------------------------------------------------ embedding, argmax
@@ -349,7 +337,7 @@ int run_gpt2(const Gpt2BatchArgs* a, void* stream, bool quant) {
   const bool q = a->k_kind != 0 || a->v_kind != 0;
   const int E = a->n_embd, H = a->n_head;
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
-  if (q != quant || a->batch < 1 || a->batch > kMaxBatch || H <= 0 || E % H || E % 128 ||
+  if (q != quant || a->batch < 1 || a->batch > kMaxSlots || H <= 0 || E % H || E % 128 ||
       a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
       (q && (!a->ks || !a->vs)) || (int4 && (E / 2) % (E / H)))
     return (int)cudaErrorInvalidValue;
@@ -365,7 +353,7 @@ int run_llama(const LlamaBatchArgs* a, void* stream, bool quant) {
   const int D = a->head_dim, Hq = a->n_head, Hkv = a->n_kv_head;
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
   // 16-byte weight rows need widths that are multiples of 8 values
-  if (q != quant || a->batch < 1 || a->batch > kMaxBatch || (D != 64 && D != 128) ||
+  if (q != quant || a->batch < 1 || a->batch > kMaxSlots || (D != 64 && D != 128) ||
       Hkv <= 0 || Hq % Hkv || a->n_embd % 8 || a->inter % 8 || a->capacity <= 0 ||
       a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 || !a->cos || !a->sin ||
       (q && (!a->ks || !a->vs)) || (int4 && (Hkv * D / 2) % D))

@@ -1,8 +1,10 @@
 // Device code shared by the whole-step decode chains (gpt2_megastep.cu,
-// llama_megastep.cu, and the batched chains of megabatch.cu): conversions,
-// 16-byte weight streaming, block reductions, the GEMV kernel with its norm
-// prologues and fused epilogues, decode attention over fp / int8 / half-split
-// int4 panes with quantize-on-write, and the final argmax. Each including
+// llama_megastep.cu, and the batched and verify chains of megabatch.cu,
+// megaverify.cu and megabatch_verify.cu): conversions, 16-byte weight
+// streaming, block reductions, the GEMV kernel with its norm prologues and
+// fused epilogues, decode attention over fp / int8 / half-split int4 panes
+// with quantize-on-write, the final argmax, and the slot strides of batched
+// [L, B, C, W] panes. Each including
 // source gets its own copy (anonymous namespace); the host sides stay in the
 // sources.
 //
@@ -614,6 +616,27 @@ int attention(const AttnParams& p, int k_kind, int v_kind, int head_dim, cudaStr
 size_t pane_offset(int kind, size_t item, int layer, int C, int W) {
   const size_t row = kind == 0 ? item * W : (kind == 8 ? W : W / 2);
   return (size_t)layer * C * row;
+}
+
+// ------------------------------------------------ batched [L, B, C, W] panes
+
+// What separates slot b from slot 0 in one layer's tensors.
+struct SlotStrides {
+  size_t k_bytes, v_bytes;  // one slot's [C, W] pane
+  int qkv, out, scales;     // elements of q|k|v, of the output, of a scale row (C)
+};
+
+// Layer l's attention parameters over [L, B, C, W] panes and [L, B, C] scales.
+template <typename T>
+void layer_panes(AttnParams& p, SlotStrides& s, void* k, void* v, float* ks, float* vs,
+                 int k_kind, int v_kind, int l, int B, int C, int W) {
+  p.k = static_cast<char*>(k) + pane_offset(k_kind, sizeof(T), l, B * C, W);
+  p.v = static_cast<char*>(v) + pane_offset(v_kind, sizeof(T), l, B * C, W);
+  p.ks = ks ? ks + (size_t)l * B * C : nullptr;
+  p.vs = vs ? vs + (size_t)l * B * C : nullptr;
+  s.k_bytes = pane_offset(k_kind, sizeof(T), 1, C, W);
+  s.v_bytes = pane_offset(v_kind, sizeof(T), 1, C, W);
+  s.scales = C;
 }
 
 }  // namespace

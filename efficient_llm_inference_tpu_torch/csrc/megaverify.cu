@@ -55,6 +55,10 @@
 
 #include "gemv_batch.cuh"
 
+namespace {
+constexpr int kMaxVerifyRows = 8;  // the JAX verify kernels' largest R
+}  // namespace
+
 // Mirrored by ops/megakernel.py's GPT2VerifyArgs (ctypes).
 struct Gpt2VerifyArgs {
   int rows;
@@ -328,7 +332,7 @@ int llama_verify(const LlamaVerifyArgs& a, cudaStream_t st) {
 int run_gpt2(const Gpt2VerifyArgs* a, void* stream) {
   if (a == nullptr) return (int)cudaErrorInvalidValue;
   const int E = a->n_embd, H = a->n_head;
-  if (a->k_kind != 0 || a->v_kind != 0 || a->rows < 1 || a->rows > kMaxBatch || H <= 0 ||
+  if (a->k_kind != 0 || a->v_kind != 0 || a->rows < 1 || a->rows > kMaxVerifyRows || H <= 0 ||
       E % H || E % 128 || a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -341,7 +345,7 @@ int run_llama(const LlamaVerifyArgs* a, void* stream) {
   if (a == nullptr) return (int)cudaErrorInvalidValue;
   const int D = a->head_dim, Hq = a->n_head, Hkv = a->n_kv_head;
   // 16-byte weight rows need widths that are multiples of 8 values
-  if (a->k_kind != 0 || a->v_kind != 0 || a->rows < 1 || a->rows > kMaxBatch ||
+  if (a->k_kind != 0 || a->v_kind != 0 || a->rows < 1 || a->rows > kMaxVerifyRows ||
       (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || a->n_embd % 8 || a->inter % 8 ||
       a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 ||
       !a->cos || !a->sin)

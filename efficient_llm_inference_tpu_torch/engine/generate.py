@@ -242,6 +242,23 @@ def _mega_decode(model: ModelSpec, max_new_tokens: int, mega: dict):
     return decode
 
 
+def prefill_batch(model: ModelSpec, strategy, params: dict, tokens: torch.Tensor,
+                  lens: torch.Tensor):
+    """One right-padded batched prefill: tokens [B, Tpad] with per-row
+    lengths lens (int64 [B], on the tokens' device) through one forward pass
+    with a per-row `seq_mask` into `strategy` (a DenseKV of batch B).
+    Returns (cache, each row's first token: the argmax of its logits at
+    lens[b] - 1, clamped to [0, V-1], int32 [B])."""
+    B, Tpad = tokens.shape
+    dev = tokens.device
+    idx = torch.arange(Tpad, device=dev)
+    pos = torch.clamp(idx, max=model.n_positions - 1).expand(B, Tpad)
+    seq_mask = idx[None, :] < lens[:, None]
+    logits, cache = model.forward(params, tokens, pos, strategy.init(), strategy, seq_mask)
+    last = logits[torch.arange(B, device=dev), lens - 1]  # [B, V]
+    return cache, torch.argmax(last, dim=-1).clamp(0, model.vocab_size - 1).to(torch.int32)
+
+
 # Per model kind: the batched step's launcher and its fp and quantized-pane
 # wrappers (each counts its launches; on the CPU each runs its plain version).
 _BATCH_STEPS = {
@@ -286,16 +303,9 @@ def make_generate_batch(model: ModelSpec, strategy, max_new_tokens: int,
 
     def generate(params, tokens: torch.Tensor, true_lens):
         nonlocal graph
-        B, Tpad = tokens.shape
         dev = tokens.device
         lens = torch.as_tensor(true_lens, dtype=torch.long).to(dev)
-        cache = strategy.init()
-        idx = torch.arange(Tpad, device=dev)
-        pos = torch.clamp(idx, max=P - 1).expand(B, Tpad)
-        seq_mask = idx[None, :] < lens[:, None]
-        logits, cache = model.forward(params, tokens, pos, cache, strategy, seq_mask)
-        last = logits[torch.arange(B, device=dev), lens - 1]  # [B, V]
-        tok0 = torch.argmax(last, dim=-1).clamp(0, V - 1).to(torch.int32)
+        cache, tok0 = prefill_batch(model, strategy, params, tokens, lens)
         kb, vb = to_mega_layout_batch(cache["k"]), to_mega_layout_batch(cache["v"])
         if kv_mode:
             panes = dict(zip(("k", "v", "ks", "vs"),

@@ -162,7 +162,7 @@ class _Ngram:
     """Prompt-lookup proposals over the static sequence buffer."""
 
     capturable = True
-    counters = ()
+    launcher = None
 
     def __init__(self, S: int, k: int, ngram: int, device):
         self.k, self.ngram = k, ngram
@@ -194,7 +194,7 @@ class _DraftPanes:
         self.strategy = d_strategy
         kind = _KINDS[dmega["kind"]]
         self.step_fn, self.burst_fn = kind.step, kind.burst
-        self.counters = (kind.burst,) if burst else (kind.step,) * k
+        self.counter = kind.burst if burst else kind.step
         W = draft.n_kv_head * draft.head_dim
         self.dk = torch.zeros(draft.n_layer, cap, W, dtype=dtype, device=device)
         self.dv = torch.zeros_like(self.dk)
@@ -247,7 +247,7 @@ class _DraftEager:
     length is a host integer: rounds with it are not captured)."""
 
     capturable = False
-    counters = ()
+    launcher = None
 
     def __init__(self, draft: ModelSpec, d_strategy, k: int):
         self.draft, self.strategy, self.k = draft, d_strategy, k
@@ -325,7 +325,7 @@ class _DenseTarget:
     length is a host integer: its rounds are not captured)."""
 
     capturable = False
-    counter = None
+    launcher = None
 
     def __init__(self, target: ModelSpec, strategy, k: int):
         self.target, self.strategy, self.k = target, strategy, k
@@ -373,15 +373,24 @@ class _SpecLoop:
         self.n_emitted += n_new
         self.n_rounds += 1
 
+    def _launchers(self) -> list:
+        """(launcher, wrapper) of each part that launches its kernel itself."""
+        return [(p.launcher, p.counter) for p in (self.target, self.proposer)
+                if p.launcher is not None]
+
     def _capture(self) -> None:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # first use of every op, outside the capture
             self.round()
         torch.cuda.current_stream().wait_stream(side)
+        before = [launcher.launched for launcher, _ in self._launchers()]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.round()
+        # the launches recorded into the graph: each replay launches them
+        self.per_replay = [(fn, launcher.launched - n) for (launcher, fn), n
+                           in zip(self._launchers(), before)]
 
     def run(self, t_params, d_params, tokens, true_len: int):
         captured = self.cuda and self.target.capturable and self.proposer.capturable
@@ -397,15 +406,18 @@ class _SpecLoop:
         n, self.host_syncs = 1, 0
         while n < self.n:
             rounds = -(-(self.n - n) // self.k)  # no round can overshoot
+            before = [launcher.launched for launcher, _ in self._launchers()]
             for _ in range(rounds):
                 if captured:
                     self.graph.replay()
                 else:
                     self.round()
-            if self.cuda:
-                for fn in (self.target.counter, *self.proposer.counters):
-                    if fn is not None:
-                        fn.launches += rounds
+            if captured:
+                for fn, per_replay in self.per_replay:
+                    fn.launches += per_replay * rounds
+            else:  # the parts' own launches, made eagerly
+                for (launcher, fn), b in zip(self._launchers(), before):
+                    fn.launches += launcher.launched - b
             n = int(self.n_emitted)
             self.host_syncs += 1
         return self.out.clone(), min(n, self.n), int(self.n_rounds)

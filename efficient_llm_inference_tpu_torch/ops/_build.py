@@ -23,7 +23,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("quantize_rows", "fused_quant_attention", "gpt2_megastep",
-           "llama_megastep", "megabatch", "megaverify", "draft_burst")
+           "llama_megastep", "megabatch", "megaverify", "megabatch_verify",
+           "draft_burst")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

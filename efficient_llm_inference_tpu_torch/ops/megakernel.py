@@ -346,6 +346,7 @@ class StepLauncher:
     args_type = MegaArgs
     batched = False
     max_rows = 1
+    launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         """(token rows B, lead dims of the panes, entries of `length`, the
@@ -429,6 +430,7 @@ class StepLauncher:
         rc = getattr(lib, name)(ctypes.byref(self.args),
                                 torch.cuda.current_stream(self.device).cuda_stream)
         _build.check(lib, rc, name)
+        self.launched += 1
 
 
 def _length_tensor(length, device) -> torch.Tensor:
@@ -469,8 +471,8 @@ gpt2_megastep.launches = 0
 # ---------------------------------------------------------------------------
 # The speculative verify pass: R rows of one sequence in one weight stream.
 
-# The verify chains' largest R (csrc/megaverify.cu shares the batched GEMV's
-# kMaxBatch), the JAX kernels' limit.
+# The verify chains' largest R (csrc/megaverify.cu and csrc/megabatch_verify.cu
+# kMaxVerifyRows), the JAX kernels' limit.
 MAX_VERIFY_ROWS = 8
 
 
@@ -629,8 +631,8 @@ class MegaDecodeGraph:
     i + 1) and `length` int32 [rows], which each step increments on the
     device; rows is 1 for the single-stream steps and the panes' B for a
     batched launcher (ops/megakernel_batch.py). `run` copies a generation's state in,
-    replays, and adds N to the wrapper's launch count (`counter.launches`):
-    each replay launches the step chain N times. `launcher` is the model's
+    replays, and adds to the wrapper's launch count (`counter.launches`)
+    the launches recorded into the graph (N: one a step). `launcher` is the model's
     step launcher (`StepLauncher` for GPT-2,
     ops.megakernel_llama.LlamaStepLauncher for the Llama family, or a
     batched one).
@@ -655,6 +657,7 @@ class MegaDecodeGraph:
             for i in range(n_steps):
                 self.step.set_tokens(self.toks[i], self.toks[i + 1])
                 self.step.launch()
+        self.per_replay = self.step.launched  # the launcher launched nothing before
 
     def run(self, tok0: torch.Tensor, length) -> torch.Tensor:
         """Decode N tokens from the panes' current contents; returns the
@@ -667,5 +670,5 @@ class MegaDecodeGraph:
         else:
             self.length.fill_(length)
         self.graph.replay()
-        self.counter.launches += self.n
+        self.counter.launches += self.per_replay
         return self.toks[:self.n]

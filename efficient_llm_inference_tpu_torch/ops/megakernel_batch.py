@@ -31,9 +31,10 @@ from . import _build
 from . import megakernel as mk
 from . import megakernel_llama as ml
 
-# The kernels' largest batch: B fp32 accumulators a lane in the GEMVs and a
-# B-row epilogue, and B rows staged per block (csrc/megabatch.cu kMaxBatch).
-MAX_BATCH = 8
+# The kernels' largest batch (csrc/megabatch.cu kMaxSlots): the JAX server's
+# largest admission wave. The batched GEMV takes up to 128 rows
+# (csrc/gemv_batch.cuh kMaxRows), launched in groups of 8.
+MAX_BATCH = 32
 
 
 def to_mega_layout_batch(buf: torch.Tensor) -> torch.Tensor:

@@ -188,6 +188,8 @@ class BurstLauncher:
     `tok_out` (int32 [steps]) receives the proposals. The caller advances
     the draft's length (the kernel leaves it as it is)."""
 
+    launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
+
     def __init__(self, dpk: dict, cfg, k, v, length, tok_in, tok_out, steps: int):
         family = _family(cfg)
         llama = family == "llama"
@@ -250,6 +252,7 @@ class BurstLauncher:
         rc = lib.elit_draft_burst(ctypes.byref(self.args),
                                   torch.cuda.current_stream(self.device).cuda_stream)
         _build.check(lib, rc, "elit_draft_burst")
+        self.launched += 1
 
 
 def _burst(counter, dpk, dk, dv, dlen, cur, cfg, k):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes on one GPU.
 
-    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...] [--batch B | --spec]
+    python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...]
+        [--batch B | --spec | --server [--spec]]
 
 A model of the registry at full width (GPT-2 small by default; random
 weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
@@ -37,6 +38,16 @@ verify kernel, replayed from a CUDA graph), beside full_cache; n_rounds,
 tokens_per_round, host_syncs (reads of the emitted count a generation) and
 round_ms = (wall_ms - the wall of a 1-token full_cache generation) /
 n_rounds, with the eight kernels with the most device time.
+
+With `--server` it profiles the continuous-batching server instead
+(`MegaBatchServer.run`, the server protocol of scripts/measure_megaserver.py:
+2 x slots requests of "Question i: " + 6-10 words, 64 new tokens each,
+slots = 16 (8 for Llama models) of C = 128, chunks of 32 steps), plain or,
+with `--spec`, spec="ngram" (k = 8), for pools in the model dtype and int8:
+wall_ms of one run of fresh requests (the server's CUDA graphs already
+captured), aggregate tokens_per_s, kernel_ms, idle_share, bursts (host
+reads), kernels_per_burst, the steps (plain) or rounds (spec) dispatched,
+and for spec the tokens a productive slot-round and the final verify width.
 
 If the profiler records no device activity, kernel_ms and idle_share are
 null ("not measured"). Imports nothing of JAX.
@@ -162,13 +173,73 @@ def profile_spec(model: str) -> None:
         }), flush=True)
 
 
+SERVER_WORDS = ["weather", "mountain", "river", "engine", "tensor", "kernel", "stream",
+                "window", "matrix", "garden"]
+
+
+def server_prompts(tokenizer, n: int) -> list:
+    """scripts/measure_megaserver.py's prompts: "Question i: " and 6-10 words
+    of its list, default_rng(0)."""
+    rng = np.random.default_rng(0)
+    return [tokenizer.encode(f"Question {i}: " + " ".join(
+        rng.choice(SERVER_WORDS, max(3, 8 + int(rng.integers(-2, 3)))))) for i in range(n)]
+
+
+def profile_server(model: str, spec: bool) -> None:
+    from efficient_llm_inference_tpu_torch import MegaBatchServer, MegaPoolConfig, Request
+
+    eng = InferenceEngine.from_model_name(model)
+    slots = 8 if model.startswith("llama") else 16
+    prompts = server_prompts(eng.tokenizer, 2 * slots)
+    for kv_mode in (None, "int8"):
+        srv = MegaBatchServer(eng.model, eng.params,
+                              pool=MegaPoolConfig(n_slots=slots, capacity=128, max_chunk=32),
+                              kv_mode=kv_mode, spec="ngram" if spec else None, spec_k=8)
+        bursts = []
+
+        def run():
+            reqs = [Request(rid=i, prompt_ids=list(p), max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            bursts.clear()
+            srv.run(reqs, progress=lambda n, _: bursts.append(n))  # reads every burst
+            torch.cuda.synchronize()
+            return reqs
+
+        run()  # build, load, capture
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kernel_ms, count, by_name = profiled(run)
+        wall = statistics.median(walls)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        stats = srv.spec_stats
+        print(json.dumps({
+            "model": model, "slots": slots, "requests": len(prompts), "kv_mode": kv_mode,
+            "spec": "ngram" if spec else None,
+            "wall_ms": wall, "wall_ms_runs": walls,
+            "tokens_per_s": len(prompts) * NEW_TOKENS / wall * 1e3,
+            "kernel_ms": kernel_ms,
+            "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
+            "bursts": len(bursts), "dispatched": bursts[-1],
+            "kernels_per_burst": count / len(bursts),
+            "tokens_per_round": (stats["tokens"] / stats["rounds"]) if spec else None,
+            "final_R": srv._spec_R if spec else None,
+            "top": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top],
+        }), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="gpt2", help="registry name")
     parser.add_argument("--batch", type=int, default=0,
                         help="profile generate_batch of this many prompts")
     parser.add_argument("--spec", action="store_true",
-                        help="profile generate_speculative (ngram, self_draft)")
+                        help="profile generate_speculative (ngram, self_draft); with "
+                             "--server, the server's spec=\"ngram\" mode")
+    parser.add_argument("--server", action="store_true",
+                        help="profile MegaBatchServer.run on the server protocol")
     args = parser.parse_args()
     model = args.model
     if not torch.cuda.is_available():
@@ -178,6 +249,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    if args.server:
+        profile_server(model, args.spec)
+        return 0
     if args.batch:
         profile_batch(model, args.batch)
         return 0

@@ -14,9 +14,13 @@ fp32: the token equal wherever the plain top-2 logit gap is at least 1e-4,
 new K/V rows within 1e-5 (of the row's largest value, at least 1e-5, for the
 Llama step; codes within one step, scales within 1e-5 relative, for
 quantized panes), every other row untouched. The batched whole-step kernels
-(#14-#17) likewise per slot, B in {1, 3, 8}, and in bf16 with chip_smoke.py's
-tolerances (a token within 2e-2 of the plain maximum logit, fp rows within
-1.6e-2 of their largest value, quantized rows within two steps).
+(#14-#17) likewise per slot, B in {1, 3, 8, 9, 16, 32} (past 8 slots the
+batched GEMVs launch once per group of 8 rows), and in bf16 with
+chip_smoke.py's tolerances (a token within 2e-2 of the plain maximum logit,
+fp rows within 1.6e-2 of their largest value, quantized rows within two
+steps). The batched verify kernels (#18-#21) likewise per slot and row, B in
+{1, 3, 16} x R in {2, 5, 8}, and the continuous-batching server on the card
+against the same server on the CPU, with its launch counts.
 """
 
 import dataclasses
@@ -25,7 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+from efficient_llm_inference_tpu_torch import (
+    Config,
+    InferenceEngine,
+    MegaBatchServer,
+    MegaPoolConfig,
+    Request,
+)
 from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
 from efficient_llm_inference_tpu_torch.models import llama as tllama
 from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
@@ -33,6 +43,7 @@ from efficient_llm_inference_tpu_torch.ops import attention as tattn
 from efficient_llm_inference_tpu_torch.ops import megakernel as tmk
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch as tmb
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as tmbq
+from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as tbv
 from efficient_llm_inference_tpu_torch.ops import megakernel_llama as tml
 from efficient_llm_inference_tpu_torch.ops import megakernel_quant as tmq
 from efficient_llm_inference_tpu_torch.ops import quantize as trows
@@ -429,7 +440,7 @@ def _batch_case(family, mode, dtype, B, device):
     return packed, cfg, [pane(k) for k in tmq._kv_kinds(mode)] + scales, x
 
 
-@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
 @pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "llama"])
@@ -441,7 +452,7 @@ def test_megabatch_matches_plain(cuda, family, mode, dtype, B):
     2e-2 of the maximum, fp rows within 1.6e-2 of the row's largest value,
     dequantized rows within two steps (chip_smoke.py's tolerances)."""
     packed, cfg, state, x = _batch_case(family, mode, dtype, B, cuda)
-    lengths = BATCH_LENGTHS[:B]
+    lengths = [BATCH_LENGTHS[b % len(BATCH_LENGTHS)] for b in range(B)]
     got = [t.clone() for t in state]
     want = [t.clone() for t in state]
     gpt2 = family.startswith("gpt2")
@@ -537,6 +548,146 @@ def test_engine_generate_batch_graph_matches_plain(cuda, family, kv_mode):
         assert g_[:len(g_) - n + first] == w_[:len(w_) - n + first]
 
 
+# ------------------------------------------ batched verify (#18-#21), server
+
+VERIFY_BATCH_LENGTHS = [0, 7, 111, 8, 64, 1, 100, 55]  # C = 128: up to C - 17
+
+
+@pytest.mark.parametrize("R", [2, 5, 8])
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "llama"])
+def test_megabatch_verify_matches_plain(cuda, family, mode, dtype, B, R):
+    """#18-#21 against their plain versions (R sequential plain steps a
+    slot), fed token ids: per slot and row the token and the R new rows
+    under test_megabatch_matches_plain's tolerances, every other column and
+    scale untouched. Over quantized panes each row is held against the
+    plain step on the kernel's own earlier rows of the block, and a bf16 row
+    may also differ by the fp rows' 1.6e-2 of its largest value (as
+    chip_smoke.py does) and its token by 4e-2 (the deep-bf16 allowance:
+    scripts/torch_verify_drift.py read a GPT-2 small row of these cases
+    0.0243 under the plain maximum, the single-stream quant step on the same
+    input the same)."""
+    packed, cfg, state, _ = _batch_case(family, mode, dtype, B, cuda)
+    lengths = [VERIFY_BATCH_LENGTHS[b % len(VERIFY_BATCH_LENGTHS)] for b in range(B)]
+    g = torch.Generator(device="cpu").manual_seed(B * 10 + R)
+    ids = torch.randint(0, cfg.vocab_size, (B * R,), generator=g).to(torch.int32).to(cuda)
+    gpt2 = family.startswith("gpt2")
+    quant = mode != "fp"
+    kern = {(True, False): tbv.gpt2_megabatch_verify, (True, True): tbv.gpt2_megabatch_verify_quant,
+            (False, False): tbv.llama_megabatch_verify,
+            (False, True): tbv.llama_megabatch_verify_quant}[(gpt2, quant)]
+    plain = {(True, False): tbv.gpt2_megabatch_verify_plain,
+             (True, True): tbv.gpt2_megabatch_verify_quant_plain,
+             (False, False): tbv.llama_megabatch_verify_plain,
+             (False, True): tbv.llama_megabatch_verify_quant_plain}[(gpt2, quant)]
+    kw = {"kv_mode": mode} if quant else {}
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    before = kern.launches
+    toks = kern(packed, *got, torch.tensor(lengths, dtype=torch.int32, device=cuda), ids,
+                cfg=cfg, **kw)[0]
+    assert kern.launches == before + 1 and toks.shape == (B, R)
+    logits = plain(packed, *want, lengths, ids, cfg=cfg, return_logits=True, **kw)[-1]
+    torch.cuda.synchronize()
+    C = state[0].shape[2]
+    for b, cur in enumerate(lengths):
+        new = torch.zeros(C, dtype=torch.bool, device=cuda)
+        new[cur:cur + R] = True
+        for g_, w_, b_ in zip(got, want, state):
+            assert torch.equal(g_[:, b][:, ~new], b_[:, b][:, ~new])
+            assert torch.equal(w_[:, b][:, ~new], b_[:, b][:, ~new])
+        if not quant:
+            for t in range(R):
+                assert _token_close(int(toks[b, t]), logits[b, t], dtype), (b, t)
+            for g_, w_ in zip(got, want):
+                assert _rows_close(g_[:, b][:, new], w_[:, b][:, new], dtype)
+            continue
+        # quantized panes: row t against the plain step on the kernel's own
+        # rows cur .. cur + t - 1 (the plain verify's own earlier rows may
+        # differ from the kernel's by a code step, which row t attends)
+        step_fn = tmq.gpt2_megastep_quant_plain if gpt2 else tmq.llama_megastep_quant_plain
+        steps = 1 if dtype == torch.float32 else 2
+        for t in range(R):
+            panes = [s_[:, b].clone() for s_ in state]
+            for p_, g_ in zip(panes, got):
+                p_[:, cur:cur + t] = g_[:, b, cur:cur + t]
+            tok_id = ids[b * R + t].long()
+            if gpt2:
+                pos = min(cur + t, cfg.n_positions - 1)
+                x = (packed["wte"][tok_id] + packed["wpe"][pos])[None].to(dtype)
+            else:
+                x = packed["embed"][tok_id][None]
+            lg = step_fn(packed, *panes, cur + t, x, cfg=cfg, kv_mode=mode,
+                         return_logits=True)[-1]
+            assert _token_close(int(toks[b, t]), lg, dtype, bf16_tol=4e-2), (b, t)
+            r = cur + t
+            for kind, g_, w_, gs, ws in zip(tmq._kv_kinds(mode), got[:2], panes[:2],
+                                            got[2:], panes[2:]):
+                gv = tmq.pane_values(g_[:, b, r], kind) * gs[:, b, r, None]
+                wv = tmq.pane_values(w_[:, r], kind) * ws[:, r, None]
+                step = max(gs[:, b, r].max().item(), ws[:, r].max().item())
+                tol = steps * step * 1.01
+                if dtype == torch.bfloat16:  # the values quantized may differ by
+                    # the fp rows' bf16 tolerance (chip_smoke.py's deep-bf16)
+                    tol += 1.6e-2 * max(1.0, wv.abs().max().item())
+                assert (gv - wv).abs().max() <= tol, (b, t)
+                if dtype == torch.float32:
+                    torch.testing.assert_close(gs[:, b, r], ws[:, r], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("spec,kv_mode", [(None, None), ("ngram", None), (None, "int8"),
+                                          ("ngram", "mixed")])
+def test_server_graph_matches_cpu_server(cuda, spec, kv_mode):
+    """MegaBatchServer on the card (chunks replayed from CUDA graphs) against
+    the same server on the CPU (plain steps and verifies), fp32, 4 slots of
+    C = 128, six requests (two waves), one past the pane: every request's
+    tokens equal while the top-2 gap of the port's per-prompt logits stays
+    at least 1e-4; the batched chain (plain) or the batched verify (spec)
+    launches once a step or round dispatched and no other kernel runs."""
+    cfg = tgpt2.GPT2Config(vocab_size=256, n_positions=128, n_embd=256, n_layer=2, n_head=4)
+    spec_m = gpt2_spec(cfg)
+    params = {dev: tgpt2.init_gpt2_params(torch.Generator().manual_seed(0), cfg,
+                                          torch.float32, dev) for dev in ("cpu", "cuda")}
+    pool = MegaPoolConfig(n_slots=4, capacity=128, max_chunk=8, prompt_bucket=64)
+    prompts = ["the cat sat on the cat sat on the", "a b a b a b", "x",
+               "Every slot has its own length.", "abcabcabcabc", "y" * 60]
+    budgets = [20, 33, 9, 17, 25, 80]
+    counters = (tmb.gpt2_megabatch, tmbq.gpt2_megabatch_quant, tbv.gpt2_megabatch_verify,
+                tbv.gpt2_megabatch_verify_quant, tmk.gpt2_megastep, tmq.gpt2_megastep_quant,
+                tmk.gpt2_megaverify)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        srv = MegaBatchServer(spec_m, params[dev], pool=pool, spec=spec, kv_mode=kv_mode)
+        reqs = [Request(rid=i, prompt_ids=list(p.encode()), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, budgets))]
+        before = [f.launches for f in counters]
+        steps = []
+        srv.run(reqs, progress=lambda n, _: steps.append(n))
+        runs[dev] = ([r.out_ids for r in reqs], [f.launches - b for f, b in
+                                                  zip(counters, before)], steps, srv)
+    got, counts, steps, srv = runs["cuda"]
+    want = runs["cpu"][0]
+    main = {(None, False): 0, (None, True): 1, ("ngram", False): 2,
+            ("ngram", True): 3}[(spec, kv_mode is not None)]
+    assert counts[main] == steps[-1] > 0
+    assert all(n == 0 for i, n in enumerate(counts) if i != main)
+    eng = InferenceEngine(spec_m, params["cpu"], config=Config(
+        model_name="t", device="cpu", dtype=torch.float32, megakernel=True))
+    method = f"quant_{kv_mode}" if kv_mode else "full_cache"
+    for p, n, g_, w_ in zip(prompts, budgets, got, want):
+        if g_ == w_:
+            continue
+        _, logits = eng.generate_logits(p, method, n, forced=w_)
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+        first = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
+        assert g_[:first] == w_[:first], (p, first)
+    if spec:
+        assert runs["cpu"][3].spec_stats["rounds"] > 0
+
+
 # ------------------------------------------------- speculative decoding
 
 VERIFY_FAMILIES = ["gpt2", "gpt2-full", "g2", "g4-untied", "g7-qwen", "d128"]
@@ -558,11 +709,11 @@ def _verify_case(family, dtype, device):
     return kind, packed, cfg
 
 
-def _token_close(tok, logits, dtype):
+def _token_close(tok, logits, dtype, bf16_tol=2e-2):
     top2 = logits.topk(2).values
     if dtype == torch.float32:
         return tok == int(logits.argmax()) or float(top2[0] - top2[1]) < 1e-4
-    return float(logits[tok]) >= float(top2[0]) - 2e-2
+    return float(logits[tok]) >= float(top2[0]) - bf16_tol
 
 
 def _rows_close(got, want, dtype):

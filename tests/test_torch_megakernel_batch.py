@@ -14,7 +14,7 @@ package's, on the CPU in fp32.
 * `generate_batch` without kv_mode for both families: token-exact against
   the JAX engine's `generate_batch` and against the port's per-prompt
   `generate`; the per-prompt fallback for an ineligible model (gpt2-tiny,
-  E = 64) and for a batch beyond the kernels' largest (MAX_BATCH = 8).
+  E = 64) and for a batch beyond the kernels' largest (MAX_BATCH = 32).
 * The eligibility of `generate_batch` for every registry GPT-2 and
   Llama/Qwen name x {fp, int8, int4, mixed} x B in {1, 8} at capacity 320,
   against the JAX package's; the differences are the TPU memory envelopes
