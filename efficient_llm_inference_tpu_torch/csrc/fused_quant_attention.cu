@@ -3,7 +3,12 @@
 //
 // Replaces efficient_llm_inference_tpu/ops/pallas/attention.py:
 // fused_quant_attention_batched (the Pallas kernel behind QuantizedKV's
-// decode step). For each (slot b, query head hq), with kv head hk = hq / G:
+// decode step) and, through a second entry point, fused_quant_attention_decode
+// (its batch-1 form: one slot, the current token as the one extra row, which
+// is always visible; elit_fused_quant_attention_decode). The TPU's batch-1
+// kernel works in deinterleaved D order for int4 (a Mosaic limit) and
+// permutes q and the current token to match; this kernel reads both forms in
+// natural order. For each (slot b, query head hq), with kv head hk = hq / G:
 //
 //   s_c = (q . k_c) * ks_c / sqrt(D)       past rows c < lengths[b]
 //   s_j = (q . ke_j) / sqrt(D)             extra rows j < n_extra
@@ -151,8 +156,8 @@ fused_quant_attention_kernel(
     const float* __restrict__ vs, long long vs_sb, long long vs_sh,
     const T* __restrict__ ke, long long ke_sb, long long ke_sh, long long ke_ss,
     const T* __restrict__ ve, long long ve_sb, long long ve_sh, long long ve_ss,
-    const int* __restrict__ lengths, int n_extra, int S, int Hq, int Hkv, int C,
-    float sm_scale, T* __restrict__ out) {
+    const int* __restrict__ lengths, int len_value, int n_extra, int S, int Hq, int Hkv,
+    int C, float sm_scale, T* __restrict__ out) {
   constexpr int DPL = D / 32;
   constexpr int KW = KB == 4 ? D / 2 : D;  // elements per stored K row
   constexpr int VW = VB == 4 ? D / 2 : D;
@@ -175,7 +180,7 @@ fused_quant_attention_kernel(
   const char* v_stripe = static_cast<const char*>(vq) + head * C * VW * VSZ;
   const float* ksr = ks + b * ks_sb + hk * ks_sh;
   const float* vsr = vs + b * vs_sb + hk * vs_sh;
-  int len = min(max(lengths[b], 0), C);
+  int len = min(max(lengths != nullptr ? lengths[b] : len_value, 0), C);
   int n_ex = n_extra;
   if (len == 0 && n_ex == 0) {  // no visible row: uniform weights, as JAX
     len = C;
@@ -234,7 +239,7 @@ struct Args {
   const float* vs; long long vs_sb, vs_sh;
   const void* ke; long long ke_sb, ke_sh, ke_ss;
   const void* ve; long long ve_sb, ve_sh, ve_ss;
-  const int* lengths; int n_extra, S, B, Hq, Hkv, C; float sm_scale; void* out;
+  const int* lengths; int len_value, n_extra, S, B, Hq, Hkv, C; float sm_scale; void* out;
 };
 
 template <typename T, int KB, int VB, int D>
@@ -243,8 +248,8 @@ int launch(const Args& a, cudaStream_t stream) {
   fused_quant_attention_kernel<T, KB, VB, D><<<grid, 32 * kWarps, 0, stream>>>(
       static_cast<const T*>(a.q), a.q_sb, a.q_sh, a.kq, a.vq, a.ks, a.ks_sb, a.ks_sh,
       a.vs, a.vs_sb, a.vs_sh, static_cast<const T*>(a.ke), a.ke_sb, a.ke_sh, a.ke_ss,
-      static_cast<const T*>(a.ve), a.ve_sb, a.ve_sh, a.ve_ss, a.lengths, a.n_extra, a.S,
-      a.Hq, a.Hkv, a.C, a.sm_scale, static_cast<T*>(a.out));
+      static_cast<const T*>(a.ve), a.ve_sb, a.ve_sh, a.ve_ss, a.lengths, a.len_value,
+      a.n_extra, a.S, a.Hq, a.Hkv, a.C, a.sm_scale, static_cast<T*>(a.out));
   return (int)cudaGetLastError();
 }
 
@@ -279,7 +284,29 @@ extern "C" int elit_fused_quant_attention(
   if (B == 0 || Hq == 0) return (int)cudaGetLastError();
   const Args a{q, q_sb, q_sh, kq, vq, ks, ks_sb, ks_sh, vs, vs_sb, vs_sh,
                ke, ke_sb, ke_sh, ke_ss, ve, ve_sb, ve_sh, ve_ss,
-               lengths, n_extra, S, B, Hq, Hkv, C, sm_scale, out};
+               lengths, 0, n_extra, S, B, Hq, Hkv, C, sm_scale, out};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0) return dispatch_d<float>(D, k_bits, v_bits, a, st);
+  if (q_dtype == 1) return dispatch_d<__nv_bfloat16>(D, k_bits, v_bits, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The batch-1 decode form: q [Hq, D]; codes [Hkv, C, D or D/2] contiguous;
+// scales [Hkv, C] (head stride given); the current token's k/v [Hkv, D]
+// (head stride given), always visible; past rows t < length visible, with
+// length read from *length on the device, or `length_value` when length is
+// null. k_bits, v_bits in {8, 4}.
+extern "C" int elit_fused_quant_attention_decode(
+    int q_dtype, int k_bits, int v_bits, int Hq, int Hkv, int C, int D,
+    const void* q, long long q_sh, const void* kq, const void* vq,
+    const float* ks, long long ks_sh, const float* vs, long long vs_sh,
+    const void* kc, long long kc_sh, const void* vc, long long vc_sh,
+    const int* length, int length_value, float sm_scale, void* out, void* stream) {
+  if (Hq == 0) return (int)cudaGetLastError();
+  if (k_bits == 16 || v_bits == 16) return (int)cudaErrorInvalidValue;
+  const Args a{q, 0, q_sh, kq, vq, ks, 0, ks_sh, vs, 0, vs_sh,
+               kc, 0, kc_sh, 0, vc, 0, vc_sh, 0,
+               length, length_value, 1, 1, 1, Hq, Hkv, C, sm_scale, out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return dispatch_d<float>(D, k_bits, v_bits, a, st);
   if (q_dtype == 1) return dispatch_d<__nv_bfloat16>(D, k_bits, v_bits, a, st);

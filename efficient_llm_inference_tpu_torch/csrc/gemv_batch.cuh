@@ -14,7 +14,7 @@
 
 namespace {
 
-constexpr int kMaxRows = 128;  // input rows of one batched GEMV
+constexpr int kMaxRows = 256;  // input rows of one batched GEMV: 32 slots x 8 verify rows
 constexpr int kGroup = 8;      // input rows of one gemv_batch_kernel launch
 
 #define RETURN_IF(rc_expr)          \

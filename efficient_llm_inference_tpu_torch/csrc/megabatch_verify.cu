@@ -1,5 +1,5 @@
 // The batched speculative verify pass (greedy): R verify rows (1 <= R <= 8)
-// for each of B slots, B x R <= 128, as a fixed chain of kernels, for GPT-2
+// for each of B slots, B x R <= 256, as a fixed chain of kernels, for GPT-2
 // and for Llama/Qwen, over panes in the model dtype or quantized.
 //
 // Replaces efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py:
@@ -46,7 +46,7 @@
 // of weights: operations, not bytes, bound the pass. The GEMVs are
 // gemv_batch.cuh's, launched once per group of 8 rows (the weights
 // streamed once a group). Left for later: tensor cores (mma.sync m16n8k16
-// over the 16-128 rows, one weight stream).
+// over the 16-256 rows, one weight stream).
 //
 // C interface (ctypes): each entry point takes its args struct (mirrored by
 // ops/megakernel_batch_verify.py: the single-stream MegaArgs / LlamaArgs with

@@ -1,10 +1,11 @@
 """Fused decode attention over a quantized KV cache.
 
 Port of efficient_llm_inference_tpu/ops/pallas/attention.py:
-fused_quant_attention_batched. On a CUDA tensor the wrapper launches the
-kernel of `csrc/fused_quant_attention.cu`; on a CPU tensor it runs the plain
-PyTorch version beside it. Launches are counted in
-`fused_quant_attention_batched.launches`.
+fused_quant_attention_batched and its batch-1 form
+fused_quant_attention_decode. On a CUDA tensor each wrapper launches its
+entry point of `csrc/fused_quant_attention.cu`; on a CPU tensor it runs the
+plain PyTorch version beside it. Launches are counted in
+`<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,15 @@ def _kernel():
             p, ll, ll, ll,  # k extra, strides b, h, s
             p, ll, ll, ll,  # v extra
             p, i, i, ctypes.c_float, p, p,  # lengths, n_extra, S, sm_scale, out, stream
+        ]
+        fn = lib.elit_fused_quant_attention_decode
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            i, i, i, i, i, i, i,  # q_dtype, k_bits, v_bits, Hq, Hkv, C, D
+            p, ll, p, p,  # q, its head stride, k codes, v codes
+            p, ll, p, ll,  # k scales, head stride, v scales, head stride
+            p, ll, p, ll,  # current k, head stride, current v, head stride
+            p, i, ctypes.c_float, p, p,  # length (device) or value, sm_scale, out, stream
         ]
         _lib = lib
     return _lib
@@ -172,3 +182,94 @@ def fused_quant_attention_batched(
 
 
 fused_quant_attention_batched.launches = 0
+
+
+def fused_quant_attention_decode_plain(q, k_q, k_scale, v_q, v_scale, k_cur, v_cur,
+                                       length, k_bits: int = 8, v_bits: int = 8):
+    """Plain PyTorch version: the batched plain version at B = 1 with the
+    current token as the one visible extra row."""
+    lengths = torch.as_tensor(length, dtype=torch.int32).reshape(1).to(q.device)
+    return fused_quant_attention_batched_plain(
+        q[None], k_q[None], k_scale[None], v_q[None], v_scale[None],
+        k_cur[None, :, None], v_cur[None, :, None], lengths, 1, k_bits, v_bits)[0]
+
+
+def fused_quant_attention_decode(
+    q,  # [Hq, D] fp queries for the new token
+    k_q,  # [Hkv, C, D] int8 or [Hkv, C, D//2] uint8
+    k_scale,  # [Hkv, C] f32 (per_token scales broadcast over heads upstream)
+    v_q,
+    v_scale,
+    k_cur,  # [Hkv, D] fp current-token K
+    v_cur,  # [Hkv, D] fp current-token V
+    length,  # int, or an int32 tensor of one element: valid past tokens
+    k_bits: int = 8,
+    v_bits: int = 8,
+):
+    """Returns [Hq, D] in q's dtype: each query head's softmax attention
+    over its KV head's past rows t < length (quantized, read at their
+    compressed size) and the current token's full-precision k/v, which is
+    always visible (so length 0 gives v_cur). k_bits/v_bits: 8 (int8 codes)
+    or 4 (packed int4, the even element in the high nibble), independently.
+    On a CUDA tensor it launches the batch-1 entry point of
+    `csrc/fused_quant_attention.cu` (a device tensor `length` is read on the
+    device, so the call can be captured) and counts one launch in
+    `fused_quant_attention_decode.launches`; on a CPU tensor it runs
+    `fused_quant_attention_decode_plain`."""
+    if q.device.type == "cpu":
+        return fused_quant_attention_decode_plain(q, k_q, k_scale, v_q, v_scale, k_cur,
+                                                  v_cur, length, k_bits, v_bits)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    Hq, D = q.shape
+    Hkv, C = k_q.shape[0], k_q.shape[1]
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported query dtype {q.dtype}")
+    if k_bits not in (4, 8) or v_bits not in (4, 8):
+        raise NotImplementedError(f"k_bits={k_bits}, v_bits={v_bits} (8 or 4)")
+    if D not in (64, 128):
+        raise NotImplementedError(f"head dim {D} (the kernel takes 64 or 128)")
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group onto {Hkv} kv heads")
+    want = {8: (torch.int8, D), 4: (torch.uint8, D // 2)}
+    for name, codes, bits in (("k_q", k_q, k_bits), ("v_q", v_q, v_bits)):
+        dt, width = want[bits]
+        if codes.dtype != dt or tuple(codes.shape) != (Hkv, C, width) \
+                or not codes.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dt} {(Hkv, C, width)}, got "
+                             f"{codes.dtype} {tuple(codes.shape)}")
+    for name, s_ in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check_inner(name, s_, 2)
+        if s_.dtype != torch.float32 or tuple(s_.shape) != (Hkv, C):
+            raise ValueError(f"{name}: expected float32 {(Hkv, C)}")
+    for name, x in (("q", q), ("k_cur", k_cur), ("v_cur", v_cur)):
+        _check_inner(name, x, 2)
+        if x.dtype != q.dtype or x.shape[1] != D:
+            raise ValueError(f"{name}: expected {q.dtype} [., {D}]")
+    if tuple(k_cur.shape) != (Hkv, D) or tuple(v_cur.shape) != (Hkv, D):
+        raise ValueError(f"k_cur, v_cur: expected [{Hkv}, {D}]")
+    if isinstance(length, torch.Tensor):
+        if length.dtype != torch.int32 or length.numel() != 1 or length.device != q.device:
+            raise ValueError(f"length: expected one int32 on {q.device}")
+        len_ptr, len_value = length.data_ptr(), 0
+    else:
+        len_ptr, len_value = None, int(length)
+    tensors = (k_q, k_scale, v_q, v_scale, k_cur, v_cur)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+
+    out = torch.empty((Hq, D), dtype=q.dtype, device=q.device)
+    lib = _kernel()
+    rc = lib.elit_fused_quant_attention_decode(
+        _DTYPE_CODE[q.dtype], k_bits, v_bits, Hq, Hkv, C, D,
+        q.data_ptr(), q.stride(0), k_q.data_ptr(), v_q.data_ptr(),
+        k_scale.data_ptr(), k_scale.stride(0), v_scale.data_ptr(), v_scale.stride(0),
+        k_cur.data_ptr(), k_cur.stride(0), v_cur.data_ptr(), v_cur.stride(0),
+        len_ptr, len_value, 1.0 / math.sqrt(D), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "fused_quant_attention_decode")
+    fused_quant_attention_decode.launches += 1
+    return out
+
+
+fused_quant_attention_decode.launches = 0

@@ -32,7 +32,7 @@ from . import megakernel as mk
 from . import megakernel_llama as ml
 
 # The kernels' largest batch (csrc/megabatch.cu kMaxSlots): the JAX server's
-# largest admission wave. The batched GEMV takes up to 128 rows
+# largest admission wave. The batched GEMV takes up to 256 rows
 # (csrc/gemv_batch.cuh kMaxRows), launched in groups of 8.
 MAX_BATCH = 32
 

@@ -46,8 +46,9 @@ from . import megakernel_llama as ml
 from . import megakernel_quant as mq
 from .megakernel_batch_quant import _quant_kw
 
-# B x R: the batched GEMV's largest row count (csrc/gemv_batch.cuh kMaxRows).
-MAX_ROWS = 128
+# B x R: the batched GEMV's largest row count (csrc/gemv_batch.cuh kMaxRows),
+# the JAX server's largest wave (32 slots) times its largest verify (8 rows).
+MAX_ROWS = 256
 
 
 def _rows_ok(capacity: int, batch: int, rows: int) -> bool:

@@ -2,7 +2,7 @@
 """How far the batched verify kernels' bf16 tokens and rows drift from their
 plain versions, beside the single-stream kernels on the same rows.
 
-    python3 scripts/torch_verify_drift.py
+    python3 scripts/torch_verify_drift.py [--past-128]
 
 On one GPU, at chip_smoke.py's batched-verify shapes (GPT-2 small on 16
 slots, Llama-3.2-1B on 8; R in {2, 8} rows a slot; C = 128; slot lengths 0,
@@ -24,6 +24,13 @@ seed 42), for chip_smoke.py's input seeds and for a second set (+1000):
   tokens and new rows the two kernels share bit for bit, and the largest
   new-row difference from the plain version as a share of phase 2's
   tolerance (fp: 1.6e-2 of the row's largest value; quantized: two steps).
+
+With --past-128, only chip_smoke.py's cases past the old 128-row limit
+(R = 8: GPT-2 small int8 panes on 32 slots and fp panes on 24, Llama-3.2-1B
+fp panes on 24), both seed sets; over fp panes each line adds the bf16
+control: the fp32 plain verify on the same values (weights and panes
+widened) and its token's shortfall under the bf16 plain maximum logit, the
+shortfall a token right in fp32 arithmetic shows under chip_smoke.py's rule.
 
 The card's name and power limit first.
 """
@@ -68,10 +75,11 @@ def _row_share(mode, got, want, r) -> float:
     return share
 
 
-def case(family, cfg, packed, mode, R, lengths, ids, state, label) -> dict:
+def case(family, cfg, packed, mode, R, lengths, ids, state, label, packed32=None) -> dict:
     """One batched verify of len(lengths) slots at R rows a slot (ids
     [B x R], `state` the panes and scales) against its plain version and the
-    single-stream witness; `family` "gpt2" or "llama"."""
+    single-stream witness; `family` "gpt2" or "llama". With `packed32` (the
+    weights widened to fp32) and fp panes, also the bf16 control."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as mbv
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
@@ -88,9 +96,16 @@ def case(family, cfg, packed, mode, R, lengths, ids, state, label) -> dict:
     got = [t.clone() for t in state]
     toks = kern(packed, *got, torch.tensor(lengths, dtype=torch.int32, device=DEV), ids,
                 cfg=cfg, **kw)[0]
+    control = None
     if not quant:
         want_all = [t.clone() for t in state]
         logits = plain(packed, *want_all, lengths, ids, cfg=cfg, return_logits=True)[-1]
+        if packed32 is not None:
+            lg32 = plain(packed32, *[t.float() for t in state], lengths, ids, cfg=cfg,
+                         return_logits=True)[-1]
+            tok32 = lg32.argmax(-1, keepdim=True)
+            lf = logits.float()
+            control = _quantiles((lf.amax(-1) - lf.gather(-1, tok32)[..., 0]).flatten().cpu())
     short_b, short_w = [], []
     same_tok = same_row = 0
     share_b = share_w = 0.0
@@ -138,7 +153,8 @@ def case(family, cfg, packed, mode, R, lengths, ids, state, label) -> dict:
             "tokens_equal_to_witness": same_tok, "rows_bit_equal_to_witness": same_row,
             "shortfall_batched": _quantiles(torch.tensor(short_b)),
             "shortfall_witness": _quantiles(torch.tensor(short_w)),
-            "row_share_batched": share_b, "row_share_witness": share_w}
+            "row_share_batched": share_b, "row_share_witness": share_w,
+            "shortfall_fp32_control": control}
 
 
 def main() -> int:
@@ -158,9 +174,29 @@ def main() -> int:
     gparams = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), gcfg,
                                         torch.bfloat16, "cuda")
     llama = InferenceEngine.from_model_name("llama-3-1b")  # random, seed 42, bf16
-    runs = (("gpt2", gcfg, mk.pack_gpt2_mega(gparams, gcfg), 16),
-            ("llama", llama.model.config, ml.pack_llama_mega(llama.params, llama.model.config),
-             8))
+    gpacked = mk.pack_gpt2_mega(gparams, gcfg)
+    lpacked = ml.pack_llama_mega(llama.params, llama.model.config)
+    if "--past-128" in sys.argv:
+        wide = {"gpt2": mk.pack_gpt2_mega(cs._cast_params(gparams, torch.float32), gcfg),
+                "llama": ml.pack_llama_mega(cs._cast_params(llama.params, torch.float32),
+                                            llama.model.config)}
+        for family, cfg, packed, n_slots, mode in (
+                ("gpt2", gcfg, gpacked, 32, "int8"), ("gpt2", gcfg, gpacked, 24, "fp"),
+                ("llama", llama.model.config, lpacked, 24, "fp")):
+            W = cfg.n_kv_head * cfg.head_dim if family == "llama" else cfg.n_embd
+            lengths = [cs.VERIFY_LENGTHS[b % len(cs.VERIFY_LENGTHS)] for b in range(n_slots)]
+            i, R = cs.MODES.index(mode), 8
+            for offset in (0, 1000):
+                g = torch.Generator().manual_seed(500 + 10 * R + i + offset)
+                ids = torch.randint(0, cfg.vocab_size, (n_slots * R,), generator=g)
+                state = cs._verify_state(mode, torch.bfloat16, 600 + 10 * R + i + offset,
+                                         cfg.n_layer, n_slots, W)
+                label = "chip_smoke" if offset == 0 else f"chip_smoke+{offset}"
+                print(json.dumps(case(family, cfg, packed, mode, R, lengths,
+                                      ids.to(torch.int32).to(DEV), state, label,
+                                      packed32=wide[family])), flush=True)
+        return 0
+    runs = (("gpt2", gcfg, gpacked, 16), ("llama", llama.model.config, lpacked, 8))
     for family, cfg, packed, n_slots in runs:
         W = cfg.n_kv_head * cfg.head_dim if family == "llama" else cfg.n_embd
         lengths = [cs.VERIFY_LENGTHS[b % len(cs.VERIFY_LENGTHS)] for b in range(n_slots)]

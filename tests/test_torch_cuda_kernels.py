@@ -40,12 +40,15 @@ from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
 from efficient_llm_inference_tpu_torch.models import llama as tllama
 from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
 from efficient_llm_inference_tpu_torch.ops import attention as tattn
+from efficient_llm_inference_tpu_torch.ops import dequant as tdq
+from efficient_llm_inference_tpu_torch.ops import linear as tlin
 from efficient_llm_inference_tpu_torch.ops import megakernel as tmk
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch as tmb
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as tmbq
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as tbv
 from efficient_llm_inference_tpu_torch.ops import megakernel_llama as tml
 from efficient_llm_inference_tpu_torch.ops import megakernel_quant as tmq
+from efficient_llm_inference_tpu_torch.ops import paged as tpaged
 from efficient_llm_inference_tpu_torch.ops import quantize as trows
 
 pytestmark = pytest.mark.cuda
@@ -569,6 +572,20 @@ def test_megabatch_verify_matches_plain(cuda, family, mode, dtype, B, R):
     scripts/torch_verify_drift.py read a GPT-2 small row of these cases
     0.0243 under the plain maximum, the single-stream quant step on the same
     input the same)."""
+    _check_megabatch_verify(cuda, family, mode, dtype, B, R)
+
+
+@pytest.mark.parametrize("B", [24, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "llama"])
+def test_megabatch_verify_past_128_rows_matches_plain(cuda, family, mode, dtype, B):
+    """The servers of 24 and 32 slots at spec_k = 8: 192 and 256 rows a
+    pass, with test_megabatch_verify_matches_plain's checks."""
+    _check_megabatch_verify(cuda, family, mode, dtype, B, 8)
+
+
+def _check_megabatch_verify(cuda, family, mode, dtype, B, R):
     packed, cfg, state, _ = _batch_case(family, mode, dtype, B, cuda)
     lengths = [VERIFY_BATCH_LENGTHS[b % len(VERIFY_BATCH_LENGTHS)] for b in range(B)]
     g = torch.Generator(device="cpu").manual_seed(B * 10 + R)
@@ -891,3 +908,180 @@ def test_engine_generate_speculative_graph(cuda, family, mode):
     clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
     first = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
     assert got[:len(got) - n + first] == want[:len(want) - n + first]
+
+
+# ------------------------------------------------ the kernel API (#4-#8, #24)
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value (the spacing above |t|; 2^-133 at 0)."""
+    e = torch.floor(torch.log2(t.float().abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,scale_shape", [
+    ((6, 64), ()), ((6, 64), (6, 1)), ((6, 64), (6, 64)), ((5, 40), (5, 1)),
+    ((12, 1, 12, 320, 64), (12, 1, 1, 320, 1)),  # GPT-2 small's cache, per token
+    ((16, 1, 8, 320, 64), (16, 1, 8, 320, 1)),  # Llama-3.2-1B's, per (head, token)
+])
+def test_dequant_int8_bit_exact(cuda, out_dtype, shape, scale_shape):
+    g = torch.Generator(device="cpu").manual_seed(sum(shape))
+    q = torch.randint(-127, 128, shape, generator=g, dtype=torch.int32).to(torch.int8).to(cuda)
+    s = (torch.rand(scale_shape, generator=g) * 0.02 + 1e-3).to(cuda)
+    before = tdq.dequant_int8.launches
+    got = tdq.dequant_int8(q, s, out_dtype)
+    torch.cuda.synchronize()
+    assert tdq.dequant_int8.launches == before + 1
+    assert torch.equal(got, tdq.dequant_int8_plain(q, s, out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,orig,scale_shape", [
+    ((5, 32), 64, (5, 1)), ((5, 32), 63, (5, 1)), ((5, 32), 64, ()), ((7, 20), 39, (7, 1)),
+    ((12, 1, 12, 320, 32), 64, (12, 1, 1, 320, 1)),  # GPT-2 small's int4 cache
+])
+def test_dequant_int4_bit_exact(cuda, out_dtype, shape, orig, scale_shape):
+    g = torch.Generator(device="cpu").manual_seed(sum(shape) + orig)
+    p = torch.randint(0, 256, shape, generator=g, dtype=torch.int32).to(torch.uint8).to(cuda)
+    s = (torch.rand(scale_shape, generator=g) * 0.02 + 1e-3).to(cuda)
+    before = tdq.dequant_int4_packed.launches
+    got = tdq.dequant_int4_packed(p, s, orig, out_dtype)
+    torch.cuda.synchronize()
+    assert tdq.dequant_int4_packed.launches == before + 1
+    assert got.shape == (*shape[:-1], orig)
+    assert torch.equal(got, tdq.dequant_int4_packed_plain(p, s, orig, out_dtype))
+
+
+LINEAR_SHAPES = [(1, 64, 256), (4, 128, 512), (3, 96, 77), (9, 64, 200), (17, 256, 1000),
+                 (1, 768, 3072), (8, 3072, 768), (8, 768, 50257), (1, 2048, 8192),
+                 (8, 8192, 2048)]
+
+
+def _linear_close(got, want, x_dtype):
+    """fp32: within 1e-5 of the output's largest value (the sum's order);
+    bf16 output: one bf16 ulp of the plain result, plus that fp32 term."""
+    fp32 = 1e-5 * max(1.0, want.float().abs().max().item())
+    tol = fp32 if x_dtype == torch.float32 else _bf16_ulp(want) + fp32
+    return bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("B,E,F,x_dtype,w_dtype", [
+    (B, E, F, x, w) for B, E, F in LINEAR_SHAPES for x, w in ((F32, F32), (BF16, BF16))
+] + [(B, E, F, x, w) for B, E, F in LINEAR_SHAPES[:5] for x, w in ((F32, BF16), (BF16, F32))])
+def test_pallas_linear_matches_plain(cuda, B, E, F, x_dtype, w_dtype):
+    g = torch.Generator(device="cpu").manual_seed(B + E + F)
+    x = torch.randn((B, E), generator=g).to(x_dtype).to(cuda)
+    w = (torch.randn((E, F), generator=g) / E ** 0.5).to(w_dtype).to(cuda)
+    before = tlin.pallas_linear.launches
+    got = tlin.pallas_linear(x, w)
+    torch.cuda.synchronize()
+    assert tlin.pallas_linear.launches == before + 1 and got.dtype == x_dtype
+    assert _linear_close(got, tlin.pallas_linear_plain(x, w), x_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,E,F", LINEAR_SHAPES)
+def test_pallas_linear_int8_matches_plain(cuda, B, E, F, x_dtype):
+    g = torch.Generator(device="cpu").manual_seed(B * E + F)
+    x = torch.randn((B, E), generator=g).to(x_dtype).to(cuda)
+    w_q, w_s = tlin.quantize_weight_int8((torch.randn((E, F), generator=g) / E ** 0.5).to(cuda))
+    before = tlin.pallas_linear_int8.launches
+    got = tlin.pallas_linear_int8(x, w_q, w_s)
+    torch.cuda.synchronize()
+    assert tlin.pallas_linear_int8.launches == before + 1 and got.dtype == x_dtype
+    assert _linear_close(got, tlin.pallas_linear_int8_plain(x, w_q, w_s), x_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [0, 37, 320])
+@pytest.mark.parametrize("k_bits,v_bits", [(8, 8), (4, 4), (8, 4), (4, 8)])
+@pytest.mark.parametrize("Hq,Hkv,C", [(4, 4, 48), (8, 2, 48), (12, 12, 320), (32, 8, 320)])
+def test_decode_attention_matches_plain(cuda, Hq, Hkv, C, k_bits, v_bits, length, dtype):
+    """#4 against its plain version (`_attention_close`: fp32 atol 1e-4, as
+    #1), and bit-equal to #1 at B = 1 with the current token as its extra
+    row."""
+    g = torch.Generator(device="cpu").manual_seed(Hq + C + k_bits * 3 + v_bits)
+    D = 64
+
+    def codes(bits):
+        if bits == 8:
+            return torch.randint(-127, 128, (Hkv, C, D), generator=g, dtype=torch.int8)
+        return torch.randint(0, 256, (Hkv, C, D // 2), generator=g,
+                             dtype=torch.int32).to(torch.uint8)
+
+    k_q, v_q = codes(k_bits).to(cuda), codes(v_bits).to(cuda)
+    k_s, v_s = ((torch.rand((Hkv, C), generator=g) * 0.02 + 1e-3).to(cuda) for _ in range(2))
+    q, k_cur, v_cur = (torch.randn((n, D), generator=g).to(dtype).to(cuda)
+                       for n in (Hq, Hkv, Hkv))
+    length_t = torch.tensor([length], dtype=torch.int32, device=cuda)
+    args = (q, k_q, k_s, v_q, v_s, k_cur, v_cur)
+    before = tattn.fused_quant_attention_decode.launches
+    got = tattn.fused_quant_attention_decode(*args, length, k_bits=k_bits, v_bits=v_bits)
+    got_t = tattn.fused_quant_attention_decode(*args, length_t, k_bits=k_bits, v_bits=v_bits)
+    batched = tattn.fused_quant_attention_batched(
+        q[None], k_q[None], k_s[None], v_q[None], v_s[None], k_cur[None, :, None],
+        v_cur[None, :, None], length_t, 1, k_bits=k_bits, v_bits=v_bits)[0]
+    want = tattn.fused_quant_attention_decode_plain(*args, length, k_bits, v_bits)
+    torch.cuda.synchronize()
+    assert tattn.fused_quant_attention_decode.launches == before + 2
+    assert torch.equal(got, got_t) and torch.equal(got, batched)
+    assert _attention_close(got, want, 1e-4)
+    if length == 0:  # the current token alone
+        assert _attention_close(got, v_cur.repeat_interleave(Hq // Hkv, 0), 1e-4)
+
+
+def _attention_close(got, want, fp32_tol):
+    """fp32 output: within `fp32_tol`. bf16 output: within two bf16 ulps of
+    the plain result plus 1e-3 of its largest value (both round one fp32
+    value whose sum order differs, so they sit one ulp apart at most)."""
+    g_, w_ = got.float(), want.float()
+    if got.dtype == torch.float32:
+        return (g_ - w_).abs().max().item() <= fp32_tol
+    return bool(((g_ - w_).abs() <= 2 * _bf16_ulp(w_) + 1e-3 * w_.abs().max().item()).all())
+
+
+def _paged_case(B, Hq, Hkv, n_blocks, bs, max_blocks, lengths, q_dtype, pool_dtype, device,
+                seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    D = 64
+    q = torch.randn((B, Hq, D), generator=g).to(q_dtype).to(device)
+    k_pool, v_pool = (torch.randn((Hkv, n_blocks, bs, D), generator=g).to(pool_dtype)
+                      .to(device) for _ in range(2))
+    perm = torch.randperm(n_blocks, generator=g)
+    tables = torch.full((B, max_blocks), n_blocks, dtype=torch.int32)
+    for b in range(B):  # each slot its own blocks, the rest sentinels
+        used = min(max_blocks, -(-max(lengths[b], 1) // bs))
+        tables[b, :used] = perm[(b * max_blocks) % n_blocks:][:used]
+    tables[-1, -1] = n_blocks + 5
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return q, k_pool, v_pool, tables.to(device), lens.to(device)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", [(torch.float32, torch.float32),
+                                                (torch.bfloat16, torch.bfloat16),
+                                                (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("geometry", ["jax-test", "jax-test-gqa", "llama-3-1b", "gpt2",
+                                      "llama-3-1b-full"])
+def test_paged_attention_matches_plain(cuda, geometry, q_dtype, pool_dtype):
+    """#24 against its plain version (`_attention_close`: fp32 atol 2e-5,
+    also over bf16 pools, which widen exactly), with
+    sentinel entries and an idle slot (length 0: the mean of V over every
+    walked position)."""
+    B, Hq, Hkv, n_blocks, bs, max_blocks, lengths = {
+        "jax-test": (3, 4, 4, 10, 16, 4, [37, 60, 0]),
+        "jax-test-gqa": (3, 8, 2, 10, 16, 4, [0, 64, 20]),
+        "llama-3-1b": (8, 32, 8, 256, 64, 32, [24, 256, 100, 0, 64, 65, 200, 1]),
+        "gpt2": (8, 12, 12, 256, 64, 32, [24, 256, 100, 0, 64, 65, 200, 1]),
+        "llama-3-1b-full": (8, 32, 8, 256, 64, 32, [2048] * 7 + [0]),
+    }[geometry]
+    args = _paged_case(B, Hq, Hkv, n_blocks, bs, max_blocks, lengths, q_dtype, pool_dtype,
+                       cuda, seed=B + Hq + max(lengths))
+    before = tpaged.paged_attention_decode.launches
+    got = tpaged.paged_attention_decode(*args)
+    want = tpaged.paged_attention_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert tpaged.paged_attention_decode.launches == before + 1 and got.dtype == q_dtype
+    assert _attention_close(got, want, 2e-5)

@@ -22,7 +22,9 @@ JAX package's, on the CPU in fp32.
 * The eligibility of every registry GPT-2 and Llama/Qwen name x {fp, int8,
   int4, mixed} x B in {1, 8, 16} x R in {2, 8} at capacity 128 against the
   JAX gates; the differences are the TPU memory envelopes the port leaves
-  out, each named.
+  out, each named. Past 128 rows: GPT-2 small and Llama-3.2-1B at B in
+  {24, 32} x R = 8 against the JAX gates, and a 17 x 8-row plain pass
+  against the JAX kernel.
 """
 
 import functools
@@ -297,9 +299,10 @@ def _fake(names, jax_side: bool, embed: str, tied: bool = True):
     return p
 
 
-def _decisions(capacity: int = 128) -> dict:
+def _decisions(capacity: int = 128, names=tuple(_GPT2_SIZE) + LLAMA_NAMES, kvs=KV,
+               batches=BATCHES, rows=ROWS) -> dict:
     table = {}
-    for name in tuple(_GPT2_SIZE) + LLAMA_NAMES:
+    for name in names:
         if name in _GPT2_SIZE:
             size = _GPT2_SIZE[name]
             jcfg, tcfg = getattr(jgpt2.GPT2Config, size)(), getattr(tgpt2.GPT2Config, size)()
@@ -314,9 +317,9 @@ def _decisions(capacity: int = 128) -> dict:
             tfp = tbv.llama_mega_batch_verify_supported
             tq = tbv.llama_mega_batch_verify_quant_supported
         jp, tp = _fake(names, True, embed, tied), _fake(names, False, embed, tied)
-        for kv in KV:
-            for bs in BATCHES:
-                for r in ROWS:
+        for kv in kvs:
+            for bs in batches:
+                for r in rows:
                     if kv is None:
                         pair = (jfp(jcfg, capacity, jp, bs, r), tfp(tcfg, capacity, tp, bs, r))
                     else:
@@ -343,13 +346,56 @@ def test_batch_verify_eligibility_table_matches_jax():
 
 
 def test_batch_verify_gates_port_limits():
-    """Beyond the JAX structure, the port refuses B x R > 128 (the batched
-    GEMV's rows), R > 8 and capacity < 16, as the JAX gates refuse the last
-    two."""
+    """Beyond the JAX structure, the port refuses B x R > 256 (the batched
+    GEMV's rows: 32 slots of 8 verify rows), R > 8 and capacity < 16, as
+    the JAX gates refuse the last two."""
     tcfg = tgpt2.GPT2Config(**GPT2_KW["fp"])
     tp = _fake(tmk.WEIGHT_NAMES, False, "wte")
-    assert tbv.mega_batch_verify_supported(tcfg, 128, tp, 16, 8)
-    assert not tbv.mega_batch_verify_supported(tcfg, 128, tp, 17, 8)
+    assert tbv.mega_batch_verify_supported(tcfg, 128, tp, 32, 8)
+    assert not tbv.mega_batch_verify_supported(tcfg, 128, tp, 33, 8)
     assert not tbv.mega_batch_verify_supported(tcfg, 128, tp, 1, 9)
     assert not tbv.mega_batch_verify_supported(tcfg, 8, tp, 1, 2)
-    assert tbv.MAX_ROWS == 128 and tmb.MAX_BATCH == 32
+    assert tbv.MAX_ROWS == 256 and tmb.MAX_BATCH == 32
+
+
+@pytest.mark.parametrize("name", ["gpt2", "llama-3-1b"])
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("bs", [24, 32])
+def test_batch_verify_gates_match_jax_past_128_rows(name, kv, bs):
+    """The servers of 24 and 32 slots at spec_k = 8 (192 and 256 rows, C =
+    128) for GPT-2 small and Llama-3.2-1B: the port accepts every point the
+    JAX gates accept, and also the 32 x 8-row pass over a model-dtype pool,
+    which the JAX gates refuse only for their VMEM budget (_VMEM)."""
+    want = (False, True) if (kv, bs) == (None, 32) else (True, True)
+    assert _decisions(128, names=(name,), kvs=(kv,), batches=(bs,), rows=(8,))[
+        (name, kv, bs, 8)] == want
+
+
+def test_batch_verify_plain_at_136_rows_matches_jax():
+    """17 slots x 8 rows = 136 rows (past the old 128-row limit) through the
+    plain GPT-2 verify against the JAX kernel in interpret mode: the tokens
+    equal, new rows within 1e-5 of their largest value, the other columns
+    bit-identical."""
+    R, lengths = 8, [LENGTHS[i % len(LENGTHS)] for i in range(17)]
+    jcfg, tcfg, jpk, tpk, W, E = _model("gpt2", "fp")
+    rng = np.random.default_rng(136)
+    x = (rng.standard_normal((len(lengths) * R, E)) * 0.5).astype(np.float32)
+    k, v = [(rng.standard_normal((tcfg.n_layer, len(lengths), C, W)) * 0.5).astype(np.float32)
+            for _ in range(2)]
+    j = jbv.gpt2_megabatch_verify(jpk, jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(lengths, jnp.int32), jnp.asarray(x), cfg=jcfg,
+                                  capacity=C, rows=R, interpret=True)
+    t = tbv.gpt2_megabatch_verify(tpk, torch.tensor(k), torch.tensor(v),
+                                  torch.tensor(lengths, dtype=torch.int32), torch.tensor(x),
+                                  cfg=tcfg)
+    assert t[0].shape == (17, R)
+    np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
+    for got, want, before in zip(t[1:], j[1:], (k, v)):
+        got, want = got.numpy(), np.asarray(want)
+        for b, cur in enumerate(lengths):
+            new = np.zeros(C, bool)
+            new[cur:cur + R] = True
+            np.testing.assert_array_equal(got[:, b, ~new], before[:, b, ~new])
+            np.testing.assert_array_equal(want[:, b, ~new], before[:, b, ~new])
+            atol = 1e-5 * max(1.0, np.abs(want[:, b, new]).max())
+            np.testing.assert_allclose(got[:, b, new], want[:, b, new], atol=atol, rtol=0)

@@ -190,3 +190,18 @@ def test_ladder_policy():
         steps.append(srv._ladder_next(r))
     assert steps == [4, 2, 2, 4, 8, 4]
     np.testing.assert_array_equal(srv.slen, np.ones(3, np.int32))
+
+
+def test_spec_server_of_32_slots_matches_jax():
+    """32 slots at spec_k = 8 (B x R = 256 verify rows, the JAX server's
+    largest wave) over an int8 pool at C = 128: the port builds the server
+    the JAX package builds, and serves the same tokens."""
+    jspec, tspec, jp, tp = family("gpt2")
+    pool = dict(POOL, n_slots=32, capacity=128)
+    kw = dict(spec="ngram", spec_k=8, kv_mode="int8")
+    want, want_r = _serve(JaxServer(jspec, jp, pool=JaxPool(**pool), dtype=jnp.float32,
+                                    interpret=True, **kw), JaxRequest)
+    srv = MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**pool), **kw)
+    got, got_r = _serve(srv, Request)
+    assert [r.out_ids for r in got] == [r.out_ids for r in want]
+    assert got_r == want_r and srv.spec_stats["rounds"] > 0
