@@ -127,6 +127,26 @@ two more places:
   two ulps plus 1e-3 of the largest output), timed with inputs
   rotated past L2 beside its bound, plain version and library call.
 
+Weight-quantized serving (`Config.weight_quant`: the weight tiers of #9,
+#11, #12 and #13 at R = 1, the same CUDA chains streaming int8 or grouped
+int4 codes) runs in three more places:
+- weight-tier kernels, after the llama kernels: GPT-2 small and
+  Llama-3.2-1B at full width, the main path's seed-42 weights quantized to
+  int8, int4 (G = 128) and int4w8 (G = E/2 = 384; TR/2 = 1024), fp / int8 /
+  int4 / mixed panes, bf16 and fp32, lengths 0 and 319 of C = 320, each
+  against its plain step with the tolerances of phase 2 (Llama: its
+  deep-bf16 allowance) and timed at 319 beside its byte bound (the pack's
+  codes and scales); a Qwen2.5-0.5B-width model cut to 2 layers at int4w8
+  (G = 448, FFN padded 4864 -> 5376), untimed;
+- weight-quant main path, after phase 5: benchmark_method for the four
+  methods on gpt2 and llama-3-1b with Config(weight_quant=w), w in int8,
+  int4, int4w8, bf16: every decode step one launch of the chain's weight
+  tier (counted in `<wrapper>.tiers`) and no full-precision launch; tokens/s
+  beside the bf16-weight run's and the bytes a step streams;
+- in the fp32 hold: 64 teacher-forced steps of each family's int8 and int4
+  tiers (full_cache and quant_int8) beside the plain step on the card,
+  tokens equal wherever the plain top-2 gap is at least 1e-4.
+
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero without that line. Float32 matrix products run in full fp32 (TF32
@@ -1793,6 +1813,12 @@ def counters():
         "gpt2_megastep_quant": megakernel_quant.gpt2_megastep_quant,
         "llama_megastep": megakernel_llama.llama_megastep,
         "llama_megastep_quant": megakernel_quant.llama_megastep_quant,
+        **{f"{name}_{TIER_SUFFIX[w]}": step.tiers[w]
+           for name, step in (("gpt2_megastep", megakernel.gpt2_megastep),
+                              ("gpt2_megastep_quant", megakernel_quant.gpt2_megastep_quant),
+                              ("llama_megastep", megakernel_llama.llama_megastep),
+                              ("llama_megastep_quant", megakernel_quant.llama_megastep_quant))
+           for w in ("int8", "int4")},
     }
 
 
@@ -1817,11 +1843,12 @@ def _expected_launches(method: str, mega: bool, L: int, n_gen: int,
     return want
 
 
-def phase_main_path(launches: dict, name: str, engines) -> None:
+def phase_main_path(launches: dict, name: str, engines) -> dict:
     """benchmark_method for the four methods with the megakernel off
     (Config(megakernel=False)), then with the default config (on).
     `engines(mega)` makes the engine of each path through
-    InferenceEngine.from_model_name."""
+    InferenceEngine.from_model_name. Returns the megakernel-on tokens/s of
+    each method."""
     prompts = _prompts(N_PROMPTS, SEED)
     n_gen = N_PROMPTS + 1  # benchmark_method warms up once (one bucket)
     tps = {}
@@ -1863,6 +1890,7 @@ def phase_main_path(launches: dict, name: str, engines) -> None:
         log(f"  {name} {method}: megakernel on {tps[(method, None)]:.1f} tokens/s, "
             f"off {tps[(method, False)]:.1f} tokens/s "
             f"({tps[(method, None)] / tps[(method, False)]:.1f}x)")
+    return {method: tps[(method, None)] for method in METHODS}
 
 
 def _batch_prompts(n: int, seed: int):
@@ -2283,10 +2311,11 @@ def phase_fp32_hold() -> None:
             f"clear steps")
 
 
-def phase_fp32_mega_hold(eng) -> None:
+def phase_fp32_mega_hold(eng, methods=METHODS) -> None:
     """64 teacher-forced steps of the model's megakernels beside their plain
-    steps on the card in fp32 (`eng`: an fp32 engine), from the same
-    prefill: both get the kernel's token."""
+    steps on the card in fp32 (`eng`: an fp32 engine, full-precision or
+    quantized weights), from the same prefill: both get the kernel's
+    token."""
     from efficient_llm_inference_tpu_torch.engine.generate import (
         _embed, _mega_panes, bucket_for, make_prefill)
 
@@ -2297,7 +2326,8 @@ def phase_fp32_mega_hold(eng) -> None:
     buf = torch.zeros((1, bucket), dtype=torch.long)
     buf[0, :len(ids)] = torch.tensor(ids)
     buf = buf.cuda()
-    for method in METHODS:
+    wq = eng.config.weight_quant or "full-precision"
+    for method in methods:
         _, strategy = eng._build(method, bucket, NEW_TOKENS, {})
         kv_mode = None if method == "full_cache" else method.replace("quant_", "")
         mode = kv_mode or "fp"
@@ -2320,14 +2350,254 @@ def phase_fp32_mega_hold(eng) -> None:
             if gap >= 1e-4:
                 clear += 1
                 if got != int(logits.argmax()):
-                    raise AssertionError(f"fp32 megakernel {family} {method}: token "
+                    raise AssertionError(f"fp32 megakernel {family} {wq} {method}: token "
                                          f"{got}, plain {int(logits.argmax())} "
                                          f"(gap {gap})")
             assert torch.isfinite(logits).all()
             tok, length = got, length + 1
-        log(f"  fp32 megakernel {family} {method}: kernel token == plain argmax at "
+        log(f"  fp32 megakernel {family} {wq} {method}: kernel token == plain argmax at "
             f"{clear} of {NEW_TOKENS} teacher-forced steps (the rest have a top-2 gap "
             f"under 1e-4; smallest gap {min(gaps):.2e})")
+
+
+# ---------------------------------------------------------------------------
+# Weight tiers (Config.weight_quant): #9, #11, #12 and #13 at R = 1 streaming
+# int8 or grouped-int4 weights.
+
+WEIGHT_QUANTS = ("int8", "int4", "int4w8")
+TIER_SUFFIX = {"int8": "w8", "int4": "w4"}
+TIER_HOLD_METHODS = ("full_cache", "quant_int8")  # a tier of each step kernel
+
+
+def _quantized_params(spec, params: dict, wq: str) -> dict:
+    """`params` quantized as from_model_name quantizes them for `wq`, at the
+    mode and group of the engine's `weight_quant_plan` (a padded FFN comes
+    from the caller: the plan must keep `spec`)."""
+    from efficient_llm_inference_tpu_torch.engine.engine import (
+        quantize_weights,
+        weight_quant_plan,
+    )
+
+    qspec, mode, group = weight_quant_plan(spec, wq)
+    assert qspec is spec, "pad the FFN to the int4w8 geometry first"
+    return quantize_weights(spec, params, mode, group)
+
+
+# the packed keys a step streams: weights (codes or values) and their scales
+_STREAMED = {"gpt2": ("attn_w", "proj_w", "fc_w", "fcp_w", "head"),
+             "llama": ("qkv_w", "o_w", "gu_w", "down_w", "head")}
+
+
+def _packed_weight_bytes(family: str, packed: dict) -> int:
+    """Bytes of the weights one step streams: every code row and scale of a
+    quantized pack (the LM head's copy included), or the full-precision
+    weights and the LM head (GPT-2: wte)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+
+    names = list(_STREAMED[family])
+    if family == "gpt2" and "head" not in packed:
+        names[-1] = "wte"
+    names += [mk.scale_key(n) for n in names if mk.scale_key(n) in packed]
+    return sum(packed[n].numel() * packed[n].element_size() for n in names)
+
+
+def _tier_bound(family: str, cfg, packed: dict, mode: str, dtype, rows: int) -> tuple:
+    """Least time of one step over a weight-tier pack: its streamed codes and
+    scales (from the pack itself), the layer norms, biases and one
+    embedding row, the `rows` visible KV rows and their scales and the new
+    rows; two operations per weight plus the attention's four per cached
+    value and query head (as `_mega_bound` / `_llama_bound`)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    names = _STREAMED[family]
+    n_weights = sum(packed[n].numel() * (2 if packed[n].dtype == torch.uint8 else 1)
+                    for n in names)
+    if family == "gpt2":
+        E, L = cfg.n_embd, cfg.n_layer
+        smalls, emb, W, QW = (L * 13 * E + 2 * E) * 4, 2 * E * item, E, E
+    else:
+        E, L, D = cfg.hidden_size, cfg.n_layer, cfg.head_dim
+        W, QW = cfg.n_kv_head * D, cfg.n_head * D
+        smalls = (L * 2 * E + E + 2 * D + (L * (QW + 2 * W) if cfg.qkv_bias else 0)) * 4
+        emb = E * item
+    n_bytes = (_packed_weight_bytes(family, packed) + smalls + emb
+               + _kv_bytes(mode, item, L, W, rows + 1))
+    flops = 2 * n_weights + L * 4 * (rows + 1) * QW
+    rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def _tier_case(family, cfg, packed, mode, dtype, length, seed, deep_bf16, timed):
+    """One tier step at `length` of C = 320 against its plain step (phase
+    2's tolerances); with `timed`, its device ms (graph replay), the plain
+    step's, and the bound. Returns (token, plain argmax, row error, times)."""
+    L = cfg.n_layer
+    E = cfg.n_embd if family == "gpt2" else cfg.hidden_size
+    W = E if family == "gpt2" else cfg.n_kv_head * cfg.head_dim
+    state, x = _mega_state(mode, dtype, seed, L, W, E)
+    dev_len = torch.tensor([length], dtype=torch.int32, device="cuda")
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+
+    def kernel():
+        return _mega_step(mode, packed, cfg, got, dev_len, x, family=family)
+
+    def plain():
+        return _mega_step(mode, packed, cfg, want, length, x, plain=True, family=family)
+
+    tok = int(kernel()[0])
+    logits = plain()[-1]
+    torch.cuda.synchronize()
+    if not _token_ok(tok, logits, dtype, deep_bf16=deep_bf16):
+        raise AssertionError(f"tier step {family} {mode} {dtype} len={length}: token "
+                             f"{tok}, plain argmax {int(logits.argmax())}")
+    err = _new_row_err(mode, dtype, got, want, state, row=length, deep_bf16=deep_bf16)
+    times = None
+    if timed:
+        b, by = _tier_bound(family, cfg, packed, mode, dtype, length)
+        times = {"ms": device_ms(kernel, calls=10),
+                 "plain_ms": device_ms(plain, calls=2, replays=2),
+                 "bound_ms": b, "bound_by": by, "library_ms": None}
+    return tok, int(logits.argmax()), err, times
+
+
+def check_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
+    """#9 / #11 (GPT-2 small) and #13 / #12 (Llama-3.2-1B) over int8, int4
+    (G = 128) and int4w8 weights quantized from the main path's seed-42
+    params, fp / int8 / int4 / mixed panes, bf16 and fp32 (the bf16 weights
+    widened, then quantized), lengths 0 and 319 of C = 320, each against its
+    plain step (Llama: the deep-bf16 allowance) and timed at 319; then a
+    Qwen2.5-0.5B-width model cut to 2 layers at int4w8 (group 448, FFN
+    padded 4864 -> 5376), fp and int8 panes, untimed. The kernels line
+    takes the bf16 times at 319 (fp panes for #9 / #13, int8 panes for
+    #11 / #12; int8 weights for _w8, int4 for _w4) and the worst error."""
+    import dataclasses
+
+    from efficient_llm_inference_tpu_torch.engine.engine import weight_quant_plan
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.models import llama as llama_mod
+    from efficient_llm_inference_tpu_torch.models.registry import (
+        gpt2_spec,
+        spec_by_name,
+        spec_with_config,
+    )
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    timing, errs = {}, {}
+    cases = [(gpt2_spec(gpt2_cfg), "GPT-2 small", lambda dtype: gpt2_mod.init_gpt2_params(
+                  torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda")),
+             (spec_by_name("llama-3-1b"), "Llama-3.2-1B",
+              lambda dtype: _cast_params(llama_params_bf16, dtype))]
+    for spec, label, params_for in cases:
+        family, cfg = spec.name, spec.config
+        pack = mk.pack_gpt2_mega if family == "gpt2" else ml.pack_llama_mega
+        for dtype in (torch.float32, torch.bfloat16):
+            base = params_for(dtype)
+            for wq in WEIGHT_QUANTS:
+                packed = pack(_quantized_params(spec, base, wq), cfg)
+                assert packed is not None and mk.weight_kind(packed) == wq[:4]
+                group = mk.weight_group(packed, "head")
+                for i, mode in enumerate(MODES):
+                    for length in (0, MEGA_LEN):
+                        tok, want, err, t = _tier_case(
+                            family, cfg, packed, mode, dtype, length, 300 + i + length,
+                            deep_bf16=family == "llama", timed=length == MEGA_LEN)
+                        key = (family, wq, mode, dtype)
+                        errs[key] = max(err, errs.get(key, 0.0))
+                        line = (f"  tier step {label} {wq} (G={group}) {mode} panes "
+                                f"{str(dtype)[6:]} C=320 len={length}: token {tok} "
+                                f"(plain {want}), new rows max|kernel-plain| {err:.2e}")
+                        if t is not None:
+                            timing[key] = t
+                            line += (f"; device ms kernel {t['ms']:.5f}, plain "
+                                     f"{t['plain_ms']:.5f}, bound {t['bound_ms']:.5f} "
+                                     f"({t['bound_by']}), streamed weight bytes "
+                                     f"{_packed_weight_bytes(family, packed)}")
+                        log(line)
+                del packed
+            del base
+            torch.cuda.empty_cache()
+    qspec, _, group = weight_quant_plan(spec_by_name("qwen2.5-0.5b"), "int4w8")
+    qspec = spec_with_config(qspec, dataclasses.replace(qspec.config, n_layer=2))
+    qwen = qspec.config
+    assert (group, qwen.intermediate_size) == (448, 5376)
+    qparams = llama_mod.init_llama_params(torch.Generator().manual_seed(7), qwen,
+                                          torch.float32, "cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = ml.pack_llama_mega(_quantized_params(
+            qspec, _cast_params(qparams, dtype), "int4w8"), qwen)
+        assert packed is not None and mk.weight_group(packed, "head") == 448
+        for i, mode in enumerate(("fp", "int8")):
+            for length in (0, MEGA_LEN):
+                tok, want, err, _ = _tier_case("llama", qwen, packed, mode, dtype, length,
+                                               400 + i + length, deep_bf16=False,
+                                               timed=False)
+                key = ("llama", "int4w8", mode, dtype)
+                errs[key] = max(err, errs.get(key, 0.0))
+                log(f"  tier step Qwen2.5-0.5B width L=2 int4w8 (G=448, I=5376) {mode} "
+                    f"panes {str(dtype)[6:]} C=320 len={length}: token {tok} (plain "
+                    f"{want}), new rows max|kernel-plain| {err:.2e}")
+    reports = {}
+    for family in ("gpt2", "llama"):
+        for wq in ("int8", "int4"):
+            for quant, mode in ((False, "fp"), (True, "int8")):
+                name = f"{family}_megastep{'_quant' if quant else ''}_{TIER_SUFFIX[wq]}"
+                worst = max(e for (f, w, m, _), e in errs.items()
+                            if f == family and w[:4] == wq and (m == "fp") != quant)
+                reports[name] = dict(timing[(family, wq, mode, torch.bfloat16)],
+                                     max_abs_err=worst)
+    return reports
+
+
+def _expected_tier_launches(method: str, L: int, n_gen: int, family: str, wq: str) -> dict:
+    """The megakernel-on main path's launches over `wq` weights: those of
+    full-precision weights with each chain launch on its weight tier."""
+    want = _expected_launches(method, True, L, n_gen, family)
+    step = f"{family}_megastep" + ("" if method == "full_cache" else "_quant")
+    want[f"{step}_{TIER_SUFFIX[wq[:4]]}"] = want.pop(step)
+    want[step] = 0
+    return want
+
+
+def phase_weight_quant_main_path(launches: dict, name: str, engines, bf16_tps: dict) -> None:
+    """benchmark_method for the four methods on from_model_name(name,
+    Config(weight_quant=wq)) for wq in int8, int4, int4w8 (bf16, the
+    megakernel on: each decode step one launch of the chain's weight tier,
+    no full-precision launch), the counters zeroed just before and read
+    just after each run; tokens/s beside the bf16-weight run's (phase 5) and
+    the streamed weight bytes of a step. `engines(wq)` makes the engine."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+
+    prompts = _prompts(N_PROMPTS, SEED)
+    n_gen = N_PROMPTS + 1
+    for wq in WEIGHT_QUANTS:
+        eng = engines(wq)
+        family = eng.model.name
+        assert eng.config.weight_quant == wq and eng.config.resolved_megakernel()
+        assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
+        assert mk.weight_quantized(eng.params)
+        for method in METHODS:
+            res, got = _counted(launches, lambda: eng.benchmark_method(
+                prompts, method=method, max_new_tokens=NEW_TOKENS))
+            want = _expected_tier_launches(method, eng.model.n_layer, n_gen, family, wq)
+            if got != want:
+                raise AssertionError(f"{name} weight_quant={wq} {method}: launches {got}, "
+                                     f"expected {want}")
+            ids = eng.last_generation_ids
+            assert len(ids) == PROMPT_TOKENS + NEW_TOKENS
+            assert all(0 <= t < eng.model.vocab_size for t in ids[-NEW_TOKENS:])
+            assert res["total_new_tokens"] == N_PROMPTS * NEW_TOKENS
+            assert math.isfinite(res["tokens_per_sec"]) and res["tokens_per_sec"] > 0
+            packed = eng._mega_packed
+            log(f"  {name} weight_quant={wq} (G={mk.weight_group(packed, 'head')}) "
+                f"{method}: {res['tokens_per_sec']:.1f} tokens/s (bf16 weights "
+                f"{bf16_tps[method]:.1f}, {res['tokens_per_sec'] / bf16_tps[method]:.2f}x), "
+                f"streamed weight bytes a step {_packed_weight_bytes(family, packed)}, peak "
+                f"{res['gpu_peak_mb']} MB, launches "
+                f"{json.dumps({k: v for k, v in got.items() if v})}, last tokens "
+                f"{ids[-NEW_TOKENS:][:8]}")
+        del eng
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2372,6 +2642,10 @@ def main() -> int:
     log(f"phase llama kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    reports.update(check_weight_tiers(gpt2_cfg, llama.params))
+    log(f"phase weight-tier kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reports.update(check_megabatches("llama", llama.model.config,
                                      lambda dtype: _cast_params(llama.params, dtype),
                                      wide={"fp": (16,), "quant": (16,)}))
@@ -2401,13 +2675,22 @@ def main() -> int:
     log(f"phase kernel library: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    phase_main_path(launches, "gpt2", lambda mega: InferenceEngine.from_model_name(
+    gpt2_tps = phase_main_path(launches, "gpt2", lambda mega: InferenceEngine.from_model_name(
         "gpt2", config=Config(model_name="gpt2", megakernel=mega)))
-    phase_main_path(launches, "llama-3-1b", lambda mega: (
+    llama_tps = phase_main_path(launches, "llama-3-1b", lambda mega: (
         llama if mega is None else InferenceEngine.from_model_name(
             "llama-3-1b", config=Config(model_name="llama-3-1b", megakernel=False),
             params=llama.params)))
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_weight_quant_main_path(launches, "gpt2", lambda wq: InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", weight_quant=wq)), gpt2_tps)
+    phase_weight_quant_main_path(launches, "llama-3-1b", lambda wq: (
+        InferenceEngine.from_model_name(
+            "llama-3-1b", config=Config(model_name="llama-3-1b", weight_quant=wq),
+            params=llama.params)), llama_tps)
+    log(f"phase weight-quant main path: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     phase_batch_main_path(launches, "gpt2", gpt2)
@@ -2435,6 +2718,9 @@ def main() -> int:
     gpt2_32 = InferenceEngine.from_model_name(
         "gpt2", config=Config(model_name="gpt2", dtype=torch.float32))
     phase_fp32_mega_hold(gpt2_32)
+    for wq in ("int8", "int4"):
+        phase_fp32_mega_hold(InferenceEngine.from_model_name("gpt2", config=Config(
+            model_name="gpt2", dtype=torch.float32, weight_quant=wq)), TIER_HOLD_METHODS)
     phase_batch_fp32_hold(gpt2_32)
     phase_spec_fp32_hold(gpt2_32)
     phase_server_fp32_hold(gpt2_32)
@@ -2453,6 +2739,11 @@ def main() -> int:
     phase_fp32_mega_hold(llama32)
     phase_spec_fp32_hold(llama32)
     del llama32
+    for wq in ("int8", "int4"):
+        phase_fp32_mega_hold(InferenceEngine.from_model_name("llama-3-1b", config=Config(
+            model_name="llama-3-1b", dtype=torch.float32, weight_quant=wq),
+            params=params32), TIER_HOLD_METHODS)
+        torch.cuda.empty_cache()
     log(f"phase fp32 hold: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
@@ -2533,6 +2824,10 @@ def main() -> int:
             "efficient_llm_inference_tpu_torch/csrc/paged_attention.cu",
             "efficient_llm_inference_tpu/ops/pallas/paged.py:109"),
     }
+    for step in ("gpt2_megastep", "gpt2_megastep_quant", "llama_megastep",
+                 "llama_megastep_quant"):  # the weight tiers of #9, #11, #13, #12
+        for suffix in TIER_SUFFIX.values():
+            where[f"{step}_{suffix}"] = where[step]
     kernels = []
     for name, (source, replaces) in where.items():
         r = reports[name]

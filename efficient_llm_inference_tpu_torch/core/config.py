@@ -15,6 +15,9 @@ from typing import Optional
 import torch
 
 
+WEIGHT_QUANT_MODES = (None, "int8", "int4", "int4w8")
+
+
 def default_dtype(device: str) -> torch.dtype:
     """bfloat16 on CUDA, float32 on the CPU."""
     return torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
@@ -46,6 +49,16 @@ class Config:
             CPU the steps then run the kernels' plain PyTorch versions).
             It also lets `generate_batch` take the batched kernels
             (ops/megakernel_batch.py); off, it generates prompt by prompt.
+        weight_quant: serving mode beyond the reference (the JAX Config's
+            field). "int8" quantizes every matmul weight per output
+            channel; "int4" uses grouped 4-bit weights (group 128 along
+            the input); "int4w8" is int4 with one scale group per half of
+            the JAX kernel's weight tile (Llama/Qwen: TR/2; GPT-2: E/2).
+            The engine quantizes at `from_model_name` and the single-stream
+            whole-step kernels stream the codes (ops/megakernel.py); None
+            keeps full-precision weights. Static batches, speculation and
+            `MegaBatchServer` raise on quantized weights (ROADMAP.md
+            Queue 1 item 14).
     """
 
     model_name: str = "gpt2"
@@ -57,8 +70,12 @@ class Config:
     prompt_cap: int = 1024
     scan_unroll: Optional[int] = None
     megakernel: Optional[bool] = None
+    weight_quant: Optional[str] = None
 
     def __post_init__(self):
+        if self.weight_quant not in WEIGHT_QUANT_MODES:
+            raise ValueError(f"weight_quant={self.weight_quant!r}: expected one of "
+                             f"{WEIGHT_QUANT_MODES}")
         if self.dtype is None:
             self.dtype = default_dtype(self.device)
 

@@ -41,6 +41,20 @@
 // launch), a persistent single kernel, wgmma/TMA, and splitting attention
 // rows across blocks (12 blocks per layer at GPT-2's 12 heads).
 //
+// Weight tiers (the JAX kernels' "wscale" / "w4scale" modes,
+// ops/pallas/megakernel.py:351-358, :470-490): with w_kind 8 the four layer
+// weights and the LM head are int8 rows with fp32 per-row scales, with
+// w_kind 4 grouped-int4 rows (32 codes a 16-byte load) with per-(row, group)
+// scales in the model dtype; every GEMV of the chain streams its weight in
+// that tier (megastep_common.cuh gemv_kernel W_I8 / W_I4). The fc_proj rows
+// span all 4E inputs, so the int8 tier applies each row's scale once to the
+// whole sum (JAX scales each of the four [E, E] partials by the same
+// column scale). The LM head is then the quantized copy `head` [V, E]
+// (exactly V rows); the embedding stays on wte. Bound: bytes, as above, of
+// the codes and scales: for GPT-2 small ~124 MB in int8 (~37 us at
+// 3.35 TB/s) and ~64 MB in int4 at G = 128 (~19 us); chip_smoke.py
+// computes each from the run's tensors.
+//
 // Numerics: the JAX kernels' rounding points, as megastep_common.cuh states
 // them.
 //
@@ -48,12 +62,15 @@
 // ops/megakernel.py) and a stream, check the first error of each launch with
 // cudaGetLastError() and return it (0 = success); elit_cuda_error_string
 // names a code. dtype: 0 = float32, 1 = bfloat16. k_kind/v_kind: 0 = model
-// dtype, 8 = int8, 4 = half-split int4. head_dim in {64, 128}; capacity up to
-// 8192 (one head's scores, 32 KB, in shared memory without an opt-in).
+// dtype, 8 = int8, 4 = half-split int4. w_kind: 0 = model dtype, 8 = int8,
+// 4 = grouped int4 (w_group % 32 == 0, dividing E). head_dim in {64, 128};
+// capacity up to 8192 (one head's scores, 32 KB, in shared memory without an
+// opt-in).
 
 #include "megastep_common.cuh"
 
-// Mirrored field by field by ops/megakernel.py's MegaArgs (ctypes).
+// Mirrored field by field by ops/megakernel.py's MegaStepArgs (ctypes): its
+// MegaArgs, which the batched and verify structs repeat, then the weight tier.
 struct MegaArgs {
   int dtype, n_layer, n_embd, n_head, vocab, n_pos, capacity;
   int k_kind, v_kind, advance, lm_blocks;
@@ -80,6 +97,13 @@ struct MegaArgs {
   void* ffn;
   float* lm_val;       // [lm_blocks]
   int* lm_idx;
+  int w_kind, w_group; // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* head;    // [V, E] LM-head codes ([V, E/2] int4), or null: wte
+  const void* attn_s;  // scales: [L, 3E] fp32 (int8), [L, 3E, E/G] T (int4)
+  const void* proj_s;  // [L, E] / [L, E, E/G]
+  const void* fc_s;    // [L, 4E] / [L, 4E, E/G]
+  const void* fcp_s;   // [L, E] / [L, E, 4E/G]
+  const void* head_s;  // [V] / [V, E/G]
 };
 
 namespace {
@@ -106,28 +130,26 @@ embed_kernel(const T* __restrict__ wte, const T* __restrict__ wpe, const int* __
 template <typename T>
 int run_step(const MegaArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, V = a.vocab;
-  const size_t E_ = E;
-  const T* attn_w = static_cast<const T*>(a.attn_w);
-  const T* proj_w = static_cast<const T*>(a.proj_w);
-  const T* fc_w = static_cast<const T*>(a.fc_w);
-  const T* fcp_w = static_cast<const T*>(a.fcp_w);
-  const T* wte = static_cast<const T*>(a.wte);
+  const int wk = a.w_kind, G = a.w_group;
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
   T* ffn = static_cast<T*>(a.ffn);
-  const size_t h1 = sizeof(float) * E, h4 = sizeof(float) * 4 * E;
+  auto weight = [&](const void* w, const void* s, int l, int N, int K) {
+    return weight_at<T>(w, s, wk, G, (size_t)l * N, K);
+  };
 
-  embed_kernel<T><<<1, kThreads, 0, st>>>(wte, static_cast<const T*>(a.wpe), a.tok_in,
+  embed_kernel<T><<<1, kThreads, 0, st>>>(static_cast<const T*>(a.wte),
+                                          static_cast<const T*>(a.wpe), a.tok_in,
                                           static_cast<const T*>(a.x_emb), a.length, E, V,
                                           a.n_pos, x);
   LAUNCH_CHECK();
   for (int l = 0; l < L; ++l) {
     const float* sm = a.smalls + (size_t)l * 13 * E;
-    gemv_kernel<T, PRO_LN, EPI_STORE, 1><<<cdiv(3 * E, kWarps), kThreads, h1, st>>>(
-        attn_w + l * 3 * E_ * E, 3 * E, E, x, sm, sm + E, a.ln_eps, sm + 4 * E, qkv, nullptr,
-        nullptr);
-    LAUNCH_CHECK();
+    if (int rc = gemv<T, PRO_LN, EPI_STORE, 1>(
+            weight(a.attn_w, a.attn_s, l, 3 * E, E), 3 * E, E, cdiv(3 * E, kWarps), st, x, sm,
+            sm + E, a.ln_eps, sm + 4 * E, qkv))
+      return rc;
     AttnParams ap{};
     ap.qkv = qkv;
     ap.k = static_cast<char*>(a.k) + pane_offset(a.k_kind, sizeof(T), l, a.capacity, E);
@@ -142,24 +164,26 @@ int run_step(const MegaArgs& a, cudaStream_t st) {
     ap.sm_scale = 1.0f / sqrtf((float)(E / a.n_head));
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
-    const int rc = attention<T>(ap, a.k_kind, a.v_kind, E / a.n_head, st);
-    if (rc) return rc;
-    gemv_kernel<T, PRO_VEC, EPI_RESIDUAL, 2><<<cdiv(E, kWarps / 2), kThreads, h1, st>>>(
-        proj_w + l * E_ * E, E, E, attn, nullptr, nullptr, 0.0f, sm + 7 * E, x, nullptr,
-        nullptr);
-    LAUNCH_CHECK();
-    gemv_kernel<T, PRO_LN, EPI_GELU, 1><<<cdiv(4 * E, kWarps), kThreads, h1, st>>>(
-        fc_w + l * 4 * E_ * E, 4 * E, E, x, sm + 2 * E, sm + 3 * E, a.ln_eps, sm + 8 * E, ffn,
-        nullptr, nullptr);
-    LAUNCH_CHECK();
-    gemv_kernel<T, PRO_VEC, EPI_RESIDUAL, 4><<<cdiv(E, kWarps / 4), kThreads, h4, st>>>(
-        fcp_w + l * 4 * E_ * E, E, 4 * E, ffn, nullptr, nullptr, 0.0f, sm + 12 * E, x, nullptr,
-        nullptr);
-    LAUNCH_CHECK();
+    if (int rc = attention<T>(ap, a.k_kind, a.v_kind, E / a.n_head, st)) return rc;
+    if (int rc = gemv<T, PRO_VEC, EPI_RESIDUAL, 2>(
+            weight(a.proj_w, a.proj_s, l, E, E), E, E, cdiv(E, kWarps / 2), st, attn, nullptr,
+            nullptr, 0.0f, sm + 7 * E, x))
+      return rc;
+    if (int rc = gemv<T, PRO_LN, EPI_GELU, 1>(
+            weight(a.fc_w, a.fc_s, l, 4 * E, E), 4 * E, E, cdiv(4 * E, kWarps), st, x,
+            sm + 2 * E, sm + 3 * E, a.ln_eps, sm + 8 * E, ffn))
+      return rc;
+    if (int rc = gemv<T, PRO_VEC, EPI_RESIDUAL, 4>(
+            weight(a.fcp_w, a.fcp_s, l, E, 4 * E), E, 4 * E, cdiv(E, kWarps / 4), st, ffn,
+            nullptr, nullptr, 0.0f, sm + 12 * E, x))
+      return rc;
   }
-  gemv_kernel<T, PRO_LN, EPI_ARGMAX, 1><<<a.lm_blocks, kThreads, h1, st>>>(
-      wte, V, E, x, a.lnf, a.lnf + E, a.ln_eps, nullptr, nullptr, a.lm_val, a.lm_idx);
-  LAUNCH_CHECK();
+  const WeightRef head = wk == W_T ? WeightRef{a.wte, nullptr, W_T, 0}
+                                   : weight(a.head, a.head_s, 0, V, E);
+  if (int rc = gemv<T, PRO_LN, EPI_ARGMAX, 1>(head, V, E, a.lm_blocks, st, x, a.lnf,
+                                              a.lnf + E, a.ln_eps, nullptr, nullptr,
+                                              a.lm_val, a.lm_idx))
+    return rc;
   argmax_kernel<<<1, kThreads, 0, st>>>(a.lm_val, a.lm_idx, a.lm_blocks, V, a.advance,
                                         a.tok_out, a.length);
   LAUNCH_CHECK();
@@ -171,9 +195,13 @@ int run(const MegaArgs* a, void* stream, bool quant) {
   const bool q = a->k_kind != 0 || a->v_kind != 0;
   const int E = a->n_embd, H = a->n_head;
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
+  const int wk = a->w_kind, G = a->w_group;
+  const bool tier_ok =
+      wk == W_T || (a->head && a->attn_s && a->proj_s && a->fc_s && a->fcp_s && a->head_s &&
+                    (wk == W_I8 || (wk == W_I4 && G > 0 && G % 32 == 0 && E % G == 0)));
   if (q != quant || H <= 0 || E % H || E % 128 || a->capacity <= 0 ||
       a->capacity > 8192 || a->lm_blocks <= 0 || (q && (!a->ks || !a->vs)) ||
-      (int4 && (E / 2) % (E / H)))
+      (int4 && (E / 2) % (E / H)) || !tier_ok)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return run_step<float>(*a, st);

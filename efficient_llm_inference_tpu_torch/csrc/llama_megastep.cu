@@ -41,6 +41,18 @@
 // `group` times, from L2), overlapping kernels, a persistent kernel,
 // wgmma/TMA.
 //
+// Weight tiers (the JAX kernel's "wscale" / "w4scale" modes,
+// ops/pallas/megakernel_llama.py:763-790 and megakernel_quant.py:744-745):
+// with w_kind 8 every weight (q|k|v, o, gate|up, down and the LM head) is
+// int8 rows with fp32 per-row scales (gate and up scales interleaved like
+// their rows), with w_kind 4 grouped-int4 rows with per-(row, group) scales
+// in the model dtype, the int4w8 group TR/2 (Llama-3.2-1B: 1024) included;
+// every GEMV of the chain streams its weight in that tier (megastep_common.cuh
+// gemv_kernel W_I8 / W_I4), and the LM head is the quantized copy `head`.
+// Bound: bytes, of the codes and scales: for Llama-3.2-1B ~1.24 GB in int8
+// (~0.37 ms at 3.35 TB/s) and ~0.64 GB in int4 at G = 128 (~0.19 ms);
+// chip_smoke.py computes each from the run's tensors.
+//
 // Numerics (the JAX kernels' rounding points, megastep_common.cuh): RMSNorm
 // with fp32 statistics, the normalised value rounded to the model dtype
 // before the gain; q and k rounded to the model dtype, then RoPE in fp32 and
@@ -52,12 +64,15 @@
 // ops/megakernel_llama.py) and a stream, check the first error of each launch
 // with cudaGetLastError() and return it (0 = success); elit_cuda_error_string
 // names a code. dtype: 0 = float32, 1 = bfloat16. k_kind/v_kind: 0 = model
-// dtype, 8 = int8, 4 = half-split int4. head_dim in {64, 128}; capacity up to
-// 8192.
+// dtype, 8 = int8, 4 = half-split int4. w_kind: 0 = model dtype, 8 = int8
+// (E, QW, I multiples of 16), 4 = grouped int4 (w_group % 32 == 0, dividing
+// E, QW and I). head_dim in {64, 128}; capacity up to 8192.
 
 #include "megastep_common.cuh"
 
-// Mirrored field by field by ops/megakernel_llama.py's LlamaArgs (ctypes).
+// Mirrored field by field by ops/megakernel_llama.py's LlamaStepArgs
+// (ctypes): its LlamaArgs, which the batched and verify structs repeat, then
+// the weight tier.
 struct LlamaArgs {
   int dtype, n_layer, n_embd, n_head, n_kv_head, head_dim, inter, vocab, n_pos, capacity;
   int k_kind, v_kind, advance, lm_blocks;
@@ -87,6 +102,12 @@ struct LlamaArgs {
   void* ffn;
   float* lm_val;       // [lm_blocks]
   int* lm_idx;
+  int w_kind, w_group; // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* qkv_s;   // scales: [L, QW + 2 KW] fp32 (int8), [.., E/G] T (int4)
+  const void* o_s;     // [L, E] / [L, E, QW/G]
+  const void* gu_s;    // [L, 2 I] / [L, 2 I, E/G], interleaved like gu_w
+  const void* down_s;  // [L, E] / [L, E, I/G]
+  const void* head_s;  // [V] / [V, E/G]
 };
 
 namespace {
@@ -104,28 +125,24 @@ template <typename T>
 int run_step(const LlamaArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
   const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
-  const size_t E_ = E;
-  const T* qkv_w = static_cast<const T*>(a.qkv_w);
-  const T* o_w = static_cast<const T*>(a.o_w);
-  const T* gu_w = static_cast<const T*>(a.gu_w);
-  const T* down_w = static_cast<const T*>(a.down_w);
+  const int wk = a.w_kind, G = a.w_group;
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
   T* ffn = static_cast<T*>(a.ffn);
-  const size_t hE = sizeof(float) * E, hQ = sizeof(float) * QW, hI = sizeof(float) * I;
-  auto down = gemv_kernel<T, PRO_VEC, EPI_RESIDUAL, 4>;
-  if (int rc = allow_smem(down, hI)) return rc;
+  auto weight = [&](const void* w, const void* s, int l, int N, int K) {
+    return weight_at<T>(w, s, wk, G, (size_t)l * N, K);
+  };
 
   embed_kernel<T><<<1, kThreads, 0, st>>>(static_cast<const T*>(a.embed), a.tok_in,
                                           static_cast<const T*>(a.x_emb), E, V, x);
   LAUNCH_CHECK();
   for (int l = 0; l < L; ++l) {
     const float* nm = a.norms + (size_t)l * 2 * E;
-    gemv_kernel<T, PRO_RMS, EPI_STORE, 1><<<cdiv(NQKV, kWarps), kThreads, hE, st>>>(
-        qkv_w + l * NQKV * E_, NQKV, E, x, nm, nullptr, a.rms_eps,
-        a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv, nullptr, nullptr);
-    LAUNCH_CHECK();
+    if (int rc = gemv<T, PRO_RMS, EPI_STORE, 1>(
+            weight(a.qkv_w, a.qkv_s, l, NQKV, E), NQKV, E, cdiv(NQKV, kWarps), st, x, nm,
+            nullptr, a.rms_eps, a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv))
+      return rc;
     AttnParams ap{};
     ap.qkv = qkv;
     ap.k = static_cast<char*>(a.k) + pane_offset(a.k_kind, sizeof(T), l, a.capacity, KW);
@@ -145,21 +162,23 @@ int run_step(const LlamaArgs& a, cudaStream_t st) {
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
     if (int rc = attention<T>(ap, a.k_kind, a.v_kind, D, st)) return rc;
-    gemv_kernel<T, PRO_VEC, EPI_RESIDUAL, 2><<<cdiv(E, kWarps / 2), kThreads, hQ, st>>>(
-        o_w + l * E_ * QW, E, QW, attn, nullptr, nullptr, 0.0f, nullptr, x, nullptr, nullptr);
-    LAUNCH_CHECK();
-    gemv_kernel<T, PRO_RMS, EPI_SWIGLU, 1><<<cdiv(2 * I, kWarps), kThreads, hE, st>>>(
-        gu_w + l * 2 * (size_t)I * E, 2 * I, E, x, nm + E, nullptr, a.rms_eps, nullptr, ffn,
-        nullptr, nullptr);
-    LAUNCH_CHECK();
-    down<<<cdiv(E, kWarps / 4), kThreads, hI, st>>>(
-        down_w + l * E_ * I, E, I, ffn, nullptr, nullptr, 0.0f, nullptr, x, nullptr, nullptr);
-    LAUNCH_CHECK();
+    if (int rc = gemv<T, PRO_VEC, EPI_RESIDUAL, 2>(
+            weight(a.o_w, a.o_s, l, E, QW), E, QW, cdiv(E, kWarps / 2), st, attn, nullptr,
+            nullptr, 0.0f, nullptr, x))
+      return rc;
+    if (int rc = gemv<T, PRO_RMS, EPI_SWIGLU, 1>(
+            weight(a.gu_w, a.gu_s, l, 2 * I, E), 2 * I, E, cdiv(2 * I, kWarps), st, x, nm + E,
+            nullptr, a.rms_eps, nullptr, ffn))
+      return rc;
+    if (int rc = gemv<T, PRO_VEC, EPI_RESIDUAL, 4>(
+            weight(a.down_w, a.down_s, l, E, I), E, I, cdiv(E, kWarps / 4), st, ffn, nullptr,
+            nullptr, 0.0f, nullptr, x))
+      return rc;
   }
-  gemv_kernel<T, PRO_RMS, EPI_ARGMAX, 1><<<a.lm_blocks, kThreads, hE, st>>>(
-      static_cast<const T*>(a.head), V, E, x, a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
-      a.lm_val, a.lm_idx);
-  LAUNCH_CHECK();
+  if (int rc = gemv<T, PRO_RMS, EPI_ARGMAX, 1>(weight(a.head, a.head_s, 0, V, E), V, E,
+                                               a.lm_blocks, st, x, a.lnf, nullptr, a.rms_eps,
+                                               nullptr, nullptr, a.lm_val, a.lm_idx))
+    return rc;
   argmax_kernel<<<1, kThreads, 0, st>>>(a.lm_val, a.lm_idx, a.lm_blocks, V, a.advance,
                                         a.tok_out, a.length);
   LAUNCH_CHECK();
@@ -171,11 +190,16 @@ int run(const LlamaArgs* a, void* stream, bool quant) {
   const bool q = a->k_kind != 0 || a->v_kind != 0;
   const int D = a->head_dim, Hq = a->n_head, Hkv = a->n_kv_head;
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
-  // 16-byte weight rows need widths that are multiples of 8 values
-  if (q != quant || (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || a->n_embd % 8 ||
-      a->inter % 8 || a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
-      a->n_pos <= 0 || !a->cos || !a->sin || (q && (!a->ks || !a->vs)) ||
-      (int4 && (Hkv * D / 2) % D))
+  // 16-byte weight rows need widths that are multiples of a chunk's inputs
+  const int wk = a->w_kind, G = a->w_group;
+  const int chunk = wk == W_T ? 8 : (wk == W_I8 ? 16 : G);
+  const bool tier_ok =
+      wk == W_T || (a->qkv_s && a->o_s && a->gu_s && a->down_s && a->head_s &&
+                    (wk == W_I8 || (wk == W_I4 && G > 0 && G % 32 == 0)));
+  if (q != quant || (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || !tier_ok ||
+      a->n_embd % chunk || (Hq * D) % chunk || a->inter % chunk || a->capacity <= 0 ||
+      a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 || !a->cos || !a->sin ||
+      (q && (!a->ks || !a->vs)) || (int4 && (Hkv * D / 2) % D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return run_step<float>(*a, st);

@@ -1,8 +1,9 @@
 // Device code shared by the whole-step decode chains (gpt2_megastep.cu,
 // llama_megastep.cu, and the batched and verify chains of megabatch.cu,
 // megaverify.cu and megabatch_verify.cu): conversions, 16-byte weight
-// streaming, block reductions, the GEMV kernel with its norm prologues and
-// fused epilogues, decode attention over fp / int8 / half-split int4 panes
+// streaming, block reductions, the GEMV kernel with its norm prologues,
+// fused epilogues and weight tiers (model dtype, int8, grouped int4; the
+// single-stream chains), decode attention over fp / int8 / half-split int4 panes
 // with quantize-on-write, the final argmax, and the slot strides of batched
 // [L, B, C, W] panes. Each including
 // source gets its own copy (anonymous namespace); the host sides stay in the
@@ -133,44 +134,131 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 //   EPI_ARGMAX    per-block first (max, argmax) of y -> part_val/part_idx
 //   EPI_SWIGLU    rows come in (gate, up) pairs 2j, 2j + 1:
 //                 out[j] = T(T(silu(y_gate)) * T(y_up)), silu in fp32
+//
+// Weight tiers (WK; replaces the JAX kernels' "wscale" / "w4scale" modes,
+// ops/pallas/megakernel.py:474-490, megakernel_llama.py:148-217):
+//   W_T   values of the model dtype T, Vec<T>::N a 16-byte chunk;
+//   W_I8  int8 codes, 16 a chunk, one fp32 scale a row (`ws` [N]):
+//         y = (sum_k in[k] q[row, k]) * ws[row], the fp32 sum scaled before
+//         the bias, the epilogue and the argmax compare (JAX: y * wscale,
+//         then + bias);
+//   W_I4  int4 codes, 32 a chunk: byte j of a row holds input 2j in its low
+//         nibble and 2j + 1 in its high one, two's complement (the model's
+//         own order), so nibble i of a little-endian 32-bit word is input
+//         8w + i and a lane reads each in place, no shuffle (`code_i4`).
+//         One scale a row and group of `group` inputs, in T (`ws` [N, K/G];
+//         the JAX packer rounds the scales to the model dtype):
+//         y = sum over chunks of (sum_k in[k] v[row, k]) * ws[row, k / G],
+//         fp32 sums; G % 32 == 0 keeps a chunk in one group. This is the
+//         JAX kernel's int4w8 form (raw nibble dots, the fp32 sums scaled)
+//         at every G; its grouped form, which rounds each v * s to T before
+//         the dot, is not kept (a multiply and a rounding a weight more).
+// The quantized tiers keep the input in shared memory with 4 floats of
+// padding after every chunk's inputs, so neighbouring lanes' float4 reads
+// of their chunks fall in distinct banks (unpadded, 32 codes a chunk put
+// every lane of a warp on the same banks).
 
 enum { PRO_LN = 0, PRO_VEC = 1, PRO_RMS = 2 };
 template <typename T> constexpr int kPrefetch = 24 / Vec<T>::N;  // 3 in bf16, 6 in fp32
 enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_ARGMAX = 3, EPI_SWIGLU = 4 };
+enum { W_T = 0, W_I4 = 4, W_I8 = 8 };
 
-template <typename T>
+// Inputs a 16-byte chunk of weights covers, and the shared-memory padding
+// after each chunk's inputs.
+template <typename T, int WK> struct WTier { static constexpr int N = Vec<T>::N, PAD = 0; };
+template <typename T> struct WTier<T, W_I8> { static constexpr int N = 16, PAD = 4; };
+template <typename T> struct WTier<T, W_I4> { static constexpr int N = 32, PAD = 4; };
+
+// Shared-memory slot of input k (chunks of N inputs, PAD floats after each).
+template <int N, int PAD> __device__ __forceinline__ int hpos(int k) {
+  return PAD ? k + PAD * (k / N) : k;
+}
+
+// Codes to fp32 without the conversion unit (16 a clock an SM, the int4
+// tier's limit when each code took one): XOR-ing a word with 0x80808080
+// (int8) or 0x88888888 (int4) turns each two's-complement code v into
+// v + 128 (v + 8), an unsigned field; OR-ed into the mantissa of 2^23 it
+// gives the float 2^23 + v + bias exactly, and subtracting 2^23 + bias
+// leaves v: an integer op and an FADD a code.
+__device__ __forceinline__ float code_i8(unsigned wx, int i) {
+  return __uint_as_float(0x4B000000u | ((wx >> (8 * i)) & 0xFFu)) - 8388736.0f;
+}
+__device__ __forceinline__ float code_i4(unsigned wx, int i) {
+  return __uint_as_float(0x4B000000u | ((wx >> (4 * i)) & 0xFu)) - 8388616.0f;
+}
+
+// acc + the 16 int8 codes in u . hv[0 : 16): four fp32 partial sums (one a
+// 32-bit word, in order), added to acc in order.
+__device__ __forceinline__ float dot_i8(const uint4& u, const float* hv, float acc) {
+  const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
+                         u.w ^ 0x80808080u};
+  float p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 a = reinterpret_cast<const float4*>(hv)[i];
+    p[i] = code_i8(w[i], 0) * a.x;
+    p[i] = fmaf(code_i8(w[i], 1), a.y, p[i]);
+    p[i] = fmaf(code_i8(w[i], 2), a.z, p[i]);
+    p[i] = fmaf(code_i8(w[i], 3), a.w, p[i]);
+  }
+  return acc + ((p[0] + p[1]) + (p[2] + p[3]));
+}
+
+// The fp32 sum of the 32 int4 codes in u times hv[0 : 32): four partial
+// sums (one a 32-bit word of 8 codes, in order), then their sum.
+__device__ __forceinline__ float dot_i4(const uint4& u, const float* hv) {
+  const unsigned w[4] = {u.x ^ 0x88888888u, u.y ^ 0x88888888u, u.z ^ 0x88888888u,
+                         u.w ^ 0x88888888u};
+  float p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 a = reinterpret_cast<const float4*>(hv)[2 * i];
+    const float4 b = reinterpret_cast<const float4*>(hv)[2 * i + 1];
+    p[i] = code_i4(w[i], 0) * a.x;
+    p[i] = fmaf(code_i4(w[i], 1), a.y, p[i]);
+    p[i] = fmaf(code_i4(w[i], 2), a.z, p[i]);
+    p[i] = fmaf(code_i4(w[i], 3), a.w, p[i]);
+    p[i] = fmaf(code_i4(w[i], 4), b.x, p[i]);
+    p[i] = fmaf(code_i4(w[i], 5), b.y, p[i]);
+    p[i] = fmaf(code_i4(w[i], 6), b.z, p[i]);
+    p[i] = fmaf(code_i4(w[i], 7), b.w, p[i]);
+  }
+  return (p[0] + p[1]) + (p[2] + p[3]);
+}
+
+template <typename T, int N = 1, int PAD = 0>
 __device__ void layer_norm_to_shared(const T* __restrict__ x, const float* __restrict__ g,
                                      const float* __restrict__ b, int E, float eps, float* h,
                                      float* red) {
   float s = 0.0f;
   for (int e = threadIdx.x; e < E; e += kThreads) {
     const float v = to_f32(x[e]);
-    h[e] = v;
+    h[hpos<N, PAD>(e)] = v;
     s += v;
   }
   const float mean = block_sum(s, red) / (float)E;
   float s2 = 0.0f;
   for (int e = threadIdx.x; e < E; e += kThreads) {
-    const float d = h[e] - mean;
+    const float d = h[hpos<N, PAD>(e)] - mean;
     s2 += d * d;
   }
   const float r = rsqrtf(block_sum(s2, red) / (float)E + eps);
   for (int e = threadIdx.x; e < E; e += kThreads)
-    h[e] = round_to<T>((h[e] - mean) * r * g[e] + b[e]);
+    h[hpos<N, PAD>(e)] = round_to<T>((h[hpos<N, PAD>(e)] - mean) * r * g[e] + b[e]);
 }
 
-template <typename T>
+template <typename T, int N = 1, int PAD = 0>
 __device__ void rms_norm_to_shared(const T* __restrict__ x, const float* __restrict__ g, int E,
                                    float eps, float* h, float* red) {
   float s = 0.0f;
   for (int e = threadIdx.x; e < E; e += kThreads) {
     const float v = to_f32(x[e]);
-    h[e] = v;
+    h[hpos<N, PAD>(e)] = v;
     s += v * v;
   }
   const float r = rsqrtf(block_sum(s, red) / (float)E + eps);
   for (int e = threadIdx.x; e < E; e += kThreads)
-    h[e] = round_to<T>(round_to<T>(h[e] * r) * round_to<T>(g[e]));
+    h[hpos<N, PAD>(e)] = round_to<T>(round_to<T>(h[hpos<N, PAD>(e)] * r) * round_to<T>(g[e]));
 }
 
 __device__ __forceinline__ float gelu_tanh(float m) {
@@ -179,43 +267,74 @@ __device__ __forceinline__ float gelu_tanh(float m) {
 
 __device__ __forceinline__ float silu(float g) { return g * (1.0f / (1.0f + expf(-g))); }
 
-template <typename T, int PRO, int EPI, int KS>
+// Bytes of one row of a [N, K] weight of tier `wk` in the model dtype T.
+template <typename T>
+__host__ __device__ __forceinline__ size_t weight_row_bytes(int wk, int K) {
+  return wk == W_T ? (size_t)K * sizeof(T) : (wk == W_I8 ? (size_t)K : (size_t)K / 2);
+}
+
+template <typename T, int PRO, int EPI, int KS, int WK>
 __global__ void __launch_bounds__(kThreads)
-gemv_kernel(const T* __restrict__ W, int N, int K, const T* __restrict__ in,
-            const float* __restrict__ ln_g, const float* __restrict__ ln_b, float ln_eps,
-            const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ part_val,
-            int* __restrict__ part_idx) {
+gemv_kernel(const void* __restrict__ W, const void* __restrict__ ws, int group, int N, int K,
+            const T* __restrict__ in, const float* __restrict__ ln_g,
+            const float* __restrict__ ln_b, float ln_eps, const float* __restrict__ bias,
+            T* __restrict__ out, float* __restrict__ part_val, int* __restrict__ part_idx) {
   constexpr int RPB = kWarps / KS;  // rows per block and pass
-  constexpr int VN = Vec<T>::N;
+  constexpr int VN = WTier<T, WK>::N, PAD = WTier<T, WK>::PAD;
   static_assert(EPI != EPI_SWIGLU || RPB % 2 == 0, "SwiGLU pairs rows within a pass");
-  extern __shared__ float h[];  // [K]
+  extern __shared__ float h[];  // [K] (+ PAD after every VN inputs)
   __shared__ float red[kWarps];
   __shared__ float part[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r = warp / KS, ks = warp % KS;
   const int n_chunks = K / VN;
   const int c0 = ks * n_chunks / KS, c1 = (ks + 1) * n_chunks / KS;
+  const size_t row_bytes = weight_row_bytes<T>(WK, K);
+  auto row_ptr = [&](int row) {
+    return reinterpret_cast<const uint4*>(static_cast<const char*>(W) + (size_t)row * row_bytes);
+  };
 
   uint4 pre[kPrefetch<T>];
   if (blockIdx.x * RPB + r < N) {
-    const uint4* wr = reinterpret_cast<const uint4*>(W + (size_t)(blockIdx.x * RPB + r) * K);
+    const uint4* wr = row_ptr(blockIdx.x * RPB + r);
 #pragma unroll
     for (int i = 0; i < kPrefetch<T>; ++i)
       if (c0 + lane + 32 * i < c1) pre[i] = load_stream(wr + c0 + lane + 32 * i);
   }
   if (PRO == PRO_LN) {
-    layer_norm_to_shared<T>(in, ln_g, ln_b, K, ln_eps, h, red);
+    layer_norm_to_shared<T, VN, PAD>(in, ln_g, ln_b, K, ln_eps, h, red);
   } else if (PRO == PRO_RMS) {
-    rms_norm_to_shared<T>(in, ln_g, K, ln_eps, h, red);
+    rms_norm_to_shared<T, VN, PAD>(in, ln_g, K, ln_eps, h, red);
   } else {
-    for (int e = threadIdx.x; e < K; e += kThreads) h[e] = to_f32(in[e]);
+    for (int e = threadIdx.x; e < K; e += kThreads) h[hpos<VN, PAD>(e)] = to_f32(in[e]);
   }
   __syncthreads();
 
-  auto row_sum = [&](int t) {
+  // acc + chunk c of row `row` (its 16 bytes in u) times its inputs. The
+  // int4 scale group of chunk c, floor(c * 32 / G), is taken in fp32: the
+  // product's error (~1e-5 for c < 2^9) stays under the 1e-3 nudge, itself
+  // under the fraction's spacing 32 / G (G <= 2^14), so the floor is exact
+  // without an integer division.
+  const int n_groups = WK == W_I4 ? K / group : 1;
+  const float chunk_to_group = WK == W_I4 ? (float)VN / (float)group : 0.0f;
+  auto chunk = [&](const uint4& u, int c, int row, float acc) -> float {
+    const float* hv = h + c * (VN + PAD);
+    if constexpr (WK == W_T) {
+      return dot16<T>(u, hv, acc);
+    } else if constexpr (WK == W_I8) {
+      return dot_i8(u, hv, acc);
+    } else {
+      const T* s = static_cast<const T*>(ws) + (size_t)row * n_groups;
+      const int g = __float2int_rz(fmaf((float)c, chunk_to_group, 1e-3f));
+      return fmaf(dot_i4(u, hv), to_f32(s[g]), acc);
+    }
+  };
+  // the row's sum over the KS warps, scaled by the int8 row scale
+  auto row_sum = [&](int t, int row) {
     float y = 0.0f;
 #pragma unroll
     for (int j = 0; j < KS; ++j) y += part[t * KS + j];
+    if constexpr (WK == W_I8) y *= static_cast<const float*>(ws)[row];
     return y;
   };
   float best = -INFINITY;
@@ -224,28 +343,29 @@ gemv_kernel(const T* __restrict__ W, int N, int K, const T* __restrict__ in,
     const int row = row0 + r;
     float acc = 0.0f;
     if (row < N) {
-      const uint4* wr = reinterpret_cast<const uint4*>(W + (size_t)row * K);
+      const uint4* wr = row_ptr(row);
       int c = c0 + lane;
       if (row0 == blockIdx.x * RPB) {  // the first pass: the prefetched chunks
 #pragma unroll
         for (int i = 0; i < kPrefetch<T>; ++i, c += 32)
-          if (c < c1) acc = dot16<T>(pre[i], h + c * VN, acc);
+          if (c < c1) acc = chunk(pre[i], c, row, acc);
       }
 #pragma unroll 4
-      for (; c < c1; c += 32) acc = dot16<T>(load_stream(wr + c), h + c * VN, acc);
+      for (; c < c1; c += 32) acc = chunk(load_stream(wr + c), c, row, acc);
     }
     acc = warp_sum(acc);
     if (lane == 0) part[warp] = acc;
     __syncthreads();
     if (EPI == EPI_SWIGLU) {
       if (threadIdx.x < RPB / 2 && row0 + 2 * threadIdx.x + 1 < N) {
-        const float gate = round_to<T>(silu(row_sum(2 * threadIdx.x)));
-        const float up = round_to<T>(row_sum(2 * threadIdx.x + 1));
+        const int o = row0 + 2 * threadIdx.x;
+        const float gate = round_to<T>(silu(row_sum(2 * threadIdx.x, o)));
+        const float up = round_to<T>(row_sum(2 * threadIdx.x + 1, o + 1));
         out[row0 / 2 + threadIdx.x] = from_f32<T>(gate * up);
       }
     } else if (threadIdx.x < RPB && row0 + threadIdx.x < N) {
       const int o = row0 + threadIdx.x;
-      const float y = row_sum(threadIdx.x);
+      const float y = row_sum(threadIdx.x, o);
       const float b = bias != nullptr ? bias[o] : 0.0f;
       if (EPI == EPI_STORE) {
         out[o] = from_f32<T>(y + b);
@@ -585,6 +705,54 @@ int allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
+}
+
+// One weight of a step: its rows from row `row0` on, in tier `kind` (W_T,
+// W_I8, W_I4) with its scales (null for W_T) and int4 group.
+struct WeightRef {
+  const void* w;
+  const void* s;
+  int kind, group;
+};
+
+// Rows [row0, ...) of a [*, K] weight that starts at w (scales at s).
+template <typename T>
+WeightRef weight_at(const void* w, const void* s, int kind, int group, size_t row0, int K) {
+  const size_t sb = kind == W_I8 ? sizeof(float)
+                                 : (kind == W_I4 ? (size_t)(K / group) * sizeof(T) : 0);
+  return {static_cast<const char*>(w) + row0 * weight_row_bytes<T>(kind, K),
+          s ? static_cast<const char*>(s) + row0 * sb : nullptr, kind, group};
+}
+
+template <typename T, int PRO, int EPI, int KS, int WK>
+int launch_gemv(const WeightRef& w, int N, int K, int grid, cudaStream_t st, const T* in,
+                const float* ln_g, const float* ln_b, float ln_eps, const float* bias, T* out,
+                float* part_val, int* part_idx) {
+  constexpr int VN = WTier<T, WK>::N, PAD = WTier<T, WK>::PAD;
+  const size_t smem = sizeof(float) * ((size_t)K + (size_t)PAD * (K / VN));
+  auto kernel = gemv_kernel<T, PRO, EPI, KS, WK>;
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  kernel<<<grid, kThreads, smem, st>>>(w.w, w.s, w.group, N, K, in, ln_g, ln_b, ln_eps, bias,
+                                       out, part_val, part_idx);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// The GEMV of weight `w`'s tier: `grid` blocks over N rows of K inputs.
+template <typename T, int PRO, int EPI, int KS>
+int gemv(const WeightRef& w, int N, int K, int grid, cudaStream_t st, const T* in,
+         const float* ln_g, const float* ln_b, float ln_eps, const float* bias, T* out,
+         float* part_val = nullptr, int* part_idx = nullptr) {
+  if (w.kind == W_T)
+    return launch_gemv<T, PRO, EPI, KS, W_T>(w, N, K, grid, st, in, ln_g, ln_b, ln_eps, bias,
+                                             out, part_val, part_idx);
+  if (w.kind == W_I8)
+    return launch_gemv<T, PRO, EPI, KS, W_I8>(w, N, K, grid, st, in, ln_g, ln_b, ln_eps, bias,
+                                              out, part_val, part_idx);
+  if (w.kind == W_I4)
+    return launch_gemv<T, PRO, EPI, KS, W_I4>(w, N, K, grid, st, in, ln_g, ln_b, ln_eps, bias,
+                                              out, part_val, part_idx);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int KK, int VK>

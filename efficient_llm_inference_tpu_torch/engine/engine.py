@@ -14,10 +14,15 @@ kernels (`_mega_batch_spec`), or prompt by prompt where they do not apply.
 `generate_speculative` (n-gram, self-draft or draft-model proposals, one
 k-row verify a round) and `generate_speculative_auto` decode one prompt
 speculatively (engine/speculative.py), with output equal to plain greedy.
+`Config.weight_quant` ("int8", "int4", "int4w8") quantizes the weights at
+`from_model_name` (the JAX engine's serving mode); the single-stream paths
+run on them, megakernel on or off, and `generate_batch` and speculation
+raise on quantized weights (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -35,7 +40,7 @@ from ..core.utils import (
 from ..data.tokenizer import ByteTokenizer, load_tokenizer
 from ..models import gpt2 as gpt2_mod
 from ..models import llama as llama_mod
-from ..models.registry import ModelSpec, spec_by_name
+from ..models.registry import ModelSpec, spec_by_name, spec_with_config
 from ..ops import megakernel as mk
 from ..ops import megakernel_batch as mkb
 from ..ops import megakernel_batch_quant as mbq
@@ -80,6 +85,48 @@ _MEGA_BATCH = {
     "llama": (mkb.llama_mega_batch_supported, mbq.llama_mega_batch_quant_supported),
 }
 
+
+def weight_quant_plan(spec: ModelSpec, weight_quant: Optional[str]
+                      ) -> Tuple[ModelSpec, Optional[str], int]:
+    """(spec', mode, group) that `from_model_name` serves `weight_quant` at
+    (the JAX engine's choice): "int8" per output channel, "int4" at group
+    128, "int4w8" as "int4" at the half-tile group (GPT-2: E/2; Llama/Qwen:
+    TR/2 of the JAX kernel's tile geometry, the port's copy in
+    ops/megakernel_llama.py `_tile_geometry`, JAX `_int4w8_llama_spec`).
+    TR divides the hidden and query widths by construction; where TR/2
+    does not divide the FFN width, spec' serves the padded width Ip of that
+    geometry, a multiple of TR: Llama-3.2-1B gives group 1024 unpadded,
+    Qwen2.5-0.5B group 448 with I 4864 -> 5376 (TR/2 divides Ip for every
+    model of the registry: none has an odd TR). `weight_quant=None` gives
+    (spec, None, 128)."""
+    if weight_quant != "int4w8":
+        return spec, weight_quant, 128
+    if spec.name == "gpt2":
+        return spec, "int4", spec.config.n_embd // 2
+    if spec.name != "llama":
+        raise ValueError(f"weight_quant=int4w8 not supported for {spec.name}")
+    c = spec.config
+    TR, _, Ip = ml._tile_geometry(c)
+    g = TR // 2
+    if c.intermediate_size % g == 0:
+        return spec, "int4", g
+    return spec_with_config(spec, dataclasses.replace(c, intermediate_size=Ip)), "int4", g
+
+
+def quantize_weights(spec: ModelSpec, params: dict, mode: str, group: int) -> dict:
+    """Full-precision `params` of `spec` quantized by the family's
+    `quantize_*_weights` at `mode` and `group` (from `weight_quant_plan`;
+    a padded spec' needs params of its width)."""
+    quantize = (llama_mod.quantize_llama_weights if spec.name == "llama"
+                else gpt2_mod.quantize_gpt2_weights)
+    return quantize(params, mode=mode, group=group)
+
+
+def _weight_quant_todo(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on weight-quantized params is not ported yet: {mk.WEIGHT_TODO}")
+
+
 # Paths where the reference truncates prompts at prompt_cap.
 _TRUNCATING_METHODS = {
     "no_cache",
@@ -118,14 +165,47 @@ class InferenceEngine:
                         params: Optional[dict] = None) -> "InferenceEngine":
         """Random-init (from `config.seed`, drawn on the host) or given
         full-precision params, on `config.device` (CUDA unless the config
-        says otherwise)."""
+        says otherwise). With `config.weight_quant` the weights are
+        quantized here, as the JAX engine does: "int8" per output channel,
+        "int4" at group 128, "int4w8" at the half-tile group
+        (`weight_quant_plan`; its padded FFN also pads given full-precision
+        params). A Llama too large to hold in full precision
+        (`param_bytes_estimate` over 4 GiB) is drawn and quantized on the
+        host and only its quantized tree moves to the device
+        (`init_quantized_llama_params`). Given params that are already
+        quantized raise ValueError with a weight_quant: the JAX engine
+        would quantize them again and fail (its "loud fallback" for them
+        crashes); pass them with weight_quant=None, which serves them as
+        they are."""
         config = config or Config(model_name=name)
         spec = spec_by_name(name)
+        wq = config.weight_quant
+        if wq is not None and params is not None and mk.weight_quantized(params):
+            raise ValueError(f"weight_quant={wq!r} with params that are already "
+                             "quantized: pass full-precision params, or these with "
+                             "weight_quant=None")
+        qspec, wq_mode, wq_group = weight_quant_plan(spec, wq)
+        if qspec is not spec:  # FFN width padded to the int4w8 tile geometry
+            if params is not None:
+                params = llama_mod.pad_llama_ffn(params, qspec.config.intermediate_size)
+            spec = qspec
+        quantized = False
         if params is None:
-            init = (llama_mod.init_llama_params if spec.name == "llama"
-                    else gpt2_mod.init_gpt2_params)
-            params = init(config.generator(), spec.config, config.dtype,
-                          config.device)
+            if spec.name == "llama":
+                big = llama_mod.param_bytes_estimate(spec.config, config.dtype) > 4 * 1024**3
+                if wq_mode is not None and big:
+                    params = llama_mod.init_quantized_llama_params(
+                        config.generator(), spec.config, mode=wq_mode,
+                        dtype=config.dtype, device=config.device, group=wq_group)
+                    quantized = True
+                else:
+                    params = llama_mod.init_llama_params(
+                        config.generator(), spec.config, config.dtype, config.device)
+            else:
+                params = gpt2_mod.init_gpt2_params(config.generator(), spec.config,
+                                                   config.dtype, config.device)
+        if wq_mode is not None and not quantized:
+            params = quantize_weights(spec, params, wq_mode, wq_group)
         if tokenizer is None:
             tokenizer = load_tokenizer(name)
         return cls(spec, params, tokenizer, config)
@@ -338,12 +418,16 @@ class InferenceEngine:
         in {"int8", "int4", "mixed"} the panes are quantized and each row
         matches `generate(p, f"quant_{kv_mode}")`; without it, each row
         matches `generate(p, "full_cache")`. The token ids (prompt +
-        generation) of each row are kept in `last_batch_ids`.
+        generation) of each row are kept in `last_batch_ids`. Weight-quantized
+        params raise NotImplementedError: the batched kernels' weight tiers
+        are ROADMAP.md Queue 1 item 14.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded batched serving is not ported yet: the parallel "
                 "package is ROADMAP.md Queue 1 item 12")
+        if mk.weight_quantized(self.params):
+            raise _weight_quant_todo("generate_batch")
         if not prompts:
             raise ValueError("empty prompt batch")
         # encode as the method this batch emulates: quant_* methods do not
@@ -443,7 +527,12 @@ class InferenceEngine:
         (n_new - 1) / n_rounds. The ids (prompt + generation) are kept in
         `last_generation_ids`, the host's reads of the emitted count (before
         the final read of the tokens) in `last_spec_host_syncs`.
+        Weight-quantized params (target or draft) raise NotImplementedError:
+        the verify kernels' weight tiers are ROADMAP.md Queue 1 item 14.
         """
+        if mk.weight_quantized(self.params) or (
+                draft is not None and mk.weight_quantized(draft[1])):
+            raise _weight_quant_todo("generate_speculative")
         ids = self._encode(prompt, "full_cache")
         true_len = len(ids)
         if true_len == 0:
@@ -500,6 +589,8 @@ class InferenceEngine:
         1 + k * max(draft/target layer-width ratio, 0.02) for a draft),
         re-probing the runner-up every 8th call. Output equals plain greedy
         for any candidate."""
+        if mk.weight_quantized(self.params):
+            raise _weight_quant_todo("generate_speculative_auto")
         cands = [("ngram", 8, None), ("ngram", 4, None)]
         if draft is not None:
             cands += [("draft", 8, draft), ("draft", 4, draft)]

@@ -168,7 +168,13 @@ class MegaBatchServer:
         <= capacity - 8 in spec mode (capacity - 1 plain): past that the
         cursor clamps and tokens are computed against a frozen context, as
         in the JAX server. `enable_prefix_cache=True` raises
-        NotImplementedError (ROADMAP.md Queue 1 item 13)."""
+        NotImplementedError (ROADMAP.md Queue 1 item 13), and so do
+        weight-quantized params (the batched kernels' weight tiers, item
+        14)."""
+        if mk.weight_quantized(params):
+            raise NotImplementedError(
+                f"MegaBatchServer on weight-quantized params is not ported yet: "
+                f"{mk.WEIGHT_TODO}")
         if enable_prefix_cache:
             raise NotImplementedError(
                 "MegaBatchServer's shared-prefix caching is not ported yet "

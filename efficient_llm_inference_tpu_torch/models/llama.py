@@ -1,6 +1,7 @@
 """The Llama family in PyTorch: RoPE, RMSNorm, grouped-query attention,
-SwiGLU (port of efficient_llm_inference_tpu/models/llama.py, full-precision
-weights).
+SwiGLU (port of efficient_llm_inference_tpu/models/llama.py), with the
+serving mode's weight quantization (`quantize_llama_weights`,
+`init_quantized_llama_params`, `pad_llama_ffn`).
 
 Qwen2/Qwen2.5 is the same architecture with q/k/v projection biases
 (`LlamaConfig.qkv_bias`). Parameters are a plain dict of tensors in the JAX
@@ -21,7 +22,15 @@ from typing import Any, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .gpt2 import _mm, convert_tree
+from .gpt2 import (
+    _mm,
+    convert_tree,
+    layer_params,
+    lm_head_shapes,
+    lm_logits,
+    quantize_int4_weights,
+    quantize_int8_weights,
+)
 
 WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -179,10 +188,19 @@ def param_bytes_estimate(cfg: LlamaConfig, dtype=torch.bfloat16) -> int:
 
 def params_from_jax(np_params: Mapping, cfg: LlamaConfig, dtype=torch.float32,
                     device="cuda") -> dict:
-    """The JAX package's full-precision Llama param dict, given as numpy
-    arrays (e.g. `jax.tree.map(np.asarray, params)`), as the port's dict of
-    tensors. Keys and shapes are checked against `cfg`."""
-    return convert_tree(np_params, param_shapes(cfg), dtype, device)
+    """The JAX package's Llama param dict, given as numpy arrays (e.g.
+    `jax.tree.map(np.asarray, params)`), as the port's dict of tensors. Keys
+    and shapes are checked against `cfg`. A weight-quantized tree
+    (`quantize_llama_weights`, either package: every matmul weight a
+    {"q", "s"} or {"q4", "s"} dict, the LM head's copy under `lm_q`/`lm_s` or
+    `lm_q4`/`lm_s4`, no `lm_head`) keeps its integer codes and fp32
+    scales."""
+    shapes = param_shapes(cfg)
+    lm = lm_head_shapes(np_params, cfg.hidden_size, cfg.vocab_size)
+    if lm:
+        shapes.pop("lm_head", None)
+        shapes.update(lm)
+    return convert_tree(np_params, shapes, dtype, device)
 
 
 def params_from_hf_state_dict(state_dict: Mapping, cfg: LlamaConfig,
@@ -285,7 +303,7 @@ def llama_forward(
 
     blocks = params["blocks"]
     for layer in range(cfg.n_layer):
-        bp = {k: v[layer] for k, v in blocks.items()}
+        bp = layer_params(blocks, layer)
         h = _rms_norm(x, bp["ln1"], cfg.rms_eps)
         q = _mm(h, bp["wq"], bp.get("bq")).reshape(B, T, Hq, D).transpose(1, 2)
         k = _mm(h, bp["wk"], bp.get("bk")).reshape(B, T, Hkv, D).transpose(1, 2)
@@ -302,9 +320,75 @@ def llama_forward(
         x = x + _mm(gate * _mm(h2, bp["w_up"]), bp["w_down"])
 
     x = _rms_norm(x, params["ln_f"], cfg.rms_eps)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head).float()  # [B, T, V]
+    head = params["embed"].t() if cfg.tie_embeddings else params.get("lm_head")
+    logits = lm_logits(params, x, head)  # [B, T, V]
     return logits, cache
+
+
+def quantize_llama_weights(params: dict, mode: str = "int8", group: int = 128) -> dict:
+    """Weight quantization for serving ("int8" or "int4"; JAX
+    `quantize_llama_weights`): the seven matmul weights become {"q", "s"} or
+    {"q4", "s"} dicts (models.gpt2's quantizers); embed, norms and biases
+    stay as they are; the LM head (`lm_head`, or `embed.T` when tied) gets a
+    quantized copy under `lm_q`/`lm_s` or `lm_q4`/`lm_s4`, and `lm_head`
+    itself is dropped."""
+    if mode == "int8":
+        q = quantize_int8_weights
+    else:
+        q = partial(quantize_int4_weights, group=group)
+    blocks = dict(params["blocks"])
+    for name in WEIGHT_NAMES:
+        blocks[name] = q(blocks[name])
+    out = dict(params)
+    out["blocks"] = blocks
+    head = params["lm_head"] if "lm_head" in params else params["embed"].t()
+    lm = q(head)
+    out.pop("lm_head", None)
+    if mode == "int8":
+        out["lm_q"], out["lm_s"] = lm["q"], lm["s"]
+    else:
+        out["lm_q4"], out["lm_s4"] = lm["q4"], lm["s"]
+    return out
+
+
+def init_quantized_llama_params(generator: torch.Generator, cfg: LlamaConfig,
+                                mode: str = "int8", dtype=torch.bfloat16,
+                                device="cuda", group: int = 128) -> dict:
+    """Random-init and weight-quantize on the host, then move only the
+    quantized tree to `device` (JAX `init_quantized_llama_params`): the
+    full-precision weights never occupy the card. The draws are
+    `init_llama_params`' own, so the result equals quantizing after
+    `init_llama_params`."""
+    params = init_llama_params(generator, cfg, dtype, "cpu")
+    q = quantize_llama_weights(params, mode=mode, group=group)
+    del params
+    return _to_device(q, device)
+
+
+def _to_device(tree: dict, device) -> dict:
+    return {k: (_to_device(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+def pad_llama_ffn(params: dict, new_I: int) -> dict:
+    """Zero-pad the FFN width of full-precision Llama params to new_I (JAX
+    `pad_llama_ffn`): w_gate and w_up gain zero output columns, w_down zero
+    input rows, exact through SwiGLU (silu(0) * 0 adds nothing). Serves
+    weights on the int4w8 padded geometry (engine `weight_quant_plan`);
+    pad before quantizing so the scale groups come out uniform."""
+    b = dict(params["blocks"])
+    old_I = b["w_gate"].shape[-1]
+    if new_I == old_I:
+        return params
+    if new_I < old_I:
+        raise ValueError(f"pad_llama_ffn: {old_I} -> {new_I} shrinks the FFN")
+    pad = new_I - old_I
+    b["w_gate"] = torch.nn.functional.pad(b["w_gate"], (0, pad))
+    b["w_up"] = torch.nn.functional.pad(b["w_up"], (0, pad))
+    b["w_down"] = torch.nn.functional.pad(b["w_down"], (0, 0, 0, pad))
+    out = dict(params)
+    out["blocks"] = b
+    return out
 
 
 def llama_spec(cfg: LlamaConfig):

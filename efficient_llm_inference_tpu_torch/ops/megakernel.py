@@ -24,6 +24,29 @@ Layouts:
   package's fp32 `smalls` [L, 13, E] (rows: 0 ln1_g, 1 ln1_b, 2 ln2_g,
   3 ln2_b, 4-6 attn_b, 7 proj_b, 8-11 fc_b, 12 fc_proj_b) and `lnf` [2, E].
 
+Weight tiers (the JAX packed dict's "wscale" / "w4scale" modes; the serving
+mode `Config.weight_quant`): params from `models.gpt2.quantize_gpt2_weights`
+pack into the same row-major [out, in] rows, of codes instead of values:
+
+* int8: int8 rows [out, in] and fp32 per-output-channel scales [out]
+  (`<name>_s`); y = (sum_k x_k q[n, k]) * s[n] with fp32 sums, the scale
+  applied before the bias and the LM head's argmax compare;
+* grouped int4: uint8 rows [out, in / 2] holding the model's own nibble
+  order (byte j: input 2j in the low nibble, 2j + 1 in the high, two's
+  complement; JAX `quantize_int4_weights` transposed), and one scale per
+  (output, group of G inputs) [out, in / G] rounded to the model dtype (the
+  JAX packer's `.astype(dtype)`): y = sum over groups of
+  (sum_k x_k v[n, k]) * s[n, g] with fp32 sums. This is the JAX kernel's
+  int4w8 form (raw nibble dots, the fp32 sums scaled) for every G; JAX's
+  grouped form, which rounds each dequantized weight v * s to the model
+  dtype before the dot, is not kept (in fp32 the two agree to rounding).
+
+The LM head of a quantized model is its quantized copy (`lm_q` / `lm_q4`,
+exactly V rows: no padding to carry); the embedding lookup stays on `wte`.
+The tiers run in the single-stream steps (#9 here, #11, #12 and #13 at
+R = 1); the verify, batched and batched-verify launchers refuse them
+(ROADMAP.md Queue 1 item 14).
+
 Numerics follow the JAX kernel's rounding points: layer-norm statistics in
 fp32; the LN output, q, k, v, the attention output, the GELU output and each
 residual add in the model dtype; matmuls accumulate in fp32 with the bias
@@ -36,10 +59,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from ..models.gpt2 import _unpack_nibbles
 from . import _build
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -65,10 +89,18 @@ def to_mega_layout(buf: torch.Tensor) -> torch.Tensor:
     return buf[:, 0].permute(0, 2, 1, 3).reshape(L, C, H * D)
 
 
+# Weight tiers of the kernels (csrc/megastep_common.cuh W_T / W_I8 / W_I4).
+WEIGHT_CODE = {"fp": 0, "int8": 8, "int4": 4}
+# The int4 tier reads 32 codes (16 bytes) a load, all in one scale group.
+INT4_CHUNK = 32
+WEIGHT_TODO = ("the weight tiers of the verify, batched and batched-verify kernels "
+               "(ROADMAP.md Queue 1 item 14)")
+
+
 def _full_precision_dtype(params: dict) -> Optional[torch.dtype]:
     """The weights' dtype when every block weight is one full-precision
     tensor type the kernels take, else None (the JAX package's "f" weight
-    mode; the port has no quantized weights yet)."""
+    mode)."""
     b = params.get("blocks", {})
     dts = set()
     for n in WEIGHT_NAMES:
@@ -86,12 +118,94 @@ def _full_precision_dtype(params: dict) -> Optional[torch.dtype]:
     return dt if dt in _DTYPE_CODE else None
 
 
+def weight_mode(b: dict, names) -> Optional[str]:
+    """"f" | "int8" | "int4" when the block weights `names` are uniform, else
+    None (JAX `_gpt2_weight_mode` / megakernel_llama `_weight_mode`): a
+    partly quantized tree has no mode."""
+    kinds = set()
+    for n in names:
+        w = b.get(n)
+        if isinstance(w, dict):
+            if "q" in w:
+                kinds.add("int8")
+            elif "q4" in w:
+                kinds.add("int4")
+            else:
+                return None
+        else:
+            kinds.add("f")
+    return kinds.pop() if len(kinds) == 1 else None
+
+
+def weight_quantized(params: dict) -> bool:
+    """Does a GPT-2 or Llama/Qwen param tree carry quantized weights (a
+    quantized block weight, or a quantized LM-head copy)?"""
+    return ("lm_q" in params or "lm_q4" in params
+            or any(isinstance(w, dict) for w in params.get("blocks", {}).values()))
+
+
+def _gpt2_weight_mode(b: dict) -> Optional[str]:
+    return weight_mode(b, WEIGHT_NAMES)
+
+
+def _q4_group(d: dict) -> int:
+    """The group of a {"q4", "s"} weight (models.gpt2.quantize_int4_weights)."""
+    return 2 * d["q4"].shape[-2]
+
+
+def _gpt2_int4_group(params: dict) -> int:
+    """The int4 group shared by every block weight and the LM head, or 0."""
+    b = params["blocks"]
+    gs = {_q4_group(b[n]) for n in WEIGHT_NAMES}
+    if "lm_q4" in params:
+        gs.add(_q4_group({"q4": params["lm_q4"]}))
+    return gs.pop() if len(gs) == 1 else 0
+
+
+def _tier_ok(params: dict, mode: Optional[str], dtype) -> bool:
+    """The weight tier's own gates, shared by both families: a mode, the
+    quantized LM-head copy of a quantized tree, and a model dtype the
+    kernels take (the full-precision tensors' dtype: `dtype`)."""
+    if mode is None:
+        return False
+    if mode == "int8" and "lm_q" not in params:
+        return False
+    if mode == "int4" and "lm_q4" not in params:
+        return False
+    return dtype in _DTYPE_CODE
+
+
+def _int4_group_ok(G: int) -> bool:
+    """The kernels' limit on an int4 group beyond JAX's: whole 16-byte loads
+    of 32 codes in one group (G % 32 == 0)."""
+    return G > 0 and G % INT4_CHUNK == 0
+
+
+def _weights_ok(cfg, params: dict) -> bool:
+    """The JAX package's weight gates (uniform weights: full precision,
+    int8 with `lm_q`, or grouped int4 with `lm_q4` at one group G with
+    E % G == 0, (E/2) % G == 0 and E % 16 == 0) and the kernels' G % 32."""
+    b = params.get("blocks", {})
+    mode = _gpt2_weight_mode(b)
+    wte = params.get("wte")
+    dtype = (_full_precision_dtype(params) if mode == "f"
+             else wte.dtype if isinstance(wte, torch.Tensor) else None)
+    if not _tier_ok(params, mode, dtype):
+        return False
+    if mode == "int4":
+        E, G = cfg.n_embd, _gpt2_int4_group(params)
+        if G == 0 or E % G or (E // 2) % G or E % 16 or not _int4_group_ok(G):
+            return False
+    return True
+
+
 def mega_supported(cfg, capacity: int, params: dict) -> bool:
     """Can the megakernel run this geometry? The JAX package's eligibility
-    (uniform full-precision weights, E % 128 == 0, capacity % 8 == 0) plus
-    the kernels' own limits: head_dim 64 or 128 and capacity <= 8192. The
-    JAX package's VMEM budget is a TPU limit and is not carried over."""
-    return _full_precision_dtype(params) is not None and _geometry_ok(cfg, capacity)
+    (the weight gates of `_weights_ok`, E % 128 == 0, capacity % 8 == 0)
+    plus the kernels' own limits: head_dim 64 or 128, capacity <= 8192,
+    and an int4 group G % 32 == 0. The JAX package's VMEM budget is a TPU
+    limit and is not carried over."""
+    return _weights_ok(cfg, params) and _geometry_ok(cfg, capacity)
 
 
 def jax_structure_ok(cfg, capacity: int, params: dict) -> bool:
@@ -108,16 +222,63 @@ def _geometry_ok(cfg, capacity: int) -> bool:
             and cfg.head_dim in HEAD_DIMS and 0 < capacity <= MAX_CAPACITY)
 
 
+def pack_rows(w, dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One [..., K, F] weight -> (rows [..., F, K] as the kernels stream
+    them, scales): a full-precision tensor transposes (no scales); {"q", "s"}
+    gives int8 rows and fp32 scales [..., F]; {"q4", "s"} gives uint8 rows
+    [..., F, K/2] in the codes' own byte order and scales [..., F, K/G] in
+    `dtype`."""
+    if not isinstance(w, dict):
+        return w.transpose(-1, -2).contiguous(), None
+    if "q" in w:
+        return w["q"].transpose(-1, -2).contiguous(), w["s"][..., 0, :].float().contiguous()
+    q4, s = w["q4"], w["s"]
+    *lead, Kg, Gh, F = q4.shape
+    rows = q4.reshape(*lead, Kg * Gh, F).transpose(-1, -2).contiguous()
+    return rows, s[..., 0, :].transpose(-1, -2).to(dtype).contiguous()
+
+
+def lm_rows(params: dict, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantized LM-head copy (`lm_q`/`lm_s` or `lm_q4`/`lm_s4`, [E, V])
+    as [V, ...] rows and scales (`pack_rows`)."""
+    if "lm_q" in params:
+        return pack_rows({"q": params["lm_q"], "s": params["lm_s"]}, dtype)
+    return pack_rows({"q4": params["lm_q4"], "s": params["lm_s4"]}, dtype)
+
+
+def scale_key(name: str) -> str:
+    """The packed key of a weight's scales: "attn_w" -> "attn_s", "head" ->
+    "head_s"."""
+    return name[:-2] + "_s" if name.endswith("_w") else name + "_s"
+
+
+def weight_kind(packed: dict) -> str:
+    """The weight tier of a packed dict: "fp", "int8" or "int4" (the port's
+    counterpart of JAX's "wscale" / "w4scale" keys)."""
+    if "head_s" not in packed:
+        return "fp"
+    return "int8" if packed["head"].dtype == torch.int8 else "int4"
+
+
+def weight_group(packed: dict, name: str) -> int:
+    """The int4 group of packed weight `name` ([.., N, K/2] bytes, [.., N,
+    K/G] scales); 0 for the other tiers."""
+    s = packed.get(scale_key(name))
+    if s is None or packed[name].dtype != torch.uint8:
+        return 0
+    return 2 * packed[name].shape[-1] // s.shape[-1]
+
+
 def pack_gpt2_mega(params: dict, cfg) -> Optional[dict]:
     """Re-layout GPT-2 params for the kernels (once per engine); None when
-    the params are not packable (see `mega_supported`)."""
-    if _full_precision_dtype(params) is None or cfg.n_embd % 128 != 0:
+    the params are not packable (see `mega_supported`). Quantized weights
+    pack into code rows with `<name>_s` scales and a `head` / `head_s` LM
+    head (`pack_rows`); `wte` and `wpe` stay for the embedding."""
+    if cfg.n_embd % 128 != 0 or not _weights_ok(cfg, params):
         return None
-    E, L = cfg.n_embd, cfg.n_layer
     b = params["blocks"]
-
-    def t(name):  # [L, in, out] -> [L, out, in] row-major
-        return b[name].transpose(1, 2).contiguous()
+    E, L = cfg.n_embd, cfg.n_layer
+    dtype = params["wte"].dtype
 
     def rows(x, n):
         return x.float().reshape(L, n, E)
@@ -129,16 +290,22 @@ def pack_gpt2_mega(params: dict, cfg) -> Optional[dict]:
         rows(b["fc_b"], 4), rows(b["fc_proj_b"], 1),
     ], dim=1).contiguous()
     lnf = torch.stack([params["lnf_g"].float(), params["lnf_b"].float()])
-    return {
-        "attn_w": t("attn_w"),  # [L, 3E, E]
-        "proj_w": t("attn_proj_w"),  # [L, E, E]
-        "fc_w": t("fc_w"),  # [L, 4E, E]
-        "fcp_w": t("fc_proj_w"),  # [L, E, 4E]
-        "wte": params["wte"].contiguous(),  # [V, E]: the LM head too
+    packed = {
+        "wte": params["wte"].contiguous(),  # [V, E]: the LM head too (fp)
         "wpe": params["wpe"].contiguous(),
         "smalls": smalls,
         "lnf": lnf.contiguous(),
     }
+    # [L, in, out] -> [L, out, in] rows: attn_w [L, 3E, E], proj_w [L, E, E],
+    # fc_w [L, 4E, E], fcp_w [L, E, 4E]
+    for key, name in (("attn_w", "attn_w"), ("proj_w", "attn_proj_w"),
+                      ("fc_w", "fc_w"), ("fcp_w", "fc_proj_w")):
+        packed[key], scales = pack_rows(b[name], dtype)
+        if scales is not None:
+            packed[scale_key(key)] = scales
+    if _gpt2_weight_mode(b) != "f":
+        packed["head"], packed["head_s"] = lm_rows(params, dtype)
+    return packed
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +322,34 @@ def _ln(x32, g, b, eps):
 def _mv(h, w):
     """h [K] (model dtype) @ w[N, K]^T -> fp32 [N], accumulated in fp32."""
     return torch.mv(w.float(), h.float())
+
+
+def int4_rows_dot(h, w, s):
+    """h [K] (model dtype) times grouped-int4 rows w (uint8 [N, K/2], byte j
+    = input 2j low nibble | 2j + 1 high nibble) with scales s [N, K/G] ->
+    fp32 [N]: per group the fp32 sum of h times the raw signed codes, times
+    the group's scale, summed over the groups (the kernels' int4 tier)."""
+    N, K = w.shape[0], 2 * w.shape[1]
+    v = torch.stack(_unpack_nibbles(w), dim=-1).reshape(N, K)  # inputs 2j, 2j + 1
+    ng = s.shape[-1]
+    sums = torch.einsum("ngk,gk->ng", v.float().reshape(N, ng, K // ng),
+                        h.float().reshape(ng, K // ng))
+    return (sums * s.float()).sum(-1)
+
+
+def wmv(h, packed: dict, name: str, layer: Optional[int] = None):
+    """h [K] (model dtype) times the rows of packed weight `name` (of layer
+    `layer`) -> fp32 [N], in the arithmetic of its tier: full precision
+    (`_mv`), int8 (fp32 sums times the row's scale) or grouped int4
+    (`int4_rows_dot`)."""
+    w = packed[name] if layer is None else packed[name][layer]
+    s = packed.get(scale_key(name))
+    if s is None:
+        return _mv(h, w)
+    s = s if layer is None else s[layer]
+    if w.dtype == torch.int8:
+        return _mv(h, w) * s
+    return int4_rows_dot(h, w, s)
 
 
 def plain_step(packed: dict, cfg, x_emb: torch.Tensor, attend):
@@ -174,18 +369,18 @@ def plain_step(packed: dict, cfg, x_emb: torch.Tensor, attend):
     for layer in range(L):
         sm = packed["smalls"][layer]
         h = _ln(x.float(), sm[0], sm[1], eps).to(dt)
-        qkv = (_mv(h, packed["attn_w"][layer]) + sm[4:7].reshape(-1)).to(dt)
+        qkv = (wmv(h, packed, "attn_w", layer) + sm[4:7].reshape(-1)).to(dt)
         q, k, v = qkv.split(E)
         a = attend(layer, q, k, v).to(dt)
-        x = x + (_mv(a, packed["proj_w"][layer]) + sm[7]).to(dt)
+        x = x + (wmv(a, packed, "proj_w", layer) + sm[7]).to(dt)
         h2 = _ln(x.float(), sm[2], sm[3], eps).to(dt)
-        m = _mv(h2, packed["fc_w"][layer]) + sm[8:12].reshape(-1)
+        m = wmv(h2, packed, "fc_w", layer) + sm[8:12].reshape(-1)
         g = (0.5 * m * (1.0 + torch.tanh(GELU_C * (m + 0.044715 * m ** 3)))).to(dt)
-        x = x + (sm[12] + _mv(g, packed["fcp_w"][layer])).to(dt)
+        x = x + (sm[12] + wmv(g, packed, "fcp_w", layer)).to(dt)
         new_k.append(k)
         new_v.append(v)
     xf = _ln(x.float(), packed["lnf"][0], packed["lnf"][1], eps).to(dt)
-    logits = _mv(xf, packed["wte"])
+    logits = wmv(xf, packed, "head" if "head" in packed else "wte")
     return logits, torch.stack(new_k), torch.stack(new_v)
 
 
@@ -278,6 +473,24 @@ class MegaArgs(ctypes.Structure):
     ]
 
 
+def tier_fields(scales) -> list:
+    """The weight-tier fields that end a single-stream step's args struct:
+    the tier (0 = model dtype, 8 = int8, 4 = grouped int4), the int4 group,
+    then one pointer a name (code rows or scales; null for the fp tier)."""
+    return ([("w_kind", ctypes.c_int), ("w_group", ctypes.c_int)]
+            + [(n, ctypes.c_void_p) for n in scales])
+
+
+class MegaStepArgs(ctypes.Structure):
+    """Mirror of `struct MegaArgs` in csrc/gpt2_megastep.cu: `MegaArgs` (the
+    fields the batched and verify structs repeat) and the weight tier: the
+    LM head's code rows (`head`; null: wte is the head) and each weight's
+    scales."""
+
+    _fields_ = MegaArgs._fields_ + tier_fields(
+        ("head", "attn_s", "proj_s", "fc_s", "fcp_s", "head_s"))
+
+
 _lib = None
 
 
@@ -287,9 +500,59 @@ def kernels() -> ctypes.CDLL:
         lib = _build.load("gpt2_megastep")
         for fn in (lib.elit_gpt2_megastep, lib.elit_gpt2_megastep_quant):
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(MegaArgs), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(MegaStepArgs), ctypes.c_void_p]
         _lib = lib
     return _lib
+
+
+def check_weights(packed: dict, weights: dict, kind: str, dtype, device) -> int:
+    """Checks the packed weights `weights` ({name: (..., N, K)}) of tier
+    `kind` against their shapes: rows of the model dtype, int8 rows with
+    fp32 scales [..., N], or int4 rows [..., N, K/2] with scales
+    [..., N, K/G] in the model dtype at one group G (K % G == 0,
+    G % 32 == 0). Returns G (0 for the other tiers)."""
+    group = weight_group(packed, "head") if kind == "int4" else 0
+    for name, shape in weights.items():
+        *lead, N, K = shape
+        if kind == "fp":
+            _check(name, packed[name], dtype, shape, device)
+        elif kind == "int8":
+            _check(name, packed[name], torch.int8, shape, device)
+            _check(scale_key(name), packed[scale_key(name)], torch.float32,
+                   (*lead, N), device)
+        else:
+            if not _int4_group_ok(group) or K % group:
+                raise NotImplementedError(f"{name}: int4 group {group} for {K} inputs "
+                                          f"(the kernels take G % {INT4_CHUNK} == 0)")
+            _check(name, packed[name], torch.uint8, (*lead, N, K // 2), device)
+            _check(scale_key(name), packed[scale_key(name)], dtype,
+                   (*lead, N, K // group), device)
+    return group
+
+
+def set_tier(args, packed: dict, weights, kind: str, group: int) -> None:
+    """Fills the weight-tier fields of a single-stream args struct for a
+    quantized tier (the fp tier leaves them zero)."""
+    args.w_kind, args.w_group = WEIGHT_CODE[kind], group
+    args.head = packed["head"].data_ptr()
+    for name in weights:
+        setattr(args, scale_key(name), packed[scale_key(name)].data_ptr())
+
+
+class TierCount:
+    """The launch count of one weight tier of a single-stream step wrapper
+    (`<wrapper>.tiers[kind].launches`): the tiers share the wrapper and are
+    counted apart from its full-precision launches."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def launch_counter(wrapper, packed: dict):
+    """What counts a launch of `wrapper` over `packed`: the wrapper itself
+    for full-precision weights, else its tier's `TierCount`."""
+    kind = weight_kind(packed)
+    return wrapper if kind == "fp" else wrapper.tiers[kind]
 
 
 class Workspace:
@@ -343,9 +606,10 @@ class StepLauncher:
     passes B first in its args struct."""
 
     entry = {False: "elit_gpt2_megastep", True: "elit_gpt2_megastep_quant"}
-    args_type = MegaArgs
+    args_type = MegaStepArgs
     batched = False
     max_rows = 1
+    weight_tiers = tuple(WEIGHT_CODE)  # the verify and batched launchers: ("fp",)
     launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
 
     def layout(self, k, rows: Optional[int]) -> tuple:
@@ -363,6 +627,10 @@ class StepLauncher:
         B, lead, n_len, prefix = self.layout(k, rows)
         E, L, C = cfg.n_embd, cfg.n_layer, k.shape[-2]
         dtype = packed["wte"].dtype
+        wkind = weight_kind(packed)
+        if wkind not in self.weight_tiers:
+            raise NotImplementedError(f"{type(self).__name__}: {wkind} weights: "
+                                      f"{WEIGHT_TODO}")
         dev = k.device
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
@@ -372,11 +640,12 @@ class StepLauncher:
         if (x_emb is None) == (tok_in is None):
             raise ValueError("give exactly one of x_emb and tok_in")
         V, P = cfg.vocab_size, cfg.n_positions
-        wants = {
-            "attn_w": (L, 3 * E, E), "proj_w": (L, E, E), "fc_w": (L, 4 * E, E),
-            "fcp_w": (L, E, 4 * E), "wte": (V, E), "wpe": (P, E),
-        }
-        for name, shape in wants.items():
+        weights = {"attn_w": (L, 3 * E, E), "proj_w": (L, E, E), "fc_w": (L, 4 * E, E),
+                   "fcp_w": (L, E, 4 * E)}
+        if wkind != "fp":
+            weights["head"] = (V, E)
+        group = check_weights(packed, weights, wkind, dtype, dev)
+        for name, shape in (("wte", (V, E)), ("wpe", (P, E))):
             _check(name, packed[name], dtype, shape, dev)
         _check("smalls", packed["smalls"], torch.float32, (L, 13, E), dev)
         _check("lnf", packed["lnf"], torch.float32, (2, E), dev)
@@ -413,6 +682,8 @@ class StepLauncher:
             ptr(x_emb), ptr(tok_out),
             ptr(ws.x), ptr(ws.qkv), ptr(ws.attn), ptr(ws.ffn),
             ptr(ws.lm_val), ptr(ws.lm_idx))
+        if wkind != "fp":
+            set_tier(self.args, packed, weights, wkind, group)
         self.device = dev
 
     def set_tokens(self, tok_in: torch.Tensor, tok_out: torch.Tensor) -> None:
@@ -446,13 +717,15 @@ def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     """One whole decode step (greedy, batch 1). Returns (token int32 [],
     k, v).
 
-    packed: `pack_gpt2_mega(params, cfg)`; k, v: [L, C, E] panes in the
-    model dtype, written in place at row `length` of every layer (the JAX
-    kernel aliases them the same way) and returned; length: tokens already
+    packed: `pack_gpt2_mega(params, cfg)`, of full-precision or quantized
+    weights; k, v: [L, C, E] panes in the model dtype, written in place at
+    row `length` of every layer (the JAX kernel aliases them the same way)
+    and returned; length: tokens already
     cached (int or int32 tensor); x_emb: [1, E] token + position embedding
     in the model dtype. On a CUDA tensor it launches the kernel chain of
     `csrc/gpt2_megastep.cu` and counts one launch in
-    `gpt2_megastep.launches`; on a CPU tensor it runs
+    `gpt2_megastep.launches` (full-precision weights) or
+    `gpt2_megastep.tiers["int8" | "int4"].launches`; on a CPU tensor it runs
     `gpt2_megastep_plain`. The capacity is the panes' row count (the JAX
     kernel's static `capacity`).
     """
@@ -461,11 +734,12 @@ def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     tok = torch.empty(1, dtype=torch.int32, device=k.device)
     StepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
                  x_emb=x_emb.contiguous()).launch()
-    gpt2_megastep.launches += 1
+    launch_counter(gpt2_megastep, packed).launches += 1
     return tok[0], k, v
 
 
 gpt2_megastep.launches = 0
+gpt2_megastep.tiers = {"int8": TierCount(), "int4": TierCount()}
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +835,10 @@ def verify_kernels() -> ctypes.CDLL:
 
 class VerifyLayout:
     """The verify launchers' layout: [L, C, W] panes of one sequence, R
-    token rows, one length, R first in the args struct; fp panes only."""
+    token rows, one length, R first in the args struct; fp panes and
+    full-precision weights only."""
+
+    weight_tiers = ("fp",)
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         if k.dim() != 3:
@@ -644,13 +921,13 @@ class MegaDecodeGraph:
         rows = panes["k"].shape[1] if launcher.batched else 1
         self.n = n_steps
         self.panes = panes
-        self.counter = counter
         self.toks = torch.zeros(n_steps + 1, rows, dtype=torch.int32, device=dev)
         self.length = torch.zeros(rows, dtype=torch.int32, device=dev)
         self.step = launcher(
             packed, cfg, panes["k"], panes["v"], self.length, self.toks[1],
             tok_in=self.toks[0], ks=panes.get("ks"), vs=panes.get("vs"),
             advance=True, **launch_kw)
+        self.counter = launch_counter(counter, packed)  # after the launcher's checks
         self.step.library()  # build and load outside the capture
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):

@@ -60,8 +60,10 @@ def mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
     128, capacity <= 8192, batch <= MAX_BATCH. The JAX package's VMEM
     budget (`_pick_tps_batch`) is a TPU limit and is not carried over: the
     GEMVs stage their inputs in K-chunks that fit shared memory at any
-    width."""
-    return mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+    width. Full-precision weights only: the weight tiers of the batched
+    kernels are ROADMAP.md Queue 1 item 14."""
+    return (mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+            and not mk.weight_quantized(params))
 
 
 def llama_mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
@@ -71,8 +73,9 @@ def llama_mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> 
     `_tile_geometry`) and the kernels' limits (`megakernel_llama.
     mega_supported`, batch <= MAX_BATCH). The TPU memory envelopes (the VMEM
     budget `_llama_pick_tps_batch`, the 4 GiB stream cap, the 2048-tile DMA
-    gate) are not carried over."""
-    return ml.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+    gate) are not carried over. Full-precision weights only."""
+    return (ml.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+            and not mk.weight_quantized(params))
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +157,7 @@ class GPT2BatchLauncher(mk.StepLauncher):
 
     entry = {False: "elit_gpt2_megabatch", True: "elit_gpt2_megabatch_quant"}
     args_type = GPT2BatchArgs
+    weight_tiers = ("fp",)
     batched = True
     max_rows = MAX_BATCH
 
@@ -166,6 +170,7 @@ class LlamaBatchLauncher(ml.LlamaStepLauncher):
 
     entry = {False: "elit_llama_megabatch", True: "elit_llama_megabatch_quant"}
     args_type = LlamaBatchArgs
+    weight_tiers = ("fp",)
     batched = True
     max_rows = MAX_BATCH
 

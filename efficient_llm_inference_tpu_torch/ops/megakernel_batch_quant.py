@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from . import megakernel as mk
 from . import megakernel_quant as mq
 from .megakernel_batch import (
     GPT2BatchLauncher,
@@ -62,8 +63,10 @@ def mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: int,
     package's structure (`megakernel_quant.mega_quant_supported`: uniform
     full-precision weights, E % 128, capacity % 8, (E/2) % 128 for an int4
     pane), batch >= 1, and the kernels' limits (batch <= MAX_BATCH). The
-    VMEM budget (`_pick_tps_batch_quant`) is not carried over."""
-    return mq.mega_quant_supported(cfg, capacity, params, kv_mode) and _batch_ok(batch)
+    VMEM budget (`_pick_tps_batch_quant`) is not carried over. Full-precision
+    weights only."""
+    return (mq.mega_quant_supported(cfg, capacity, params, kv_mode) and _batch_ok(batch)
+            and not mk.weight_quantized(params))
 
 
 def llama_mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -71,9 +74,10 @@ def llama_mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: in
     """The batched quantized-pane Llama/Qwen step's eligibility: the
     single-stream one (`megakernel_quant.llama_mega_quant_supported`: the fp
     step's structure and 128-lane pane widths), batch >= 1, and
-    batch <= MAX_BATCH. The TPU memory envelopes are not carried over."""
+    batch <= MAX_BATCH. The TPU memory envelopes are not carried over.
+    Full-precision weights only."""
     return (mq.llama_mega_quant_supported(cfg, capacity, params, kv_mode)
-            and _batch_ok(batch))
+            and _batch_ok(batch) and not mk.weight_quantized(params))
 
 
 def gpt2_megabatch_quant_plain(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,

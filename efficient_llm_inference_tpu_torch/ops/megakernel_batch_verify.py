@@ -51,10 +51,12 @@ from .megakernel_batch_quant import _quant_kw
 MAX_ROWS = 256
 
 
-def _rows_ok(capacity: int, batch: int, rows: int) -> bool:
+def _rows_ok(capacity: int, batch: int, rows: int, params: dict) -> bool:
     """The JAX structure (1 <= R <= 8, capacity % 8 == 0, capacity >= 16,
-    batch >= 1) and the kernel's B x R <= MAX_ROWS."""
-    return (1 <= rows <= mk.MAX_VERIFY_ROWS and capacity >= 16 and capacity % 8 == 0
+    batch >= 1) and the kernel's B x R <= MAX_ROWS, over full-precision
+    weights (the weight tiers are ROADMAP.md Queue 1 item 14)."""
+    return (not mk.weight_quantized(params) and 1 <= rows <= mk.MAX_VERIFY_ROWS
+            and capacity >= 16 and capacity % 8 == 0
             and batch >= 1 and batch * rows <= MAX_ROWS)
 
 
@@ -65,7 +67,7 @@ def mega_batch_verify_supported(cfg, capacity: int, params: dict, batch: int,
     1 <= rows <= 8, batch >= 1), the step kernels' limits (head_dim 64 or
     128, capacity <= 8192) and B x R <= MAX_ROWS. The VMEM envelope
     (`_pick_tps_batch_verify`) is a TPU limit and is not carried over."""
-    return mk.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows)
+    return mk.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows, params)
 
 
 def mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -73,7 +75,7 @@ def mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, batch: i
     """As `mega_batch_verify_supported` over quantized panes: (E/2) % 128
     for an int4 pane, as in the JAX package (`mq.mega_quant_supported`)."""
     return (mq.mega_quant_supported(cfg, capacity, params, kv_mode)
-            and _rows_ok(capacity, batch, rows))
+            and _rows_ok(capacity, batch, rows, params))
 
 
 def llama_mega_batch_verify_supported(cfg, capacity: int, params: dict, batch: int,
@@ -82,7 +84,7 @@ def llama_mega_batch_verify_supported(cfg, capacity: int, params: dict, batch: i
     structure (`megakernel_llama.mega_supported`), 1 <= rows <= 8,
     capacity >= 16 and B x R <= MAX_ROWS. The TPU envelopes
     (`_llama_pick_tps_verify`) are not carried over."""
-    return ml.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows)
+    return ml.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows, params)
 
 
 def llama_mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -90,7 +92,7 @@ def llama_mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, ba
     """As `llama_mega_batch_verify_supported` over quantized panes whose
     widths are multiples of 128 lanes (`mq.llama_mega_quant_supported`)."""
     return (mq.llama_mega_quant_supported(cfg, capacity, params, kv_mode)
-            and _rows_ok(capacity, batch, rows))
+            and _rows_ok(capacity, batch, rows, params))
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +234,10 @@ def kernels() -> ctypes.CDLL:
 
 class BatchVerifyLayout:
     """The batched verify launchers' layout: [L, B, C, W] panes, R rows a
-    slot (B x R token rows), B lengths, (B, R) first in the args struct."""
+    slot (B x R token rows), B lengths, (B, R) first in the args struct;
+    full-precision weights only."""
+
+    weight_tiers = ("fp",)
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         if k.dim() != 4:

@@ -3,13 +3,14 @@
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel_llama.py
 (`_llama_megapass` through `llama_megastep`, the R = 1 decode row, and
 through `llama_megaverify`, R <= 8 verify rows of one sequence;
-`mega_supported`, `pack_llama_mega`; full-precision weights). The TPU
-program streams a uniform [TR, TC] tile grid of every weight through VMEM;
-on the H100 the step is a fixed chain of hand-written kernels from
-`csrc/llama_megastep.cu`, launched by one host call (`llama_megastep`) and,
-in the engine's decode loop, captured once into a CUDA graph
-(ops/megakernel.py `MegaDecodeGraph`) that replays all N steps of a
-generation. The quantized-KV variant (ops/megakernel_quant.py
+`mega_supported`, `pack_llama_mega`, `_weight_mode`; full-precision, int8
+and grouped-int4 weights, the last at any group including the int4w8
+group TR/2). The TPU program streams a uniform [TR, TC] tile grid of every
+weight through VMEM; on the H100 the step is a fixed chain of hand-written
+kernels from `csrc/llama_megastep.cu`, launched by one host call
+(`llama_megastep`) and, in the engine's decode loop, captured once into a
+CUDA graph (ops/megakernel.py `MegaDecodeGraph`) that replays all N steps
+of a generation. The quantized-KV variant (ops/megakernel_quant.py
 `llama_megastep_quant`) shares this module's packing and launcher, and so
 does the verify pass (`llama_megaverify`, the chain of `csrc/megaverify.cu`;
 row t takes its RoPE row at min(length + t, n_positions - 1)).
@@ -28,6 +29,16 @@ Layouts:
   `qkvb` [L, QW + 2 KW]. The RoPE tables `cos`/`sin` [n_positions, D] (fp32,
   `models.llama.rope_cos_sin`) are packed too: a step reads row
   min(length, n_positions - 1) on the device.
+
+Quantized weights (`models.llama.quantize_llama_weights`) pack into the
+same rows of codes with `<name>_s` scales (ops/megakernel.py `pack_rows`:
+int8 rows and fp32 per-row scales; int4 rows of the codes' own nibble order
+and per-(row, group) scales in the model dtype), gate and up interleaved
+row by row with their scales, and the LM head from the quantized copy
+(`lm_q` / `lm_q4`) into `head` / `head_s`; `embed` stays for the lookup.
+The int4 tier's arithmetic is the JAX kernel's int4w8 form (`_int4_tile_dot`
+at one group a half tile: raw nibble dots, their fp32 sums scaled) at every
+group; ops/megakernel.py says what it leaves of the grouped form.
 
 Numerics follow the JAX kernel's rounding points, which differ from the
 model's (`models/llama.py`) in one place: silu is applied to the fp32 gate
@@ -50,29 +61,41 @@ import torch
 
 from ..models.llama import WEIGHT_NAMES, _rms_norm, apply_rope, rope_cos_sin
 from . import _build
+from . import megakernel as mk
 from .megakernel import (
     _DTYPE_CODE,
     HEAD_DIMS,
     KIND_CODE,
     MAX_CAPACITY,
     StepLauncher,
+    TierCount,
     VerifyLayout,
     Workspace,
     _check,
+    _int4_group_ok,
     _length_tensor,
-    _mv,
+    _q4_group,
+    _tier_ok,
     attend_plain,
+    check_weights,
+    launch_counter,
     launch_verify,
+    lm_rows,
+    pack_rows,
+    set_tier,
+    tier_fields,
     verify_plain,
     verify_rows_check,
+    weight_kind,
+    weight_mode,
+    wmv,
 )
 
 
 def _full_precision_dtype(params: dict, cfg) -> Optional[torch.dtype]:
     """The weights' dtype when every block weight, the embedding and (untied)
     the LM head are full-precision tensors of one dtype the kernels take,
-    else None (the JAX package's "f" weight mode; the port has no quantized
-    weights yet)."""
+    else None (the JAX package's "f" weight mode)."""
     b = params.get("blocks", {})
     ts = [b.get(n) for n in WEIGHT_NAMES] + [params.get("embed")]
     if not cfg.tie_embeddings:
@@ -138,43 +161,90 @@ def jax_structure_ok(cfg, capacity: int, params: dict) -> bool:
             and _jax_geometry_ok(cfg, capacity))
 
 
+def _weight_mode(b: dict) -> Optional[str]:
+    """"f" | "int8" | "int4" when the seven block weights are uniform, else
+    None (JAX `_weight_mode`)."""
+    return weight_mode(b, WEIGHT_NAMES)
+
+
+def _weights_ok(cfg, params: dict) -> bool:
+    """The JAX package's weight gates: uniform weights (full precision with
+    an lm_head when untied, int8 with `lm_q`, or grouped int4 with `lm_q4`
+    at one group G with TR % G == 0, (TR/2) % G == 0, TR % 16 == 0 and
+    (Ip - I) % G == 0, the copied `_tile_geometry`), and the kernels' own:
+    G % 32 == 0 (int4), and E, QW and I multiples of 16 (int8: 16 codes a
+    load)."""
+    b = params.get("blocks", {})
+    mode = _weight_mode(b)
+    embed = params.get("embed")
+    dtype = (_full_precision_dtype(params, cfg) if mode == "f"
+             else embed.dtype if isinstance(embed, torch.Tensor) else None)
+    if not _tier_ok(params, mode, dtype):
+        return False
+    QW = cfg.n_head * cfg.head_dim
+    if mode == "int8" and any(d % 16 for d in (cfg.hidden_size, QW, cfg.intermediate_size)):
+        return False
+    if mode == "int4":
+        gs = {_q4_group(b[n]) for n in WEIGHT_NAMES} | {_q4_group({"q4": params["lm_q4"]})}
+        if len(gs) != 1:
+            return False
+        G = gs.pop()
+        TR, _, Ip = _tile_geometry(cfg)
+        if (TR % G or (TR // 2) % G or TR % 16 or (Ip - cfg.intermediate_size) % G
+                or not _int4_group_ok(G)):
+            return False
+    return True
+
+
 def mega_supported(cfg, capacity: int, params: dict) -> bool:
     """Can the Llama megakernel run this geometry? The JAX package's
-    eligibility for full-precision weights (`_geometry_ok`; an untied model
-    needs its lm_head) plus the kernels' limits. The JAX package's TPU
+    eligibility (the weight gates of `_weights_ok`, the structure of
+    `_geometry_ok`) plus the kernels' limits. The JAX package's TPU
     memory envelopes (the VMEM budget, the 4 GiB packed-stream cap and the
     2048-tile DMA gate) are not carried over: the card streams the weights
     from its own memory, where both copies fit."""
-    return _full_precision_dtype(params, cfg) is not None and _geometry_ok(cfg, capacity)
+    return _weights_ok(cfg, params) and _geometry_ok(cfg, capacity)
 
 
 def pack_llama_mega(params: dict, cfg) -> Optional[dict]:
     """Re-layout Llama/Qwen params for the kernels (once per engine); None
     when the params are not packable (see `mega_supported`)."""
-    if _full_precision_dtype(params, cfg) is None:
+    if not _weights_ok(cfg, params):
         return None
     L, E, I = cfg.n_layer, cfg.hidden_size, cfg.intermediate_size
     b = params["blocks"]
+    dtype = params["embed"].dtype
+    rows = {n: pack_rows(b[n], dtype) for n in WEIGHT_NAMES}  # [L, out, in]
 
-    def t(name):  # [L, in, out] -> [L, out, in]
-        return b[name].transpose(1, 2)
+    def cat(names):  # q|k|v rows (and scales) along the outputs
+        parts = [rows[n] for n in names]
+        s = None if parts[0][1] is None else torch.cat([p[1] for p in parts], dim=1)
+        return torch.cat([p[0] for p in parts], dim=1), s
 
-    gate_up = torch.stack([t("w_gate"), t("w_up")], dim=2)  # [L, I, 2, E]
+    def interleave(a, b_):  # gate j, up j -> rows 2j, 2j + 1
+        return torch.stack([a, b_], dim=2).reshape(L, 2 * I, *a.shape[2:])
+
     positions = torch.arange(cfg.n_positions, device=params["embed"].device)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    (gate, gate_s), (up, up_s) = rows["w_gate"], rows["w_up"]
     packed = {
-        "qkv_w": torch.cat([t("wq"), t("wk"), t("wv")], dim=1).contiguous(),
-        "o_w": t("wo").contiguous(),  # [L, E, QW]
-        "gu_w": gate_up.reshape(L, 2 * I, E).contiguous(),
-        "down_w": t("w_down").contiguous(),  # [L, E, I]
+        "o_w": rows["wo"][0],  # [L, E, QW]
+        "gu_w": interleave(gate, up).contiguous(),  # [L, 2 I, E]
+        "down_w": rows["w_down"][0],  # [L, E, I]
         "embed": params["embed"].contiguous(),
-        "head": (params["embed"] if cfg.tie_embeddings
-                 else params["lm_head"].t()).contiguous(),
         "norms": torch.stack([b["ln1"].float(), b["ln2"].float()], dim=1).contiguous(),
         "lnf": params["ln_f"].float()[None].contiguous(),
         "cos": cos.contiguous(),
         "sin": sin.contiguous(),
     }
+    packed["qkv_w"], qkv_s = cat(("wq", "wk", "wv"))
+    if qkv_s is not None:  # quantized weights: the scales, the LM head's copy
+        packed.update(qkv_s=qkv_s, o_s=rows["wo"][1], down_s=rows["w_down"][1],
+                      gu_s=interleave(gate_s, up_s).contiguous())
+        packed["head"], packed["head_s"] = lm_rows(params, dtype)
+    else:
+        packed["head"] = (params["embed"] if cfg.tie_embeddings
+                          else params["lm_head"].t()).contiguous()
     if cfg.qkv_bias:
         packed["qkvb"] = torch.cat([b["bq"], b["bk"], b["bv"]], dim=-1).float().contiguous()
     return packed
@@ -213,22 +283,22 @@ def llama_plain_step(packed: dict, cfg, x_emb: torch.Tensor, pos: int, attend):
     for layer in range(L):
         norms = packed["norms"][layer]
         h = _rms_norm(x, norms[0], eps)
-        y = _mv(h, packed["qkv_w"][layer])
+        y = wmv(h, packed, "qkv_w", layer)
         if "qkvb" in packed:
             y = y + packed["qkvb"][layer]
         q, k, v = y.to(dt).split([QW, KW, KW])
         q, k = rope(q), rope(k)
         a = attend(layer, q, k, v).to(dt)
-        x = x + _mv(a, packed["o_w"][layer]).to(dt)
+        x = x + wmv(a, packed, "o_w", layer).to(dt)
         h2 = _rms_norm(x, norms[1], eps)
-        gu = _mv(h2, packed["gu_w"][layer]).reshape(I, 2)
+        gu = wmv(h2, packed, "gu_w", layer).reshape(I, 2)
         g, u = gu[:, 0], gu[:, 1]
         gate = (g * torch.sigmoid(g)).to(dt)  # silu on the fp32 gate
-        x = x + _mv(gate * u.to(dt), packed["down_w"][layer]).to(dt)
+        x = x + wmv(gate * u.to(dt), packed, "down_w", layer).to(dt)
         new_k.append(k)
         new_v.append(v)
     xf = _rms_norm(x, packed["lnf"][0], eps)
-    logits = _mv(xf, packed["head"])
+    logits = wmv(xf, packed, "head")
     return logits, torch.stack(new_k), torch.stack(new_v)
 
 
@@ -271,6 +341,15 @@ class LlamaArgs(ctypes.Structure):
         "x_emb", "tok_out", "x", "qkv", "attn", "ffn", "lm_val", "lm_idx")]
 
 
+class LlamaStepArgs(ctypes.Structure):
+    """Mirror of `struct LlamaArgs` in csrc/llama_megastep.cu: `LlamaArgs`
+    (the fields the batched and verify structs repeat) and the weight tier
+    (ops/megakernel.py `tier_fields`): each weight's scales."""
+
+    _fields_ = LlamaArgs._fields_ + tier_fields(("qkv_s", "o_s", "gu_s", "down_s",
+                                                 "head_s"))
+
+
 _lib = None
 
 
@@ -280,7 +359,7 @@ def kernels() -> ctypes.CDLL:
         lib = _build.load("llama_megastep")
         for fn in (lib.elit_llama_megastep, lib.elit_llama_megastep_quant):
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(LlamaArgs), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(LlamaStepArgs), ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -291,7 +370,7 @@ class LlamaStepLauncher(StepLauncher):
     ops.megakernel.StepLauncher's."""
 
     entry = {False: "elit_llama_megastep", True: "elit_llama_megastep_quant"}
-    args_type = LlamaArgs
+    args_type = LlamaStepArgs
 
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
@@ -303,6 +382,10 @@ class LlamaStepLauncher(StepLauncher):
         I, V, P = cfg.intermediate_size, cfg.vocab_size, cfg.n_positions
         QW, KW = cfg.n_head * D, cfg.n_kv_head * D
         dtype = packed["embed"].dtype
+        wkind = weight_kind(packed)
+        if wkind not in self.weight_tiers:
+            raise NotImplementedError(f"{type(self).__name__}: {wkind} weights: "
+                                      f"{mk.WEIGHT_TODO}")
         dev = k.device
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
@@ -312,12 +395,10 @@ class LlamaStepLauncher(StepLauncher):
                 f"{cfg.n_kv_head}, capacity={C}")
         if (x_emb is None) == (tok_in is None):
             raise ValueError("give exactly one of x_emb and tok_in")
-        wants = {
-            "qkv_w": (L, QW + 2 * KW, E), "o_w": (L, E, QW), "gu_w": (L, 2 * I, E),
-            "down_w": (L, E, I), "embed": (V, E), "head": (V, E),
-        }
-        for name, shape in wants.items():
-            _check(name, packed[name], dtype, shape, dev)
+        weights = {"qkv_w": (L, QW + 2 * KW, E), "o_w": (L, E, QW), "gu_w": (L, 2 * I, E),
+                   "down_w": (L, E, I), "head": (V, E)}
+        group = check_weights(packed, weights, wkind, dtype, dev)
+        _check("embed", packed["embed"], dtype, (V, E), dev)
         f32 = {"norms": (L, 2, E), "lnf": (1, E), "cos": (P, D), "sin": (P, D)}
         if "qkvb" in packed:
             f32["qkvb"] = (L, QW + 2 * KW)
@@ -355,6 +436,8 @@ class LlamaStepLauncher(StepLauncher):
             ptr(k), ptr(v), ptr(ks), ptr(vs), ptr(length), ptr(tok_in),
             ptr(x_emb), ptr(tok_out), ptr(ws.x), ptr(ws.qkv), ptr(ws.attn),
             ptr(ws.ffn), ptr(ws.lm_val), ptr(ws.lm_idx))
+        if wkind != "fp":
+            set_tier(self.args, packed, weights, wkind, group)
         self.device = dev
 
     def library(self) -> ctypes.CDLL:
@@ -373,19 +456,21 @@ def llama_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     the step takes from the packed tables; x_emb: [1, E] token embedding in
     the model dtype. On a CUDA tensor it launches the kernel chain of
     `csrc/llama_megastep.cu` and counts one launch in
-    `llama_megastep.launches`; on a CPU tensor it runs
-    `llama_megastep_plain`. The capacity is the panes' row count.
+    `llama_megastep.launches` (full-precision weights) or its weight tier's
+    `llama_megastep.tiers["int8" | "int4"].launches`; on a CPU tensor it
+    runs `llama_megastep_plain`. The capacity is the panes' row count.
     """
     if k.device.type == "cpu":
         return llama_megastep_plain(packed, k, v, length, x_emb, cfg=cfg)
     tok = torch.empty(1, dtype=torch.int32, device=k.device)
     LlamaStepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
                       x_emb=x_emb.contiguous()).launch()
-    llama_megastep.launches += 1
+    launch_counter(llama_megastep, packed).launches += 1
     return tok[0], k, v
 
 
 llama_megastep.launches = 0
+llama_megastep.tiers = {"int8": TierCount(), "int4": TierCount()}
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,10 @@ probabilities, and the new token's K/V rows are quantized on write.
   the probabilities are multiplied by the V scales and rounded to the model
   dtype before the PV product (exact in fp32); the current token stays
   full-precision and merges into the same softmax.
+* The weights may be quantized too (the JAX kernels' "wscale" /
+  "w4scale" modes, `Config.weight_quant`): the steps take the packed
+  dict's weight tier as ops/megakernel.py describes it, and count those
+  launches in `<wrapper>.tiers["int8" | "int4"]`.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ from . import megakernel_llama as ml
 from .megakernel import (
     NEG_INF,
     StepLauncher,
-    _full_precision_dtype,
-    _geometry_ok,
+    TierCount,
     _length_tensor,
+    launch_counter,
+    mega_supported,
     plain_step,
 )
 from .quantization import unpack_int4
@@ -87,10 +92,10 @@ def to_mega_quant_layout(buf: torch.Tensor, kind: str) -> torch.Tensor:
 
 def mega_quant_supported(cfg, capacity: int, params: dict, kv_mode: str) -> bool:
     """Engine-side eligibility (per_token scales only): the JAX package's
-    (uniform full-precision weights, E % 128 == 0, capacity % 8 == 0, and
-    (E/2) % 128 == 0 when a pane is int4) plus the kernels' limits of
-    `ops.megakernel.mega_supported`. The VMEM budget is not carried over."""
-    if _full_precision_dtype(params) is None or not _geometry_ok(cfg, capacity):
+    (the weight gates and geometry of `ops.megakernel.mega_supported`, and
+    (E/2) % 128 == 0 when a pane is int4) plus the kernels' limits there.
+    The VMEM budget is not carried over."""
+    if not mega_supported(cfg, capacity, params):
         return False
     k_kind, v_kind = _kv_kinds(kv_mode)
     return "int4" not in (k_kind, v_kind) or (cfg.n_embd // 2) % 128 == 0
@@ -187,7 +192,8 @@ def gpt2_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
     layer is quantized and written in place (the JAX kernel aliases them the
     same way). On a CUDA tensor it launches the kernel chain of
     `csrc/gpt2_megastep.cu` and counts one launch in
-    `gpt2_megastep_quant.launches`; on a CPU tensor it runs
+    `gpt2_megastep_quant.launches` (or, over quantized weights, its tier's
+    `gpt2_megastep_quant.tiers[...]`); on a CPU tensor it runs
     `gpt2_megastep_quant_plain`.
     """
     if k.device.type == "cpu":
@@ -198,11 +204,12 @@ def gpt2_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
     StepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
                  x_emb=x_emb.contiguous(), ks=ks, vs=vs, k_kind=k_kind,
                  v_kind=v_kind, quant_eps=eps).launch()
-    gpt2_megastep_quant.launches += 1
+    launch_counter(gpt2_megastep_quant, packed).launches += 1
     return tok[0], k, v, ks, vs
 
 
 gpt2_megastep_quant.launches = 0
+gpt2_megastep_quant.tiers = {"int8": TierCount(), "int4": TierCount()}
 
 
 def llama_mega_quant_supported(cfg, capacity: int, params: dict, kv_mode: str) -> bool:
@@ -247,7 +254,8 @@ def llama_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
     `kv_mode`); ks, vs: fp32 [L, C] per-token scales. Row `length` of every
     layer is quantized and written in place. On a CUDA tensor it launches
     the kernel chain of `csrc/llama_megastep.cu` and counts one launch in
-    `llama_megastep_quant.launches`; on a CPU tensor it runs
+    `llama_megastep_quant.launches` (or its weight tier's
+    `llama_megastep_quant.tiers[...]`); on a CPU tensor it runs
     `llama_megastep_quant_plain`.
     """
     if k.device.type == "cpu":
@@ -258,8 +266,9 @@ def llama_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
     ml.LlamaStepLauncher(packed, cfg, k, v, _length_tensor(length, k.device), tok,
                          x_emb=x_emb.contiguous(), ks=ks, vs=vs, k_kind=k_kind,
                          v_kind=v_kind, quant_eps=eps).launch()
-    llama_megastep_quant.launches += 1
+    launch_counter(llama_megastep_quant, packed).launches += 1
     return tok[0], k, v, ks, vs
 
 
 llama_megastep_quant.launches = 0
+llama_megastep_quant.tiers = {"int8": TierCount(), "int4": TierCount()}

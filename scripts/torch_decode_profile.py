@@ -2,7 +2,7 @@
 """Where the time of the PyTorch/CUDA port's main path goes on one GPU.
 
     python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...]
-        [--batch B | --spec | --server [--spec]]
+        [--weight-quant int8|int4|int4w8 | --batch B | --spec | --server [--spec]]
 
 A model of the registry at full width (GPT-2 small by default; random
 weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
@@ -22,7 +22,14 @@ prints one JSON line with:
 - step_ms: (wall_ms - the same generation's wall time with one new token)
   / (NEW_TOKENS - 1), the wall time of one decode step with the prefill
   taken out;
+- wall_1_ms: the median wall of the same generation with one new token
+  (the prefill and the host around it);
 - kernels_per_generation, and the six kernels with the most device time.
+
+With `--weight-quant` the single-stream profile runs on weights quantized
+by `Config(weight_quant=...)`, megakernel on only (the chains' weight
+tiers): off, every eager decode step widens all the codes to fp32 (a
+Llama-3.2-1B int4 run of the off path took most of a 1200 s call).
 
 With `--batch B` it profiles static-batch serving instead:
 `generate_batch` of B prompts (256 tokens each, one per seed) with 64 new
@@ -240,6 +247,8 @@ def main() -> int:
                              "--server, the server's spec=\"ngram\" mode")
     parser.add_argument("--server", action="store_true",
                         help="profile MegaBatchServer.run on the server protocol")
+    parser.add_argument("--weight-quant", choices=("int8", "int4", "int4w8"),
+                        help="single stream over weights quantized by Config.weight_quant")
     args = parser.parse_args()
     model = args.model
     if not torch.cuda.is_available():
@@ -260,12 +269,14 @@ def main() -> int:
         return 0
     text = prompt()
     t0 = time.perf_counter()
+    wq = args.weight_quant
     base = InferenceEngine.from_model_name(
-        model, config=Config(model_name=model, megakernel=False))
-    print(json.dumps({"model": model, "init_s": time.perf_counter() - t0}), flush=True)
-    for mega in (False, None):
-        eng = base if mega is False else InferenceEngine.from_model_name(
-            model, config=Config(model_name=model), params=base.params)
+        model, config=Config(model_name=model, megakernel=False, weight_quant=wq))
+    print(json.dumps({"model": model, "weight_quant": wq,
+                      "init_s": time.perf_counter() - t0}), flush=True)
+    for mega in ((None,) if wq else (False, None)):  # quantized params serve as they are
+        eng = base if mega is False else InferenceEngine(
+            base.model, base.params, base.tokenizer, Config(model_name=model))
         for method in METHODS:
             eng.generate_ids(text, method, NEW_TOKENS)  # build, load, capture, warm
             walls = [wall_ms(eng, text, method) for _ in range(5)]
@@ -277,9 +288,11 @@ def main() -> int:
             top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
             print(json.dumps({
                 "model": model,
+                "weight_quant": wq,
                 "megakernel": mega is None,
                 "method": method,
                 "wall_ms": wall,
+                "wall_1_ms": wall_1,
                 "wall_ms_runs": walls,
                 "tokens_per_s": NEW_TOKENS / wall * 1e3,
                 "step_ms": (wall - wall_1) / (NEW_TOKENS - 1),

@@ -36,6 +36,10 @@ from efficient_llm_inference_tpu_torch import (
     MegaPoolConfig,
     Request,
 )
+from efficient_llm_inference_tpu_torch.engine.engine import (
+    quantize_weights,
+    weight_quant_plan,
+)
 from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
 from efficient_llm_inference_tpu_torch.models import llama as tllama
 from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
@@ -1085,3 +1089,160 @@ def test_paged_attention_matches_plain(cuda, geometry, q_dtype, pool_dtype):
     torch.cuda.synchronize()
     assert tpaged.paged_attention_decode.launches == before + 1 and got.dtype == q_dtype
     assert _attention_close(got, want, 2e-5)
+
+
+# ------------------------------------------- weight tiers of #9, #11-#13
+
+TIER_CFGS = {  # (family, config): small and full widths
+    "gpt2-small-test": ("gpt2", MEGA_CFGS["small-test"]),
+    "gpt2-full": ("gpt2", MEGA_CFGS["gpt2"]),
+    "llama-g2": ("llama", LLAMA_CFGS["g2"]),
+    "llama-g7-qwen": ("llama", LLAMA_CFGS["g7-qwen"]),
+    "llama-3-1b-L2": ("llama", "llama-3-1b"),  # Llama-3.2-1B's width, 2 layers
+}
+_TIER_PARAMS, _TIER_PACKED = {}, {}
+
+
+def _tier_packed(cfg_name, wq, dtype, device):
+    """(family, cfg, packed) of a weight-quantized model (cached per case):
+    random weights quantized by models' `quantize_*_weights` at int8, int4
+    (group 128, or 64 where the JAX gates refuse 128: Qwen's 128-row tile)
+    or the int4w8 group (GPT-2: E/2; Llama/Qwen: TR/2)."""
+    family, kw = TIER_CFGS[cfg_name]
+    if cfg_name not in _TIER_PARAMS:
+        if family == "gpt2":
+            cfg = tgpt2.GPT2Config(**kw)
+            params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(3), cfg,
+                                            torch.float32, device)
+        else:
+            cfg = (dataclasses.replace(tllama.LlamaConfig.llama3_1b(), n_layer=2)
+                   if kw == "llama-3-1b" else _llama_cfg(cfg_name[6:]))
+            params = _llama_params(cfg, device)
+        _TIER_PARAMS[cfg_name] = (cfg, params)
+    cfg, params = _TIER_PARAMS[cfg_name]
+    key = (cfg_name, wq, dtype)
+    if key not in _TIER_PACKED:
+        spec = gpt2_spec(cfg) if family == "gpt2" else tllama.llama_spec(cfg)
+        pack = tmk.pack_gpt2_mega if family == "gpt2" else tml.pack_llama_mega
+        qspec, mode, G = weight_quant_plan(spec, wq)  # as from_model_name quantizes
+        assert qspec is spec
+        packed = None
+        for G in ((G,) if wq == "int4w8" else (G, 64)):
+            packed = pack(quantize_weights(spec, _tree_to(params, dtype), mode, G), cfg)
+            if packed is not None:
+                break
+        assert packed is not None and tmk.weight_kind(packed) == wq[:4], key
+        _TIER_PACKED[key] = (family, cfg, packed)
+    return _TIER_PACKED[key]
+
+
+def _tree_to(tree, *args):
+    """A nested dict of tensors with `.to(*args)` applied to every leaf."""
+    return {k: (_tree_to(v, *args) if isinstance(v, dict) else v.to(*args))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("length", [0, 127])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("wq", ["int8", "int4", "int4w8"])
+@pytest.mark.parametrize("cfg_name", list(TIER_CFGS))
+def test_weight_tier_step_matches_plain(cuda, cfg_name, wq, mode, dtype, length):
+    """#9 / #11 (GPT-2) and #13 at R = 1 / #12 (Llama/Qwen) over quantized
+    weights against their plain steps, C = 128, lengths 0 and C - 1: fp32
+    as the fp-weight tests above (the token where the top-2 gap is at least
+    1e-4, new rows within 1e-5 of their largest value, codes within one
+    step, scales within 1e-5); bf16 with chip_smoke.py's tolerances (a
+    token within 2e-2 of the plain maximum, fp rows within 1.6e-2 of their
+    largest value, quantized rows within two steps). The launch lands in
+    the wrapper's tier count, not its full-precision one."""
+    family, cfg, packed = _tier_packed(cfg_name, wq, dtype, cuda)
+    C = 128
+    inputs = _mega_inputs if family == "gpt2" else _llama_inputs
+    state, x = inputs(cfg, mode, C, seed=length + 5, device=cuda)
+    state = [t.to(dtype) if t.is_floating_point() and t.dim() == 3 else t for t in state]
+    x = x.to(dtype)
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    step = {("gpt2", "fp"): tmk.gpt2_megastep, ("gpt2", "q"): tmq.gpt2_megastep_quant,
+            ("llama", "fp"): tml.llama_megastep,
+            ("llama", "q"): tmq.llama_megastep_quant}[(family, "fp" if mode == "fp" else "q")]
+    plain = {tmk.gpt2_megastep: tmk.gpt2_megastep_plain,
+             tmq.gpt2_megastep_quant: tmq.gpt2_megastep_quant_plain,
+             tml.llama_megastep: tml.llama_megastep_plain,
+             tmq.llama_megastep_quant: tmq.llama_megastep_quant_plain}[step]
+    kw = {} if mode == "fp" else {"kv_mode": mode}
+    tier = step.tiers[wq[:4]]
+    before = (step.launches, tier.launches)
+    tok = int(step(packed, *got, length, x, cfg=cfg, **kw)[0])
+    assert (step.launches, tier.launches) == (before[0], before[1] + 1)
+    logits = plain(packed, *want, length, x, cfg=cfg, return_logits=True, **kw)[-1]
+    torch.cuda.synchronize()
+    top2 = logits.topk(2).values
+    if dtype == torch.float32:
+        if float(top2[0] - top2[1]) >= 1e-4:
+            assert tok == int(logits.argmax())
+    else:
+        assert float(logits[tok]) >= float(top2[0]) - 2e-2
+    others = torch.arange(C, device=cuda) != length
+    for g_, w_, b_ in zip(got, want, state):
+        assert torch.equal(g_[:, others], b_[:, others])
+        assert torch.equal(w_[:, others], b_[:, others])
+    if mode == "fp":
+        rel = 1e-5 if dtype == torch.float32 else 1.6e-2
+        for g_, w_ in zip(got, want):
+            atol = rel * max(1.0, w_[:, length].float().abs().max().item())
+            torch.testing.assert_close(g_[:, length].float(), w_[:, length].float(),
+                                       atol=atol, rtol=0)
+        return
+    steps = 1 if dtype == torch.float32 else 2
+    for kind, g_, w_, gs, ws in zip(tmq._kv_kinds(mode), got[:2], want[:2], got[2:],
+                                    want[2:]):
+        gv = tmq.pane_values(g_[:, length], kind) * gs[:, length, None]
+        wv = tmq.pane_values(w_[:, length], kind) * ws[:, length, None]
+        tol = steps * max(gs[:, length].max().item(), ws[:, length].max().item()) * 1.01
+        assert (gv - wv).abs().max() <= tol
+        if dtype == torch.float32:
+            torch.testing.assert_close(gs[:, length], ws[:, length], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("wq", ["int8", "int4", "int4w8"])
+@pytest.mark.parametrize("method", ["full_cache", "quant_mixed"])
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_engine_weight_quant_graph_matches_plain_steps(cuda, family, method, wq):
+    """Config(weight_quant=...) through the engine's CUDA-graph decode against
+    the same quantized weights' plain steps on the CPU, fp32: the greedy
+    tokens agree while the plain logits' top-2 gap stays at least 1e-4, and
+    every step is one launch of the chain's weight tier (no fp-tier
+    launch)."""
+    if family == "gpt2":
+        cfg = tgpt2.GPT2Config(vocab_size=256, n_positions=128, n_embd=256, n_layer=2,
+                               n_head=4)
+        spec = gpt2_spec(cfg)
+        params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(0), cfg,
+                                        torch.float32, "cpu")
+        step = tmk.gpt2_megastep if method == "full_cache" else tmq.gpt2_megastep_quant
+    else:
+        cfg = _llama_cfg("g2")
+        spec = tllama.llama_spec(cfg)
+        params = _llama_params(cfg, "cpu")
+        step = tml.llama_megastep if method == "full_cache" else tmq.llama_megastep_quant
+    qspec, mode, G = weight_quant_plan(spec, wq)  # as from_model_name quantizes
+    assert qspec is spec
+    q = quantize_weights(spec, params, mode, G)
+    engines = {dev: InferenceEngine(spec, _tree_to(q, dev), config=Config(
+        model_name="t", device=dev, dtype=torch.float32, megakernel=True))
+        for dev in ("cpu", "cuda")}
+    tier = step.tiers[wq[:4]]
+    prompt, n = "Quantized weights stream as codes.", 16
+    for _ in range(2):  # the second call replays the captured graph
+        before = (step.launches, tier.launches)
+        got = engines["cuda"].generate_ids(prompt, method, n)
+        assert (step.launches, tier.launches) == (before[0], before[1] + n)
+    want = engines["cpu"].generate_ids(prompt, method, n)
+    _, logits = engines["cpu"].generate_logits(prompt, method, n, forced=want[-n:])
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) >= 1e-4
+    first_unclear = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
+    assert got[:len(got) - n + first_unclear] == want[:len(want) - n + first_unclear]
+

@@ -70,6 +70,13 @@ def to_jax(tree):
     return jnp.asarray(tree)
 
 
+def to_numpy(tree):
+    """A nested dict of torch tensors (CPU) as the same dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
 def jax_rope_rows(jcfg, length: int):
     """cos_q/sin_q [1, Hq*D] of the JAX Llama step at `length`, as the JAX
     engine builds them (position min(length, P - 1), under jit)."""
