@@ -147,6 +147,31 @@ int4 codes) runs in three more places:
   tiers (full_cache and quant_int8) beside the plain step on the card,
   tokens equal wherever the plain top-2 gap is at least 1e-4.
 
+The weight tiers of the verify and batched chains (#10, #13 at R > 1,
+#14-#21: the batched GEMV of csrc/gemv_batch.cuh streaming int8 or
+grouped-int4 codes) run in three more places:
+- batched weight-tier kernels, after the batched verify phase: GPT-2 small
+  (12 layers) at int8 and int4 (G = 128), Llama-3.2-1B's widths cut to 2
+  layers at int8, int4 and int4w8 (G = 1024; verify and B = 8 only), bf16
+  and fp32: #10 / #13 at R = 8 (cur 0 and C - 16 of C = 344), #14-#17 at
+  B = 8 (lengths 0 .. 319 of C = 320; #16 / #17 also at B = 16), #18-#21
+  at 8 x 8 rows (C = 128; GPT-2's #18 also at 16 x 8 in bf16), fp and int8
+  panes, each against its plain version with its full-precision phase's
+  checks and limits, timed in bf16 beside the pack's byte bound;
+- weight-quant serving main path, after the server main path:
+  from_model_name(weight_quant=...) for Llama-3.2-1B at int8 and GPT-2
+  small at int4, bf16: generate_batch (8 prompts, kv_mode None and int8),
+  generate_speculative ("ngram" k = 8, "self_draft" k = 4) and
+  MegaBatchServer (plain and spec="ngram", bf16 and int8 pools; 16
+  requests on 8 slots, 32 on 16), with the bf16-weight phases' launch
+  checks on the weight tier (no full-precision launch of those kernels;
+  the self-draft on the R = 1 tier steps, no burst), tokens/s beside the
+  bf16-weight rates of the same call;
+- in the fp32 hold: the same engines in fp32 (GPT-2 int4; Llama-3.2-1B
+  int8, its server at 8 slots and 8 requests): generate_batch, the two
+  speculative modes and both servers equal the single-stream weight-quant
+  greedy ids up to the first step whose top-2 gap is under 1e-4.
+
 Then it prints the kernels' JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero without that line. Float32 matrix products run in full fp32 (TF32
@@ -225,6 +250,11 @@ def device_ms(fn, calls: int = 50, replays: int = 5) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / (calls * replays)
+
+
+def _ms(t) -> str:
+    """A time for a log line: ms to 5 places, or "not timed"."""
+    return "not timed" if t is None else f"{t:.5f}"
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -583,10 +613,10 @@ def _mega_reports(reports: dict, fp_name: str, quant_name: str) -> dict:
     (fp panes; int8 panes for the quantized step) and the worst error over
     both dtypes and the pane kinds."""
     worst = {m: max(r["max_abs_err"] for (mode, _), r in reports.items() if mode == m)
-             for m in MODES}
+             for m in MODES if any(mode == m for mode, _ in reports)}
     fp = dict(reports[("fp", torch.bfloat16)], max_abs_err=worst["fp"])
     quant = dict(reports[("int8", torch.bfloat16)],
-                 max_abs_err=max(worst[m] for m in MODES[1:]))
+                 max_abs_err=max(e for m, e in worst.items() if m != "fp"))
     return {fp_name: fp, quant_name: quant}
 
 
@@ -707,32 +737,55 @@ def _batch_step(mode, packed, cfg, state, lengths, x, plain=False, family="gpt2"
     return fn(packed, *state, lengths, x, cfg=cfg, kv_mode=mode, **kw)
 
 
-def _batch_bound(mode, dtype, cfg, family, lengths) -> tuple:
-    """Least time of one batched step on the card: every weight read once
-    for all slots, the norms and biases, each slot's embedding row (and RoPE
-    row), its visible KV rows and scales read once and its new rows written
-    once; two operations per weight element and slot, plus the attention's
-    four per cached value and query head."""
+def _weight_cost(family, cfg, dtype, packed=None) -> tuple:
+    """(bytes, elements) of the weights a pass streams: the layer weights
+    and the LM head in the model dtype, or, for a weight-tier pack
+    (`packed`), its code rows and scales (`_packed_weight_bytes`)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+
+    if packed is not None and mk.weight_kind(packed) != "fp":
+        n = sum(packed[k].numel() * (2 if packed[k].dtype == torch.uint8 else 1)
+                for k in _STREAMED[family])
+        return _packed_weight_bytes(family, packed), n
     item = 2 if dtype == torch.bfloat16 else 4
-    B, rows = len(lengths), sum(n + 1 for n in lengths)
     if family == "gpt2":
         L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
-        weights, QW, W = L * 12 * E * E + V * E, E, E
-        small = (L * 13 * E + 2 * E) * 4 + B * 2 * E * item
+        weights = L * 12 * E * E + V * E
     else:
         E, I, L, V, D = (cfg.hidden_size, cfg.intermediate_size, cfg.n_layer,
                          cfg.vocab_size, cfg.head_dim)
         QW, W = cfg.n_head * D, cfg.n_kv_head * D
         weights = L * (E * (QW + 2 * W) + QW * E + 3 * E * I) + V * E
+    return weights * item, weights
+
+
+def _batch_bound(mode, dtype, cfg, family, lengths, packed=None) -> tuple:
+    """Least time of one batched step on the card: every weight read once
+    for all slots (a tier pack's codes and scales: `_weight_cost`), the
+    norms and biases, each slot's embedding row (and RoPE row), its visible
+    KV rows and scales read once and its new rows written once; two
+    operations per weight element and slot, plus the attention's four per
+    cached value and query head."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    B, rows = len(lengths), sum(n + 1 for n in lengths)
+    w_bytes, weights = _weight_cost(family, cfg, dtype, packed)
+    if family == "gpt2":
+        L, E = cfg.n_layer, cfg.n_embd
+        QW, W = E, E
+        small = (L * 13 * E + 2 * E) * 4 + B * 2 * E * item
+    else:
+        E, L, D = cfg.hidden_size, cfg.n_layer, cfg.head_dim
+        QW, W = cfg.n_head * D, cfg.n_kv_head * D
         small = ((L * 2 * E + E + (L * (QW + 2 * W) if cfg.qkv_bias else 0)) * 4
                  + B * (E * item + 2 * D * 4))
-    n_bytes = weights * item + small + _kv_bytes(mode, item, L, W, rows)
+    n_bytes = w_bytes + small + _kv_bytes(mode, item, L, W, rows)
     flops = 2 * weights * B + L * 4 * rows * QW
     rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
     return bound_ms(n_bytes, flops, rate)
 
 
-def check_megabatches(family: str, cfg, params_for, wide: dict) -> dict:
+def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
+                      suffix: str = "", time_plain: bool = True) -> dict:
     """#14/#16 (GPT-2) or #15/#17 (Llama) against their plain batched steps:
     B = 8 slots at BATCH_LENGTHS, C = 320, fp, int8, int4 and mixed panes,
     fp32 and bf16 (`params_for(dtype)` gives the weights); per slot the
@@ -740,7 +793,9 @@ def check_megabatches(family: str, cfg, params_for, wide: dict) -> dict:
     untouched. Then past 8 slots (each batched GEMV launched once per group
     of 8 rows): `wide[mode]` slot counts at the same lengths, repeated. Device ms
     by CUDA-graph replay in bf16 at B = 8, at B = 1 (one slot at length 319)
-    and at each wide B, beside the bound and the plain step."""
+    and at each wide B, beside the bound and the plain step. `modes` limits
+    the pane kinds; `suffix` ends the kernels' names (a weight tier's);
+    without `time_plain` the plain step is checked but not timed."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
 
@@ -750,13 +805,13 @@ def check_megabatches(family: str, cfg, params_for, wide: dict) -> dict:
     E = cfg.hidden_size if llama else cfg.n_embd
     B = len(BATCH_LENGTHS)
     one_len = torch.tensor([MEGA_LEN], dtype=torch.int32, device="cuda")
-    names = ("llama_megabatch", "llama_megabatch_quant") if llama else (
-        "gpt2_megabatch", "gpt2_megabatch_quant")
+    names = tuple(f"{family}_megabatch{q}{suffix}" for q in ("", "_quant"))
     reports = {}
     for dtype in (torch.float32, torch.bfloat16):
         params = params_for(dtype)
         packed = pack(params, cfg)
-        for i, mode in enumerate(MODES):
+        for mode in modes:
+            i = MODES.index(mode)
             name = names[mode != "fp"]
             entry = {"max_abs_err": 0.0}
             for n_slots in (B,) + wide["fp" if mode == "fp" else "quant"]:
@@ -792,13 +847,13 @@ def check_megabatches(family: str, cfg, params_for, wide: dict) -> dict:
                         f"{toks.tolist()[:8]} (plain {logits.argmax(-1).tolist()[:8]}), new "
                         f"rows max|kernel-plain| {err:.2e}")
                 if dtype == torch.bfloat16:
-                    bnd, by = _batch_bound(mode, dtype, cfg, family, lengths)
+                    bnd, by = _batch_bound(mode, dtype, cfg, family, lengths, packed)
                     ms = device_ms(lambda: _batch_step(mode, packed, cfg, got, dev_len, x,
                                                        family=family), calls=10)
                     if n_slots == B:
                         one = [t[:, 7:8].clone() for t in got]
                         x1 = x[7:8].contiguous()
-                        b1, _ = _batch_bound(mode, dtype, cfg, family, (MEGA_LEN,))
+                        b1, _ = _batch_bound(mode, dtype, cfg, family, (MEGA_LEN,), packed)
                         entry.update({
                             "ms": ms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
                             "ms_b1": device_ms(lambda: _batch_step(
@@ -806,12 +861,12 @@ def check_megabatches(family: str, cfg, params_for, wide: dict) -> dict:
                                 calls=10),
                             "plain_ms": device_ms(lambda: _batch_step(
                                 mode, packed, cfg, want, lengths, x, plain=True,
-                                family=family), calls=1, replays=3),
+                                family=family), calls=1, replays=3) if time_plain else None,
                             "bound_ms_b1": b1,
                         })
                         line += (f"; device ms B=8 {ms:.5f} (bound {bnd:.5f}, {by}), B=1 "
                                  f"{entry['ms_b1']:.5f} (bound {b1:.5f}), plain B=8 "
-                                 f"{entry['plain_ms']:.5f}; per token B=8 {ms / B:.5f}")
+                                 f"{_ms(entry['plain_ms'])}; per token B=8 {ms / B:.5f}")
                     else:
                         entry[f"ms_b{n_slots}"] = ms
                         entry[f"bound_ms_b{n_slots}"] = bnd
@@ -828,25 +883,24 @@ SPEC_K, SPEC_SELF_K, DRAFT_K = 8, 4, 4  # verify rows of n-gram, self-draft, dra
 SPEC_C = -(-(PROMPT_TOKENS + NEW_TOKENS + SPEC_K + 1) // 8) * 8 + 8
 
 
-def _verify_bound(dtype, cfg, family, cur, R) -> tuple:
-    """Least time of one verify pass: every weight read once for all R rows,
-    the norms and biases, the R embedding (and RoPE) rows, the cur visible
-    K/V rows read once and the R new rows written once; two operations per
-    weight element and row, plus the attention's four per value of each
-    row's cur + t + 1 keys and query head."""
+def _verify_bound(dtype, cfg, family, cur, R, packed=None) -> tuple:
+    """Least time of one verify pass: every weight read once for all R rows
+    (`_weight_cost`), the norms and biases, the R embedding (and RoPE) rows,
+    the cur visible K/V rows read once and the R new rows written once; two
+    operations per weight element and row, plus the attention's four per
+    value of each row's cur + t + 1 keys and query head."""
     item = 2 if dtype == torch.bfloat16 else 4
+    w_bytes, weights = _weight_cost(family, cfg, dtype, packed)
     if family == "gpt2":
-        L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
-        weights, QW, W = L * 12 * E * E + V * E, E, E
+        L, E = cfg.n_layer, cfg.n_embd
+        QW, W = E, E
         small = (L * 13 * E + 2 * E) * 4 + R * 2 * E * item
     else:
-        E, I, L, V, D = (cfg.hidden_size, cfg.intermediate_size, cfg.n_layer,
-                         cfg.vocab_size, cfg.head_dim)
+        E, L, D = cfg.hidden_size, cfg.n_layer, cfg.head_dim
         QW, W = cfg.n_head * D, cfg.n_kv_head * D
-        weights = L * (E * (QW + 2 * W) + QW * E + 3 * E * I) + V * E
         small = ((L * 2 * E + E + (L * (QW + 2 * W) if cfg.qkv_bias else 0)) * 4
                  + R * (E * item + 2 * D * 4))
-    n_bytes = weights * item + small + _kv_bytes("fp", item, L, W, cur + R)
+    n_bytes = w_bytes + small + _kv_bytes("fp", item, L, W, cur + R)
     keys = sum(cur + t + 1 for t in range(R))
     flops = 2 * weights * R + L * 4 * keys * QW
     rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
@@ -879,17 +933,20 @@ def _rows_err(name, dtype, got, want, before, rows, deep_bf16=False) -> float:
     return err
 
 
-def check_megaverify(family: str, cfg, params_for) -> dict:
+def check_megaverify(family: str, cfg, params_for, rows=(4, 8), curs=None,
+                     suffix: str = "", time_plain: bool = True) -> dict:
     """#10 (GPT-2) or #13 at R > 1 (Llama) against the plain verify (R plain
-    steps): R in {4, 8} rows fed as token ids, cur in {0, 7, 8, 100,
-    C - 8 - R} (the largest the capacity rule admits) of C = SPEC_C, bf16
-    and fp32; per row the token and the new rows under the megastep
-    tolerances, every other row untouched. Device ms in bf16 at R = 8."""
+    steps): R in `rows` fed as token ids, cur in `curs` (default {0, 7, 8,
+    100, C - 8 - R}, the last the largest the capacity rule admits) of C =
+    SPEC_C, bf16 and fp32; per row the token and the new rows under the
+    megastep tolerances, every other row untouched. Device ms in bf16 at
+    R = 8, cur = C - 16. `suffix` ends the kernel's name (a weight tier's);
+    without `time_plain` the plain verify is checked but not timed."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
 
     llama = family == "llama"
-    name = "llama_megaverify" if llama else "gpt2_megaverify"
+    name = f"{family}_megaverify{suffix}"
     kern = ml.llama_megaverify if llama else mk.gpt2_megaverify
     plain = ml.llama_megaverify_plain if llama else mk.gpt2_megaverify_plain
     pack = ml.pack_llama_mega if llama else mk.pack_gpt2_mega
@@ -898,8 +955,8 @@ def check_megaverify(family: str, cfg, params_for) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         params = params_for(dtype)
         packed = pack(params, cfg)
-        for R in (4, 8):
-            for i, cur in enumerate((0, 7, 8, 100, SPEC_C - 8 - R)):
+        for R in rows:
+            for i, cur in enumerate(curs or (0, 7, 8, 100, SPEC_C - 8 - R)):
                 g = torch.Generator().manual_seed(400 + 10 * R + i)
                 state = [(torch.randn((cfg.n_layer, SPEC_C, W), generator=g) * 0.5)
                          .to(dtype).cuda() for _ in range(2)]
@@ -929,14 +986,15 @@ def check_megaverify(family: str, cfg, params_for) -> dict:
                         f"{toks.tolist()} (plain {logits.argmax(-1).tolist()}), new rows "
                         f"max|kernel-plain| {err:.2e}")
                 if dtype == torch.bfloat16 and R == 8 and cur == SPEC_C - 16:
-                    b, by = _verify_bound(dtype, cfg, family, cur, R)
+                    b, by = _verify_bound(dtype, cfg, family, cur, R, packed)
                     report = {
                         "ms": device_ms(kernel, calls=10),
-                        "plain_ms": device_ms(plain_fn, calls=1, replays=3),
+                        "plain_ms": (device_ms(plain_fn, calls=1, replays=3) if time_plain
+                                     else None),
                         "bound_ms": b, "bound_by": by, "library_ms": None,
                     }
                     line += (f"; device ms kernel {report['ms']:.5f}, plain "
-                             f"{report['plain_ms']:.5f}, bound {b:.5f} ({by})")
+                             f"{_ms(report['plain_ms'])}, bound {b:.5f} ({by})")
                 log(line)
         del params, packed
     report["max_abs_err"] = worst
@@ -958,28 +1016,27 @@ LLAMA_VERIFY_BF16_TOL = 7e-2
 VERIFY_LENGTHS = (0, 7, 8, 55, SERVER_C - 16)  # C - 16: the deepest block of the window
 
 
-def _verify_batch_bound(mode, dtype, cfg, family, lengths, R) -> tuple:
+def _verify_batch_bound(mode, dtype, cfg, family, lengths, R, packed=None) -> tuple:
     """Least time of one batched verify pass: every weight read once for all
-    B x R rows, the norms and biases, the rows' embeddings (and RoPE rows),
-    each slot's cur visible K/V rows (and scales) read once and its R new
-    rows written once; two operations per weight element and row, plus the
-    attention's four per value of each row's cur + t + 1 keys and query
-    head."""
+    B x R rows (`_weight_cost`), the norms and biases, the rows' embeddings
+    (and RoPE rows), each slot's cur visible K/V rows (and scales) read once
+    and its R new rows written once; two operations per weight element and
+    row, plus the attention's four per value of each row's cur + t + 1 keys
+    and query head."""
     item = 2 if dtype == torch.bfloat16 else 4
     N = len(lengths) * R
+    w_bytes, weights = _weight_cost(family, cfg, dtype, packed)
     if family == "gpt2":
-        L, E, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
-        weights, QW, W = L * 12 * E * E + V * E, E, E
+        L, E = cfg.n_layer, cfg.n_embd
+        QW, W = E, E
         small = (L * 13 * E + 2 * E) * 4 + N * 2 * E * item
     else:
-        E, I, L, V, D = (cfg.hidden_size, cfg.intermediate_size, cfg.n_layer,
-                         cfg.vocab_size, cfg.head_dim)
+        E, L, D = cfg.hidden_size, cfg.n_layer, cfg.head_dim
         QW, W = cfg.n_head * D, cfg.n_kv_head * D
-        weights = L * (E * (QW + 2 * W) + QW * E + 3 * E * I) + V * E
         small = ((L * 2 * E + E + (L * (QW + 2 * W) if cfg.qkv_bias else 0)) * 4
                  + N * (E * item + 2 * D * 4))
     rows = sum(cur + R for cur in lengths)
-    n_bytes = weights * item + small + _kv_bytes(mode, item, L, W, rows)
+    n_bytes = w_bytes + small + _kv_bytes(mode, item, L, W, rows)
     keys = sum(cur + t + 1 for cur in lengths for t in range(R))
     flops = 2 * weights * N + L * 4 * keys * QW
     rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 else H100_FP32_FLOP_PER_S
@@ -1076,9 +1133,11 @@ def check_megabatch_verify(family: str, cfg, params_for, n_slots: int) -> dict:
 
 
 def _verify_batch_cases(family: str, cfg, params_for, n_slots: int, modes=MODES,
-                        dtypes=(torch.float32, torch.bfloat16), rows=(2, 8)) -> dict:
+                        dtypes=(torch.float32, torch.bfloat16), rows=(2, 8),
+                        suffix: str = "", time_plain: bool = True) -> dict:
     """check_megabatch_verify's cases over `modes` x `dtypes` x `rows`:
-    {(mode, dtype): report}."""
+    {(mode, dtype): report}; `suffix` ends the kernels' names in the log;
+    without `time_plain` the plain pass is checked but not timed."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as mbv
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
@@ -1087,7 +1146,7 @@ def _verify_batch_cases(family: str, cfg, params_for, n_slots: int, modes=MODES,
     pack = ml.pack_llama_mega if llama else mk.pack_gpt2_mega
     W = cfg.n_kv_head * cfg.head_dim if llama else cfg.n_embd
     E = cfg.hidden_size if llama else cfg.n_embd
-    names = (f"{family}_megabatch_verify", f"{family}_megabatch_verify_quant")
+    names = (f"{family}_megabatch_verify{suffix}", f"{family}_megabatch_verify_quant{suffix}")
     fns = {(False, False): mbv.gpt2_megabatch_verify,
            (False, True): mbv.gpt2_megabatch_verify_plain,
            (True, False): mbv.gpt2_megabatch_verify_quant,
@@ -1155,14 +1214,15 @@ def _verify_batch_cases(family: str, cfg, params_for, n_slots: int, modes=MODES,
                         f"at most {short:.4f} under the plain maximum logit (checked in "
                         f"{time.perf_counter() - t0:.1f} s)")
                 if dtype == torch.bfloat16 and R == 8:
-                    bnd, by = _verify_batch_bound(mode, dtype, cfg, family, lengths, R)
+                    bnd, by = _verify_batch_bound(mode, dtype, cfg, family, lengths, R, packed)
                     entry.update({
                         "ms": device_ms(kernel, calls=5),
-                        "plain_ms": device_ms(plain_fn, calls=1, replays=1),
+                        "plain_ms": (device_ms(plain_fn, calls=1, replays=1) if time_plain
+                                     else None),
                         "bound_ms": bnd, "bound_by": by, "library_ms": None,
                     })
                     line += (f"; device ms kernel {entry['ms']:.5f}, plain "
-                             f"{entry['plain_ms']:.5f}, bound {bnd:.5f} ({by}); per row "
+                             f"{_ms(entry['plain_ms'])}, bound {bnd:.5f} ({by}); per row "
                              f"{entry['ms'] / (n_slots * R):.5f}")
                 log(line)
             reports[(mode, dtype)] = entry
@@ -1787,7 +1847,7 @@ def counters():
         megakernel_batch_verify, megakernel_draft, megakernel_llama, megakernel_quant, paged,
         quantize)
 
-    return {
+    fns = {
         "fused_quant_attention_decode": attention.fused_quant_attention_decode,
         "dequant_int8": dequant.dequant_int8,
         "dequant_int4_packed": dequant.dequant_int4_packed,
@@ -1813,13 +1873,11 @@ def counters():
         "gpt2_megastep_quant": megakernel_quant.gpt2_megastep_quant,
         "llama_megastep": megakernel_llama.llama_megastep,
         "llama_megastep_quant": megakernel_quant.llama_megastep_quant,
-        **{f"{name}_{TIER_SUFFIX[w]}": step.tiers[w]
-           for name, step in (("gpt2_megastep", megakernel.gpt2_megastep),
-                              ("gpt2_megastep_quant", megakernel_quant.gpt2_megastep_quant),
-                              ("llama_megastep", megakernel_llama.llama_megastep),
-                              ("llama_megastep_quant", megakernel_quant.llama_megastep_quant))
-           for w in ("int8", "int4")},
     }
+    for name in TIERED:  # each weight tier's launches, apart from the wrapper's
+        for w in ("int8", "int4"):
+            fns[f"{name}_{TIER_SUFFIX[w]}"] = fns[name].tiers[w]
+    return fns
 
 
 def _expected_launches(method: str, mega: bool, L: int, n_gen: int,
@@ -1923,21 +1981,32 @@ def _counted(launches: dict, run):
     return out, got
 
 
-def phase_batch_main_path(launches: dict, name: str, eng) -> None:
+def _tier_sfx(eng) -> str:
+    """The kernels-line suffix of an engine's weight tier: "" (full
+    precision), "_w8" or "_w4"."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+
+    kind = mk.weight_kind(eng._packed())
+    return "" if kind == "fp" else "_" + TIER_SUFFIX[kind]
+
+
+def phase_batch_main_path(launches: dict, name: str, eng, kvs=BATCH_KV) -> dict:
     """generate_batch on 8 prompts of 24-256 tokens (bucket 256) with 64 new
-    tokens for each KV kind, on the engine as a user makes it (bf16 on the
-    card): a first call (build, graph capture), then three timed calls. The
-    batched chain launches once per step, nothing else runs a kernel of the
-    port (the prefill is dense, the panes quantize in plain PyTorch).
-    Aggregate tokens/s = 8 x 64 over the wall of one call, beside
-    benchmark_method's single-stream tokens/s over the same prompts."""
+    tokens for each KV kind of `kvs`, on the engine as a user makes it (bf16
+    on the card): a first call (build, graph capture), then three timed
+    calls. The batched chain (on the engine's weight tier) launches once per
+    step, nothing else runs a kernel of the port (the prefill is dense, the
+    panes quantize in plain PyTorch). Aggregate tokens/s = 8 x 64 over the
+    wall of one call, beside benchmark_method's single-stream tokens/s over
+    the same prompts. Returns {kv: aggregate tokens/s}."""
     prompts = _batch_prompts(BATCH_PROMPTS, SEED + 3)
     family = eng.model.name
     assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
     lens = [len(eng.tokenizer.encode(p)) for p in prompts]
     assert max(lens) == PROMPT_TOKENS and min(lens) == 24
-    for kv in BATCH_KV:
-        batch_name = f"{family}_megabatch" + ("_quant" if kv else "")
+    tps = {}
+    for kv in kvs:
+        batch_name = f"{family}_megabatch" + ("_quant" if kv else "") + _tier_sfx(eng)
         walls = []
 
         def run():
@@ -1960,12 +2029,14 @@ def phase_batch_main_path(launches: dict, name: str, eng) -> None:
         res, _ = _counted(launches, lambda: eng.benchmark_method(
             prompts, method=method, max_new_tokens=NEW_TOKENS))
         wall = sorted(walls)[1]
-        log(f"  {name} generate_batch kv_mode={kv}: {BATCH_PROMPTS * NEW_TOKENS / wall:.1f} "
+        tps[kv] = BATCH_PROMPTS * NEW_TOKENS / wall
+        log(f"  {name} generate_batch kv_mode={kv}: {tps[kv]:.1f} "
             f"tokens/s aggregate (8 x {NEW_TOKENS} new tokens, wall {wall * 1e3:.2f} ms, "
             f"median of {[round(w * 1e3, 2) for w in walls]}); single-stream "
             f"benchmark_method {method} {res['tokens_per_sec']:.1f} tokens/s over the same "
             f"prompts; launches {json.dumps({k: v for k, v in got.items() if v})}; row 0 "
             f"last tokens {ids[0][-8:]}")
+    return tps
 
 
 def _spec_run(launches, eng, prompts, mode, k, draft=None) -> tuple:
@@ -1993,31 +2064,37 @@ def _spec_run(launches, eng, prompts, mode, k, draft=None) -> tuple:
     return got, stats
 
 
-def phase_spec_main_path(launches: dict, name: str, eng, prompts) -> None:
+def phase_spec_main_path(launches: dict, name: str, eng, prompts) -> dict:
     """generate_speculative on the engine as a user makes it (bf16, the
     megakernel on): mode "ngram" at k = 8 and "self_draft" (1 layer) at
     k = 4, over the prompts (64 new tokens). Every round is one launch of
     the verify kernel; the self-draft (vocabulary past the burst's 2048)
     runs k launches of the model's whole-step kernel; nothing else launches
     a kernel of the port (the prefill is dense). Tokens/s beside
-    benchmark_method full_cache over the same prompts."""
-    family = eng.model.name
+    benchmark_method full_cache over the same prompts. Over quantized
+    weights the verify and the self-draft's steps run on their weight tier
+    (no burst: JAX packs one only for a full-precision draft). Returns
+    {mode: tokens/s}."""
+    family, sfx = eng.model.name, _tier_sfx(eng)
     res, _ = _counted(launches, lambda: eng.benchmark_method(
         prompts, method="full_cache", max_new_tokens=NEW_TOKENS))
+    tps = {}
     for mode, k in (("ngram", SPEC_K), ("self_draft", SPEC_SELF_K)):
         got, st = _spec_run(launches, eng, prompts, mode, k)
         want = {n: 0 for n in counters()}
-        want[f"{family}_megaverify"] = st["rounds"]
+        want[f"{family}_megaverify{sfx}"] = st["rounds"]
         if mode == "self_draft":
-            want[f"{family}_megastep"] = k * st["rounds"]
+            want[f"{family}_megastep{sfx}"] = k * st["rounds"]
         if got != want:
             raise AssertionError(f"{name} speculative {mode}: launches {got}, expected {want}")
+        tps[mode] = len(prompts) * NEW_TOKENS / st["wall"]
         log(f"  {name} generate_speculative {mode} k={k}: "
-            f"{len(prompts) * NEW_TOKENS / st['wall']:.1f} tokens/s ({len(prompts)} x "
+            f"{tps[mode]:.1f} tokens/s ({len(prompts)} x "
             f"{NEW_TOKENS} new tokens in {st['wall'] * 1e3:.1f} ms), tokens per round "
             f"{[round(t, 3) for t in st['tpr']]}, host syncs a generation {st['syncs']}; "
             f"benchmark_method full_cache {res['tokens_per_sec']:.1f} tokens/s over the "
             f"same prompts; launches {json.dumps({n: v for n, v in got.items() if v})}")
+    return tps
 
 
 def _scale_pairs():
@@ -2137,7 +2214,7 @@ def _serve(srv, prompts):
 
 
 def phase_server_main_path(launches: dict, name: str, eng, n_slots: int,
-                           n_requests: int) -> None:
+                           n_requests: int) -> dict:
     """MegaBatchServer.run on the engine's model and weights as a user makes
     them (bf16 on the card): the server protocol (n_requests requests of
     "Question i: " + 6-10 words, NEW_TOKENS new tokens each, n_slots slots
@@ -2147,9 +2224,10 @@ def phase_server_main_path(launches: dict, name: str, eng, n_slots: int,
     launch counters are zeroed just before and read just after a second run
     of the same server over fresh requests: plain, the batched chain launches once a step
     dispatched; spec, the batched verify once a round dispatched; no other
-    kernel of the port runs (the prefill is dense). Aggregate tokens/s =
-    requests x NEW_TOKENS over the second run's wall."""
-    family = eng.model.name
+    kernel of the port runs (the prefill is dense); over quantized weights
+    each on its weight tier. Aggregate tokens/s = requests x NEW_TOKENS over
+    the second run's wall; returns {(spec, kv): tokens/s}."""
+    family, sfx = eng.model.name, _tier_sfx(eng)
     assert eng.config.device == "cuda" and eng.config.dtype == torch.bfloat16
     prompts = _server_prompts(eng.tokenizer, n_requests)
     tps = {}
@@ -2160,7 +2238,7 @@ def phase_server_main_path(launches: dict, name: str, eng, n_slots: int,
             (reqs, wall, steps), got = _counted(launches, lambda: _serve(srv, prompts))
             kernel = f"{family}_mega{'batch_verify' if spec else 'batch'}"
             want = {k: 0 for k in counters()}
-            want[kernel + ("_quant" if kv else "")] = steps
+            want[kernel + ("_quant" if kv else "") + sfx] = steps
             if got != want or steps == 0:
                 raise AssertionError(f"{name} server spec={spec} kv_mode={kv}: launches "
                                      f"{got}, expected {want}")
@@ -2181,19 +2259,27 @@ def phase_server_main_path(launches: dict, name: str, eng, n_slots: int,
         log(f"  {name} MegaBatchServer kv_mode={kv}: spec {tps[('ngram', kv)]:.1f} "
             f"against plain {tps[(None, kv)]:.1f} tokens/s "
             f"({tps[('ngram', kv)] / tps[(None, kv)]:.2f}x)")
+    return tps
 
 
-def phase_server_fp32_hold(eng) -> None:
-    """GPT-2 small in fp32 on the card, 16 slots of C = 256 (every request
-    fits the pane): each request of the plain and the spec="ngram" server
-    equals the single-stream megakernel greedy ids of its prompt
-    (generate_ids full_cache) up to the first step whose top-2 logit gap
-    (megakernel-off logits, teacher-forced) is under 1e-4."""
+def _hold_name(eng) -> str:
+    """An engine's name in the fp32 holds' lines: the model and its weights."""
+    wq = eng.config.weight_quant
+    return eng.model.name + (f" weight_quant={wq}" if wq else "")
+
+
+def phase_server_fp32_hold(eng, n_slots: int = 16, n_requests: int = 32) -> None:
+    """An engine in fp32 on the card (GPT-2 small: 16 slots of C = 256, 32
+    requests; every request fits the pane): each request of the plain and
+    the spec="ngram" server equals the single-stream megakernel greedy ids
+    of its prompt (generate_ids full_cache) up to the first step whose
+    top-2 logit gap (megakernel-off logits, teacher-forced) is under
+    1e-4."""
     assert eng.config.dtype == torch.float32
-    prompts = _server_prompts(eng.tokenizer, 32)
+    prompts = _server_prompts(eng.tokenizer, n_requests)
     text = [eng.tokenizer.decode(p) for p in prompts]
     for spec in (None, "ngram"):
-        reqs, _, _ = _serve(_server(eng, 16, None, spec, capacity=256), prompts)
+        reqs, _, _ = _serve(_server(eng, n_slots, None, spec, capacity=256), prompts)
         equal, cut = 0, []
         for p, req in zip(text, reqs):
             want = eng.generate_ids(p, "full_cache", NEW_TOKENS)
@@ -2213,7 +2299,8 @@ def phase_server_fp32_hold(eng) -> None:
                                      f"from generate_ids before its first unclear step "
                                      f"{first}")
             cut.append(first)
-        log(f"  fp32 MegaBatchServer gpt2 spec={spec}: {equal} of {len(reqs)} requests "
+        log(f"  fp32 MegaBatchServer {_hold_name(eng)} spec={spec}: {equal} of {len(reqs)} "
+            f"requests "
             f"equal the single-stream megakernel tokens; the rest equal up to a step with "
             f"a top-2 gap under 1e-4 (at {cut})")
 
@@ -2247,18 +2334,18 @@ def _hold_spec(eng, name: str, runs) -> None:
 
 def phase_spec_fp32_hold(eng) -> None:
     prompt = _prompts(1, SEED + 5)[0]
-    _hold_spec(eng, eng.model.name, [(prompt, "ngram", SPEC_K, None),
-                                     (prompt, "self_draft", SPEC_SELF_K, None)])
+    _hold_spec(eng, _hold_name(eng), [(prompt, "ngram", SPEC_K, None),
+                                      (prompt, "self_draft", SPEC_SELF_K, None)])
 
 
-def phase_batch_fp32_hold(eng) -> None:
-    """GPT-2 in fp32 on the card: each row of generate_batch equals the
-    single-stream megakernel generate_ids of its prompt, up to the first
-    step whose top-2 logit gap (megakernel-off logits, teacher-forced) is
-    under 1e-4."""
+def phase_batch_fp32_hold(eng, kvs=BATCH_KV) -> None:
+    """An engine in fp32 on the card (GPT-2 small; over quantized weights
+    too): each row of generate_batch equals the single-stream megakernel
+    generate_ids of its prompt, up to the first step whose top-2 logit gap
+    (megakernel-off logits, teacher-forced) is under 1e-4."""
     assert eng.config.dtype == torch.float32
     prompts = _batch_prompts(BATCH_PROMPTS, SEED + 4)
-    for kv in BATCH_KV:
+    for kv in kvs:
         method = f"quant_{kv}" if kv else "full_cache"
         eng.generate_batch(prompts, NEW_TOKENS, kv_mode=kv)
         equal, cut = 0, []
@@ -2276,7 +2363,8 @@ def phase_batch_fp32_hold(eng) -> None:
                 raise AssertionError(f"fp32 generate_batch {method}: a row differs from "
                                      f"generate_ids before its first unclear step {first}")
             cut.append(first)
-        log(f"  fp32 generate_batch gpt2 {method}: {equal} of {BATCH_PROMPTS} rows equal "
+        log(f"  fp32 generate_batch {_hold_name(eng)} {method}: {equal} of {BATCH_PROMPTS} "
+            f"rows equal "
             f"the single-stream megakernel tokens; the rest equal up to a step with a "
             f"top-2 gap under 1e-4 (at {cut})")
 
@@ -2549,6 +2637,111 @@ def check_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
     return reports
 
 
+# ---------------------------------------------------------------------------
+# Weight tiers of the verify and batched chains: #10, #13 at R > 1 and
+# #14-#21 streaming int8 or grouped-int4 weights through the batched GEMV.
+
+BATCH_TIER_WQ = {"gpt2": ("int8", "int4"), "llama": ("int8", "int4", "int4w8")}
+# the weight tier each family's weight-quant serving main path runs on (the
+# kernels line lists the verify and batched chains at these tiers; the
+# kernel phase also checks and times the others)
+SERVED_TIER = {"gpt2": "w4", "llama": "w8"}
+# the chains whose wrappers count a weight tier's launches apart
+TIERED = ("gpt2_megastep", "gpt2_megastep_quant", "llama_megastep", "llama_megastep_quant",
+          "gpt2_megaverify", "llama_megaverify", "gpt2_megabatch", "llama_megabatch",
+          "gpt2_megabatch_quant", "llama_megabatch_quant", "gpt2_megabatch_verify",
+          "gpt2_megabatch_verify_quant", "llama_megabatch_verify",
+          "llama_megabatch_verify_quant")
+
+
+def _first_layers(params: dict, n: int) -> dict:
+    """A model's params cut to its first n layers (every block leaf, codes
+    and scales too, sliced; the embeddings shared)."""
+    def first(t):
+        return {k: first(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+
+    return dict(params, blocks=first(params["blocks"]))
+
+
+def check_batch_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
+    """The verify and batched chains over quantized weights against their
+    plain versions: GPT-2 small (12 layers) at int8 and int4 (G = 128), and
+    Llama-3.2-1B's widths cut to 2 layers at int8, int4 and int4w8 (G =
+    1024), the main path's seed-42 weights quantized as from_model_name
+    quantizes them, bf16 and fp32, each with its full-precision phase's
+    checks and limits:
+    - #10 / #13 at R = 8 rows, cur 0 and C - 16 of C = SPEC_C (fp panes);
+    - #14-#17 at B = 8 (BATCH_LENGTHS of C = 320: lengths 0 .. C - 1), fp
+      and int8 panes, and #16 / #17 at B = 16;
+    - #18-#21 at 8 x 8 rows, VERIFY_LENGTHS of C = SERVER_C (up to C - 16),
+      fp and int8 panes; GPT-2's #18 also at 16 x 8 in bf16;
+    int4w8 (which differs from int4 by its group) at #13 and #15 / #17 at
+    B = 8 only.
+    The kernels line takes each tier's bf16 times (int8: _w8; int4 at G =
+    128: _w4; at 8 rows or slots, int8 panes for the quantized-pane
+    kernels) beside its bound (the pack's codes and scales) and the worst
+    error over the tier's cases (int4w8 in _w4)."""
+    import dataclasses
+
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.models.registry import (
+        gpt2_spec,
+        spec_by_name,
+        spec_with_config,
+    )
+
+    llama_spec = spec_by_name("llama-3-1b")
+    llama_spec = spec_with_config(llama_spec, dataclasses.replace(llama_spec.config,
+                                                                  n_layer=2))
+    cases = [("gpt2", gpt2_spec(gpt2_cfg), lambda dtype: gpt2_mod.init_gpt2_params(
+                 torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda")),
+             ("llama", llama_spec, lambda dtype: _cast_params(
+                 _first_layers(llama_params_bf16, 2), dtype))]
+    reports = {}
+    for family, spec, base_for in cases:
+        cfg = spec.config
+        for wq in BATCH_TIER_WQ[family]:
+            sfx = "_" + TIER_SUFFIX[wq[:4]]
+            quantized = {}  # dtype -> the quantized params, made once for the three checks
+
+            def q_for(dtype, spec=spec, base_for=base_for, wq=wq, quantized=quantized):
+                if dtype not in quantized:
+                    quantized[dtype] = _quantized_params(spec, base_for(dtype), wq)
+                return quantized[dtype]
+
+            # the plain versions are timed for the kernels line's tiers only
+            # (an eager plain pass of 64-128 steps takes seconds)
+            timed = sfx[1:] == SERVED_TIER[family] and wq != "int4w8"
+            # int4w8 differs from int4 by its group only: its verify and B = 8 steps
+            full = wq != "int4w8"
+            got = check_megaverify(family, cfg, q_for, rows=(8,), curs=(0, SPEC_C - 16),
+                                   suffix=sfx, time_plain=timed)
+            got.update(check_megabatches(family, cfg, q_for, modes=("fp", "int8"),
+                                         wide={"fp": (), "quant": (16,) if full else ()},
+                                         suffix=sfx, time_plain=timed))
+            if full:
+                got.update(_mega_reports(
+                    _verify_batch_cases(family, cfg, q_for, 8, modes=("fp", "int8"), rows=(8,),
+                                        suffix=sfx, time_plain=timed),
+                    f"{family}_megabatch_verify{sfx}", f"{family}_megabatch_verify_quant{sfx}"))
+            if family == "gpt2":  # 16 x 8 rows, bf16 fp panes: its error counts, its time logged
+                name = f"{family}_megabatch_verify{sfx}"
+                wide = _verify_batch_cases(family, cfg, q_for, 16, modes=("fp",),
+                                           dtypes=(torch.bfloat16,), rows=(8,), suffix=sfx,
+                                           time_plain=False)
+                got[name]["max_abs_err"] = max(got[name]["max_abs_err"],
+                                               wide[("fp", torch.bfloat16)]["max_abs_err"])
+            for name, r in got.items():
+                if name in reports:  # int4w8: its errors into _w4, int4's times kept
+                    reports[name]["max_abs_err"] = max(reports[name]["max_abs_err"],
+                                                       r["max_abs_err"])
+                else:
+                    reports[name] = r
+            quantized.clear()
+            torch.cuda.empty_cache()
+    return reports
+
+
 def _expected_tier_launches(method: str, L: int, n_gen: int, family: str, wq: str) -> dict:
     """The megakernel-on main path's launches over `wq` weights: those of
     full-precision weights with each chain launch on its weight tier."""
@@ -2600,153 +2793,38 @@ def phase_weight_quant_main_path(launches: dict, name: str, engines, bf16_tps: d
         torch.cuda.empty_cache()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+def phase_weight_quant_serving(launches: dict, name: str, eng, bf16: dict, n_slots: int,
+                               n_requests: int) -> None:
+    """Serving over quantized weights on the engine as a user makes it
+    (from_model_name(weight_quant=...), bf16): generate_batch (kv_mode None
+    and int8), generate_speculative ("ngram", "self_draft") and
+    MegaBatchServer (plain and spec="ngram", bf16 and int8 pools), each
+    with its bf16-weight phase's launch check on the chains' weight tier:
+    the tier counters move, no full-precision launch of those kernels, the
+    self-draft on the R = 1 tier steps and no burst. Tokens/s beside the
+    bf16-weight engine's of the same path from this call (`bf16`: the
+    phases' returns under "batch", "spec", "server"). Its tokens are held to
+    the single-stream weight-quant decode in fp32 (phase fp32 hold)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
 
-    t_all = time.perf_counter()
-
-    phase_build()
-
-    t0 = time.perf_counter()
-    reports = {
-        "fused_quant_attention_batched": check_attention(),
-        "quantize_int8_rows": check_quantize(8),
-        "quantize_int4_rows": check_quantize(4),
-        **check_megasteps(),
+    wq = eng.config.weight_quant
+    assert wq and mk.weight_quantized(eng.params) and eng.config.dtype == torch.bfloat16
+    label = f"{name} weight_quant={wq}"
+    rates = {
+        "batch": phase_batch_main_path(launches, label, eng, kvs=(None, "int8")),
+        "spec": phase_spec_main_path(launches, label, eng, _prompts(N_PROMPTS, SEED)),
+        "server": phase_server_main_path(launches, label, eng, n_slots, n_requests),
     }
-    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    for path, got in rates.items():
+        for key, v in got.items():
+            ref = bf16[path][key]
+            log(f"  {label} {path} {key}: {v:.1f} tokens/s against {ref:.1f} with bf16 "
+                f"weights ({v / ref:.2f}x)")
 
-    t0 = time.perf_counter()
-    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
 
-    gpt2_cfg = gpt2_mod.GPT2Config.small()
-    reports.update(check_megabatches("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
-        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"),
-        wide={"fp": (16, 32), "quant": (16,)}))
-    log(f"phase batch kernels, gpt2: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    llama = InferenceEngine.from_model_name("llama-3-1b")  # random, seed 42, bf16
-    torch.cuda.synchronize()
-    log(f"phase llama init: {time.perf_counter() - t0:.1f} s (Llama-3.2-1B, "
-        f"{sum(t.numel() for t in _leaves(llama.params)) / 1e9:.3f} B params drawn "
-        f"on the host, bf16 on the card)")
-
-    t0 = time.perf_counter()
-    reports.update(check_llama_megasteps(llama.params))
-    log(f"phase llama kernels: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    reports.update(check_weight_tiers(gpt2_cfg, llama.params))
-    log(f"phase weight-tier kernels: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    reports.update(check_megabatches("llama", llama.model.config,
-                                     lambda dtype: _cast_params(llama.params, dtype),
-                                     wide={"fp": (16,), "quant": (16,)}))
-    log(f"phase batch kernels, llama: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    reports.update(check_megaverify("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
-        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda")))
-    reports.update(check_megaverify("llama", llama.model.config,
-                                    lambda dtype: _cast_params(llama.params, dtype)))
-    reports.update(check_draft_bursts())
-    log(f"phase speculation kernels: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    reports.update(check_megabatch_verify(
-        "gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
-            torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"), 16))
-    reports.update(check_megabatch_verify("llama", llama.model.config,
-                                          lambda dtype: _cast_params(llama.params, dtype), 8))
-    gpt2 = InferenceEngine.from_model_name("gpt2")  # random, seed 42, bf16
-    check_verify_past_128_rows(gpt2_cfg, gpt2, llama)
-    log(f"phase batched verify kernels: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    launches: dict = {}
-    reports.update(phase_kernel_library(launches, gpt2, llama))
-    log(f"phase kernel library: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    gpt2_tps = phase_main_path(launches, "gpt2", lambda mega: InferenceEngine.from_model_name(
-        "gpt2", config=Config(model_name="gpt2", megakernel=mega)))
-    llama_tps = phase_main_path(launches, "llama-3-1b", lambda mega: (
-        llama if mega is None else InferenceEngine.from_model_name(
-            "llama-3-1b", config=Config(model_name="llama-3-1b", megakernel=False),
-            params=llama.params)))
-    log(f"phase main path: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    phase_weight_quant_main_path(launches, "gpt2", lambda wq: InferenceEngine.from_model_name(
-        "gpt2", config=Config(model_name="gpt2", weight_quant=wq)), gpt2_tps)
-    phase_weight_quant_main_path(launches, "llama-3-1b", lambda wq: (
-        InferenceEngine.from_model_name(
-            "llama-3-1b", config=Config(model_name="llama-3-1b", weight_quant=wq),
-            params=llama.params)), llama_tps)
-    log(f"phase weight-quant main path: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    phase_batch_main_path(launches, "gpt2", gpt2)
-    phase_batch_main_path(launches, "llama-3-1b", llama)
-    log(f"phase batch main path: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    prompts = _prompts(N_PROMPTS, SEED)
-    phase_spec_main_path(launches, "gpt2", gpt2, prompts)
-    phase_spec_main_path(launches, "llama-3-1b", llama, prompts)
-    phase_spec_draft_main_path(launches)
-    log(f"phase speculation main path: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    phase_server_main_path(launches, "gpt2", gpt2, n_slots=16, n_requests=32)
-    phase_server_main_path(launches, "llama-3-1b", llama, n_slots=8, n_requests=16)
-    del gpt2
-    log(f"phase server main path: {time.perf_counter() - t0:.1f} s")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-
-    t0 = time.perf_counter()
-    phase_fp32_hold()
-    gpt2_32 = InferenceEngine.from_model_name(
-        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32))
-    phase_fp32_mega_hold(gpt2_32)
-    for wq in ("int8", "int4"):
-        phase_fp32_mega_hold(InferenceEngine.from_model_name("gpt2", config=Config(
-            model_name="gpt2", dtype=torch.float32, weight_quant=wq)), TIER_HOLD_METHODS)
-    phase_batch_fp32_hold(gpt2_32)
-    phase_spec_fp32_hold(gpt2_32)
-    phase_server_fp32_hold(gpt2_32)
-    del gpt2_32
-    for family, (cfg, dcfg) in _scale_pairs().items():
-        eng32, draft32 = _scale_engine(family, cfg, dcfg, torch.float32)
-        prompt = _draft_prompts(1, SEED + 7)[0]
-        _hold_spec(eng32, f"scale_{family}_big", [(prompt, "draft", DRAFT_K, draft32)])
-        del eng32, draft32
-    params32 = _cast_params(llama.params, torch.float32)
-    del llama
-    torch.cuda.empty_cache()
-    llama32 = InferenceEngine.from_model_name(
-        "llama-3-1b", config=Config(model_name="llama-3-1b", dtype=torch.float32),
-        params=params32)
-    phase_fp32_mega_hold(llama32)
-    phase_spec_fp32_hold(llama32)
-    del llama32
-    for wq in ("int8", "int4"):
-        phase_fp32_mega_hold(InferenceEngine.from_model_name("llama-3-1b", config=Config(
-            model_name="llama-3-1b", dtype=torch.float32, weight_quant=wq),
-            params=params32), TIER_HOLD_METHODS)
-        torch.cuda.empty_cache()
-    log(f"phase fp32 hold: {time.perf_counter() - t0:.1f} s")
-    log(f"total: {time.perf_counter() - t_all:.1f} s")
-
+def _line_kernels() -> dict:
+    """The kernels line's entries: {name: (port source, TPU kernel file:line)},
+    every kernel the main path launches."""
     where = {
         "fused_quant_attention_batched": (
             "efficient_llm_inference_tpu_torch/csrc/fused_quant_attention.cu",
@@ -2824,10 +2902,191 @@ def main() -> int:
             "efficient_llm_inference_tpu_torch/csrc/paged_attention.cu",
             "efficient_llm_inference_tpu/ops/pallas/paged.py:109"),
     }
-    for step in ("gpt2_megastep", "gpt2_megastep_quant", "llama_megastep",
-                 "llama_megastep_quant"):  # the weight tiers of #9, #11, #13, #12
-        for suffix in TIER_SUFFIX.values():
-            where[f"{step}_{suffix}"] = where[step]
+    for chain in TIERED:  # the weight tiers of #9-#21 the main paths serve
+        for suffix in (TIER_SUFFIX.values() if "megastep" in chain
+                       else (SERVED_TIER[chain.split("_")[0]],)):
+            where[f"{chain}_{suffix}"] = where[chain]
+    return where
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from efficient_llm_inference_tpu_torch import Config, InferenceEngine
+
+    t_all = time.perf_counter()
+
+    phase_build()
+
+    t0 = time.perf_counter()
+    reports = {
+        "fused_quant_attention_batched": check_attention(),
+        "quantize_int8_rows": check_quantize(8),
+        "quantize_int4_rows": check_quantize(4),
+        **check_megasteps(),
+    }
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+
+    gpt2_cfg = gpt2_mod.GPT2Config.small()
+    reports.update(check_megabatches("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
+        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"),
+        wide={"fp": (16, 32), "quant": (16,)}))
+    log(f"phase batch kernels, gpt2: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    llama = InferenceEngine.from_model_name("llama-3-1b")  # random, seed 42, bf16
+    torch.cuda.synchronize()
+    log(f"phase llama init: {time.perf_counter() - t0:.1f} s (Llama-3.2-1B, "
+        f"{sum(t.numel() for t in _leaves(llama.params)) / 1e9:.3f} B params drawn "
+        f"on the host, bf16 on the card)")
+
+    t0 = time.perf_counter()
+    reports.update(check_llama_megasteps(llama.params))
+    log(f"phase llama kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reports.update(check_weight_tiers(gpt2_cfg, llama.params))
+    log(f"phase weight-tier kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reports.update(check_megabatches("llama", llama.model.config,
+                                     lambda dtype: _cast_params(llama.params, dtype),
+                                     wide={"fp": (16,), "quant": (16,)}))
+    log(f"phase batch kernels, llama: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reports.update(check_megaverify("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
+        torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda")))
+    reports.update(check_megaverify("llama", llama.model.config,
+                                    lambda dtype: _cast_params(llama.params, dtype)))
+    reports.update(check_draft_bursts())
+    log(f"phase speculation kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reports.update(check_megabatch_verify(
+        "gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
+            torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"), 16))
+    reports.update(check_megabatch_verify("llama", llama.model.config,
+                                          lambda dtype: _cast_params(llama.params, dtype), 8))
+    gpt2 = InferenceEngine.from_model_name("gpt2")  # random, seed 42, bf16
+    check_verify_past_128_rows(gpt2_cfg, gpt2, llama)
+    log(f"phase batched verify kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reports.update(check_batch_weight_tiers(gpt2_cfg, llama.params))
+    log(f"phase batched weight-tier kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    reports.update(phase_kernel_library(launches, gpt2, llama))
+    log(f"phase kernel library: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gpt2_tps = phase_main_path(launches, "gpt2", lambda mega: InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", megakernel=mega)))
+    llama_tps = phase_main_path(launches, "llama-3-1b", lambda mega: (
+        llama if mega is None else InferenceEngine.from_model_name(
+            "llama-3-1b", config=Config(model_name="llama-3-1b", megakernel=False),
+            params=llama.params)))
+    log(f"phase main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_weight_quant_main_path(launches, "gpt2", lambda wq: InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", weight_quant=wq)), gpt2_tps)
+    phase_weight_quant_main_path(launches, "llama-3-1b", lambda wq: (
+        InferenceEngine.from_model_name(
+            "llama-3-1b", config=Config(model_name="llama-3-1b", weight_quant=wq),
+            params=llama.params)), llama_tps)
+    log(f"phase weight-quant main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    bf16_rates = {"gpt2": {}, "llama-3-1b": {}}
+    bf16_rates["gpt2"]["batch"] = phase_batch_main_path(launches, "gpt2", gpt2)
+    bf16_rates["llama-3-1b"]["batch"] = phase_batch_main_path(launches, "llama-3-1b", llama)
+    log(f"phase batch main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    prompts = _prompts(N_PROMPTS, SEED)
+    bf16_rates["gpt2"]["spec"] = phase_spec_main_path(launches, "gpt2", gpt2, prompts)
+    bf16_rates["llama-3-1b"]["spec"] = phase_spec_main_path(launches, "llama-3-1b", llama,
+                                                             prompts)
+    phase_spec_draft_main_path(launches)
+    log(f"phase speculation main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    bf16_rates["gpt2"]["server"] = phase_server_main_path(launches, "gpt2", gpt2,
+                                                          n_slots=16, n_requests=32)
+    bf16_rates["llama-3-1b"]["server"] = phase_server_main_path(
+        launches, "llama-3-1b", llama, n_slots=8, n_requests=16)
+    del gpt2
+    log(f"phase server main path: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_weight_quant_serving(launches, "llama-3-1b", InferenceEngine.from_model_name(
+        "llama-3-1b", config=Config(model_name="llama-3-1b", weight_quant="int8"),
+        params=llama.params), bf16_rates["llama-3-1b"], n_slots=8, n_requests=16)
+    torch.cuda.empty_cache()
+    phase_weight_quant_serving(launches, "gpt2", InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", weight_quant="int4")), bf16_rates["gpt2"],
+        n_slots=16, n_requests=32)
+    torch.cuda.empty_cache()
+    log(f"phase weight-quant serving main path: {time.perf_counter() - t0:.1f} s")
+    for name in _line_kernels():
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"{name} was never launched on the main path")
+
+    t0 = time.perf_counter()
+    phase_fp32_hold()
+    gpt2_32 = InferenceEngine.from_model_name(
+        "gpt2", config=Config(model_name="gpt2", dtype=torch.float32))
+    phase_fp32_mega_hold(gpt2_32)
+    for wq in ("int8", "int4"):
+        eng32 = InferenceEngine.from_model_name("gpt2", config=Config(
+            model_name="gpt2", dtype=torch.float32, weight_quant=wq))
+        phase_fp32_mega_hold(eng32, TIER_HOLD_METHODS)
+        if wq == "int4":  # the weight-quant serving main path's GPT-2 tier
+            phase_batch_fp32_hold(eng32, kvs=(None, "int8"))
+            phase_spec_fp32_hold(eng32)
+            phase_server_fp32_hold(eng32)
+        del eng32
+    phase_batch_fp32_hold(gpt2_32)
+    phase_spec_fp32_hold(gpt2_32)
+    phase_server_fp32_hold(gpt2_32)
+    del gpt2_32
+    for family, (cfg, dcfg) in _scale_pairs().items():
+        eng32, draft32 = _scale_engine(family, cfg, dcfg, torch.float32)
+        prompt = _draft_prompts(1, SEED + 7)[0]
+        _hold_spec(eng32, f"scale_{family}_big", [(prompt, "draft", DRAFT_K, draft32)])
+        del eng32, draft32
+    params32 = _cast_params(llama.params, torch.float32)
+    del llama
+    torch.cuda.empty_cache()
+    llama32 = InferenceEngine.from_model_name(
+        "llama-3-1b", config=Config(model_name="llama-3-1b", dtype=torch.float32),
+        params=params32)
+    phase_fp32_mega_hold(llama32)
+    phase_spec_fp32_hold(llama32)
+    del llama32
+    for wq in ("int8", "int4"):
+        eng32 = InferenceEngine.from_model_name("llama-3-1b", config=Config(
+            model_name="llama-3-1b", dtype=torch.float32, weight_quant=wq), params=params32)
+        phase_fp32_mega_hold(eng32, TIER_HOLD_METHODS)
+        if wq == "int8":  # the weight-quant serving main path's Llama tier
+            phase_batch_fp32_hold(eng32, kvs=(None, "int8"))
+            phase_spec_fp32_hold(eng32)
+            phase_server_fp32_hold(eng32, n_slots=8, n_requests=8)
+        del eng32
+        torch.cuda.empty_cache()
+    log(f"phase fp32 hold: {time.perf_counter() - t0:.1f} s")
+    log(f"total: {time.perf_counter() - t_all:.1f} s")
+
+    where = _line_kernels()
     kernels = []
     for name, (source, replaces) in where.items():
         r = reports[name]

@@ -54,11 +54,10 @@ class Config:
             channel; "int4" uses grouped 4-bit weights (group 128 along
             the input); "int4w8" is int4 with one scale group per half of
             the JAX kernel's weight tile (Llama/Qwen: TR/2; GPT-2: E/2).
-            The engine quantizes at `from_model_name` and the single-stream
-            whole-step kernels stream the codes (ops/megakernel.py); None
-            keeps full-precision weights. Static batches, speculation and
-            `MegaBatchServer` raise on quantized weights (ROADMAP.md
-            Queue 1 item 14).
+            The engine quantizes at `from_model_name` and every whole-step
+            kernel chain streams the codes (single stream, speculation,
+            static batches, `MegaBatchServer`; ops/megakernel.py); None
+            keeps full-precision weights.
     """
 
     model_name: str = "gpt2"

@@ -45,6 +45,13 @@
 // once), and the single-stream chain's open items (launch gaps, attention
 // split).
 //
+// Weight tiers (the JAX kernels' "wscale" / "w4scale" modes,
+// ops/pallas/megakernel_batch.py:149-160, :625-640,
+// megakernel_batch_quant.py:244-256, :724-735): with w_kind 8 or 4 every
+// GEMV streams int8 or grouped-int4 codes (gemv_batch.cuh's tiers; a
+// 16-byte load decoded once for the group's slots), the LM head from the
+// quantized copy `head`.
+//
 // Numerics: per slot, the single-stream chains' rounding points
 // (megastep_common.cuh); the fp32 sums of the norm statistics and of a row
 // split over KS warps may be taken in another order than in a batch-1 step.
@@ -53,7 +60,8 @@
 // ops/megakernel_batch.py) and a stream, checks the first error of each
 // launch with cudaGetLastError() and returns it (0 = success);
 // elit_cuda_error_string names a code. The structs are the single-stream
-// MegaArgs / LlamaArgs with `batch` first; length, tok_in, tok_out are [B],
+// MegaArgs / LlamaArgs with `batch` first and the single-stream structs'
+// weight tier last; length, tok_in, tok_out are [B],
 // x_emb [B, E], the panes [L, B, C, W], the scales [L, B, C], the workspace
 // [B, width], lm_val/lm_idx [B, lm_blocks].
 
@@ -91,6 +99,13 @@ struct Gpt2BatchArgs {
   void* ffn;
   float* lm_val;
   int* lm_idx;
+  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* head;     // [V, E] LM-head codes ([V, E/2] int4), or null: wte
+  const void* attn_s;   // scales: [L, 3E] fp32 (int8), [L, 3E, E/G] T (int4)
+  const void* proj_s;
+  const void* fc_s;
+  const void* fcp_s;
+  const void* head_s;
 };
 
 // Mirrored by ops/megakernel_batch.py's LlamaBatchArgs (ctypes).
@@ -124,6 +139,12 @@ struct LlamaBatchArgs {
   void* ffn;
   float* lm_val;
   int* lm_idx;
+  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* qkv_s;    // scales: [L, QW + 2 KW] fp32 (int8), [.., E/G] T (int4)
+  const void* o_s;
+  const void* gu_s;     // interleaved like gu_w
+  const void* down_s;
+  const void* head_s;
 };
 
 namespace {
@@ -214,12 +235,10 @@ argmax_batch_kernel(const float* __restrict__ part_val, const int* __restrict__ 
 template <typename T>
 int gpt2_step(const Gpt2BatchArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, V = a.vocab, B = a.batch, C = a.capacity;
-  const size_t E_ = E;
-  const T* attn_w = static_cast<const T*>(a.attn_w);
-  const T* proj_w = static_cast<const T*>(a.proj_w);
-  const T* fc_w = static_cast<const T*>(a.fc_w);
-  const T* fcp_w = static_cast<const T*>(a.fcp_w);
   const T* wte = static_cast<const T*>(a.wte);
+  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
+    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
+  };
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -231,9 +250,9 @@ int gpt2_step(const Gpt2BatchArgs& a, cudaStream_t st) {
   LAUNCH_CHECK();
   for (int l = 0; l < L; ++l) {
     const float* sm = a.smalls + (size_t)l * 13 * E;
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(attn_w + l * 3 * E_ * E, 3 * E, E, B, x, sm,
-                                                   sm + E, a.ln_eps, sm + 4 * E, qkv, nullptr,
-                                                   nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(
+        weight(a.attn_w, a.attn_s, l, 3 * E, E), 3 * E, E, B, x, sm, sm + E, a.ln_eps, sm + 4 * E,
+        qkv, nullptr, nullptr, 0, nullptr, st)));
     AttnParams ap{};
     SlotStrides ss{};
     layer_panes<T>(ap, ss, a.k, a.v, a.ks, a.vs, a.k_kind, a.v_kind, l, B, C, E);
@@ -249,20 +268,22 @@ int gpt2_step(const Gpt2BatchArgs& a, cudaStream_t st) {
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
     RETURN_IF(attention_batch<T>(ap, ss, B, a.k_kind, a.v_kind, E / a.n_head, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(proj_w + l * E_ * E, E, E, B, attn,
-                                                       nullptr, nullptr, 0.0f, sm + 7 * E, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(fc_w + l * 4 * E_ * E, 4 * E, E, B, x,
-                                                  sm + 2 * E, sm + 3 * E, a.ln_eps, sm + 8 * E,
-                                                  ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(fcp_w + l * 4 * E_ * E, E, 4 * E, B, ffn,
-                                                       nullptr, nullptr, 0.0f, sm + 12 * E, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
+        weight(a.proj_w, a.proj_s, l, E, E), E, E, B, attn, nullptr, nullptr, 0.0f, sm + 7 * E, x,
+        nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(
+        weight(a.fc_w, a.fc_s, l, 4 * E, E), 4 * E, E, B, x, sm + 2 * E, sm + 3 * E, a.ln_eps,
+        sm + 8 * E, ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
+        weight(a.fcp_w, a.fcp_s, l, E, 4 * E), E, 4 * E, B, ffn, nullptr, nullptr, 0.0f,
+        sm + 12 * E, x, nullptr, nullptr, 0, nullptr, st)));
   }
+  const WeightRef head = a.w_kind == W_T ? WeightRef{a.wte, nullptr, W_T, 0}
+                                           : weight(a.head, a.head_s, 0, V, E);
   int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(wte, V, E, B, x, a.lnf, a.lnf + E, a.ln_eps,
-                                                  nullptr, nullptr, a.lm_val, a.lm_idx,
-                                                  a.lm_blocks, &lm_grid, st)));
+  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(
+      head, V, E, B, x, a.lnf, a.lnf + E, a.ln_eps, nullptr, nullptr, a.lm_val, a.lm_idx,
+      a.lm_blocks, &lm_grid, st)));
   argmax_batch_kernel<<<B, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.advance,
                                               a.tok_out, a.length);
   LAUNCH_CHECK();
@@ -274,11 +295,9 @@ int llama_step(const LlamaBatchArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
   const int B = a.batch, C = a.capacity;
   const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
-  const size_t E_ = E;
-  const T* qkv_w = static_cast<const T*>(a.qkv_w);
-  const T* o_w = static_cast<const T*>(a.o_w);
-  const T* gu_w = static_cast<const T*>(a.gu_w);
-  const T* down_w = static_cast<const T*>(a.down_w);
+  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
+    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
+  };
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -290,7 +309,7 @@ int llama_step(const LlamaBatchArgs& a, cudaStream_t st) {
   for (int l = 0; l < L; ++l) {
     const float* nm = a.norms + (size_t)l * 2 * E;
     RETURN_IF((gemv_batch<T, PRO_RMS, EPI_STORE, 1>(
-        qkv_w + l * NQKV * E_, NQKV, E, B, x, nm, nullptr, a.rms_eps,
+        weight(a.qkv_w, a.qkv_s, l, NQKV, E), NQKV, E, B, x, nm, nullptr, a.rms_eps,
         a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv, nullptr, nullptr, 0, nullptr, st)));
     AttnParams ap{};
     SlotStrides ss{};
@@ -311,21 +330,20 @@ int llama_step(const LlamaBatchArgs& a, cudaStream_t st) {
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
     RETURN_IF(attention_batch<T>(ap, ss, B, a.k_kind, a.v_kind, D, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(o_w + l * E_ * QW, E, QW, B, attn,
-                                                       nullptr, nullptr, 0.0f, nullptr, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(gu_w + l * 2 * (size_t)I * E, 2 * I, E, B,
-                                                     x, nm + E, nullptr, a.rms_eps, nullptr,
-                                                     ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(down_w + l * E_ * I, E, I, B, ffn,
-                                                       nullptr, nullptr, 0.0f, nullptr, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
+        weight(a.o_w, a.o_s, l, E, QW), E, QW, B, attn, nullptr, nullptr, 0.0f, nullptr, x, nullptr,
+        nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(
+        weight(a.gu_w, a.gu_s, l, 2 * I, E), 2 * I, E, B, x, nm + E, nullptr, a.rms_eps, nullptr,
+        ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
+        weight(a.down_w, a.down_s, l, E, I), E, I, B, ffn, nullptr, nullptr, 0.0f, nullptr, x,
+        nullptr, nullptr, 0, nullptr, st)));
   }
   int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(static_cast<const T*>(a.head), V, E, B, x,
-                                                   a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
-                                                   a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid,
-                                                   st)));
+  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(
+      weight(a.head, a.head_s, 0, V, E), V, E, B, x, a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
+      a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid, st)));
   argmax_batch_kernel<<<B, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.advance,
                                               a.tok_out, a.length);
   LAUNCH_CHECK();
@@ -339,7 +357,7 @@ int run_gpt2(const Gpt2BatchArgs* a, void* stream, bool quant) {
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
   if (q != quant || a->batch < 1 || a->batch > kMaxSlots || H <= 0 || E % H || E % 128 ||
       a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
-      (q && (!a->ks || !a->vs)) || (int4 && (E / 2) % (E / H)))
+      (q && (!a->ks || !a->vs)) || (int4 && (E / 2) % (E / H)) || !gpt2_tier_ok(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return gpt2_step<float>(*a, st);
@@ -356,7 +374,7 @@ int run_llama(const LlamaBatchArgs* a, void* stream, bool quant) {
   if (q != quant || a->batch < 1 || a->batch > kMaxSlots || (D != 64 && D != 128) ||
       Hkv <= 0 || Hq % Hkv || a->n_embd % 8 || a->inter % 8 || a->capacity <= 0 ||
       a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 || !a->cos || !a->sin ||
-      (q && (!a->ks || !a->vs)) || (int4 && (Hkv * D / 2) % D))
+      (q && (!a->ks || !a->vs)) || (int4 && (Hkv * D / 2) % D) || !llama_tier_ok(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return llama_step<float>(*a, st);

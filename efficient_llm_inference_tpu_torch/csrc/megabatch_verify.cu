@@ -41,6 +41,11 @@
 // precision; over fp panes the in-block rows are the model-dtype k/v. Per
 // row, the single-stream chains' rounding points (megastep_common.cuh).
 //
+// Weight tiers (the JAX kernels' "wscale" / "w4scale" modes,
+// ops/pallas/megakernel_batch_verify.py:148-158, :637, :1235, :1812): with
+// w_kind 8 or 4 every GEMV streams int8 or grouped-int4 codes through
+// gemv_batch.cuh's tiers, the LM head from the quantized copy `head`.
+//
 // Bound: at 16 x 8 rows (GPT-2 small, 16 slots, k = 8) the GEMVs do
 // 2 x 124 M x 128 = 32 GFLOP of fp32 FMAs on the CUDA cores against 247 MB
 // of weights: operations, not bytes, bound the pass. The GEMVs are
@@ -50,11 +55,11 @@
 //
 // C interface (ctypes): each entry point takes its args struct (mirrored by
 // ops/megakernel_batch_verify.py: the single-stream MegaArgs / LlamaArgs with
-// `batch` and `rows` first) and a stream, checks the first error of each
-// launch with cudaGetLastError() and returns it (0 = success);
-// elit_cuda_error_string names a code. length is [B], tok_in and tok_out
-// [B x R], x_emb [B x R, E], the panes [L, B, C, W], the scales [L, B, C],
-// the workspace [B x R, width], lm_val/lm_idx [B x R, lm_blocks].
+// `batch` and `rows` first and the weight tier last) and a stream, checks the
+// first error of each launch with cudaGetLastError() and returns it (0 =
+// success); elit_cuda_error_string names a code. length is [B], tok_in and
+// tok_out [B x R], x_emb [B x R, E], the panes [L, B, C, W], the scales [L, B,
+// C], the workspace [B x R, width], lm_val/lm_idx [B x R, lm_blocks].
 
 #include "gemv_batch.cuh"
 
@@ -90,6 +95,13 @@ struct Gpt2BatchVerifyArgs {
   void* ffn;
   float* lm_val;
   int* lm_idx;
+  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* head;     // [V, E] LM-head codes ([V, E/2] int4), or null: wte
+  const void* attn_s;   // scales: [L, 3E] fp32 (int8), [L, 3E, E/G] T (int4)
+  const void* proj_s;
+  const void* fc_s;
+  const void* fcp_s;
+  const void* head_s;
 };
 
 // Mirrored by ops/megakernel_batch_verify.py's LlamaBatchVerifyArgs (ctypes).
@@ -123,6 +135,12 @@ struct LlamaBatchVerifyArgs {
   void* ffn;
   float* lm_val;
   int* lm_idx;
+  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* qkv_s;    // scales: [L, QW + 2 KW] fp32 (int8), [.., E/G] T (int4)
+  const void* o_s;
+  const void* gu_s;     // interleaved like gu_w
+  const void* down_s;
+  const void* head_s;
 };
 
 namespace {
@@ -244,12 +262,10 @@ template <typename T>
 int gpt2_verify(const Gpt2BatchVerifyArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, V = a.vocab, B = a.batch, R = a.rows;
   const int C = a.capacity, N = B * R;
-  const size_t E_ = E;
-  const T* attn_w = static_cast<const T*>(a.attn_w);
-  const T* proj_w = static_cast<const T*>(a.proj_w);
-  const T* fc_w = static_cast<const T*>(a.fc_w);
-  const T* fcp_w = static_cast<const T*>(a.fcp_w);
   const T* wte = static_cast<const T*>(a.wte);
+  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
+    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
+  };
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -261,9 +277,9 @@ int gpt2_verify(const Gpt2BatchVerifyArgs& a, cudaStream_t st) {
   LAUNCH_CHECK();
   for (int l = 0; l < L; ++l) {
     const float* sm = a.smalls + (size_t)l * 13 * E;
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(attn_w + l * 3 * E_ * E, 3 * E, E, N, x, sm,
-                                                   sm + E, a.ln_eps, sm + 4 * E, qkv, nullptr,
-                                                   nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(
+        weight(a.attn_w, a.attn_s, l, 3 * E, E), 3 * E, E, N, x, sm, sm + E, a.ln_eps, sm + 4 * E,
+        qkv, nullptr, nullptr, 0, nullptr, st)));
     AttnParams ap{};
     SlotStrides ss{};
     layer_panes<T>(ap, ss, a.k, a.v, a.ks, a.vs, a.k_kind, a.v_kind, l, B, C, E);
@@ -279,20 +295,22 @@ int gpt2_verify(const Gpt2BatchVerifyArgs& a, cudaStream_t st) {
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
     RETURN_IF(verify_attention<T>(ap, ss, B, R, a.k_kind, a.v_kind, E / a.n_head, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(proj_w + l * E_ * E, E, E, N, attn,
-                                                       nullptr, nullptr, 0.0f, sm + 7 * E, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(fc_w + l * 4 * E_ * E, 4 * E, E, N, x,
-                                                  sm + 2 * E, sm + 3 * E, a.ln_eps, sm + 8 * E,
-                                                  ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(fcp_w + l * 4 * E_ * E, E, 4 * E, N, ffn,
-                                                       nullptr, nullptr, 0.0f, sm + 12 * E, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
+        weight(a.proj_w, a.proj_s, l, E, E), E, E, N, attn, nullptr, nullptr, 0.0f, sm + 7 * E, x,
+        nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(
+        weight(a.fc_w, a.fc_s, l, 4 * E, E), 4 * E, E, N, x, sm + 2 * E, sm + 3 * E, a.ln_eps,
+        sm + 8 * E, ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
+        weight(a.fcp_w, a.fcp_s, l, E, 4 * E), E, 4 * E, N, ffn, nullptr, nullptr, 0.0f,
+        sm + 12 * E, x, nullptr, nullptr, 0, nullptr, st)));
   }
+  const WeightRef head = a.w_kind == W_T ? WeightRef{a.wte, nullptr, W_T, 0}
+                                           : weight(a.head, a.head_s, 0, V, E);
   int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(wte, V, E, N, x, a.lnf, a.lnf + E, a.ln_eps,
-                                                  nullptr, nullptr, a.lm_val, a.lm_idx,
-                                                  a.lm_blocks, &lm_grid, st)));
+  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(
+      head, V, E, N, x, a.lnf, a.lnf + E, a.ln_eps, nullptr, nullptr, a.lm_val, a.lm_idx,
+      a.lm_blocks, &lm_grid, st)));
   argmax_slot_rows_kernel<<<N, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.tok_out);
   LAUNCH_CHECK();
   return 0;
@@ -303,11 +321,9 @@ int llama_verify(const LlamaBatchVerifyArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
   const int B = a.batch, R = a.rows, C = a.capacity, N = B * R;
   const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
-  const size_t E_ = E;
-  const T* qkv_w = static_cast<const T*>(a.qkv_w);
-  const T* o_w = static_cast<const T*>(a.o_w);
-  const T* gu_w = static_cast<const T*>(a.gu_w);
-  const T* down_w = static_cast<const T*>(a.down_w);
+  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
+    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
+  };
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -319,7 +335,7 @@ int llama_verify(const LlamaBatchVerifyArgs& a, cudaStream_t st) {
   for (int l = 0; l < L; ++l) {
     const float* nm = a.norms + (size_t)l * 2 * E;
     RETURN_IF((gemv_batch<T, PRO_RMS, EPI_STORE, 1>(
-        qkv_w + l * NQKV * E_, NQKV, E, N, x, nm, nullptr, a.rms_eps,
+        weight(a.qkv_w, a.qkv_s, l, NQKV, E), NQKV, E, N, x, nm, nullptr, a.rms_eps,
         a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv, nullptr, nullptr, 0, nullptr, st)));
     AttnParams ap{};
     SlotStrides ss{};
@@ -340,21 +356,20 @@ int llama_verify(const LlamaBatchVerifyArgs& a, cudaStream_t st) {
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
     RETURN_IF(verify_attention<T>(ap, ss, B, R, a.k_kind, a.v_kind, D, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(o_w + l * E_ * QW, E, QW, N, attn,
-                                                       nullptr, nullptr, 0.0f, nullptr, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(gu_w + l * 2 * (size_t)I * E, 2 * I, E, N,
-                                                     x, nm + E, nullptr, a.rms_eps, nullptr,
-                                                     ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(down_w + l * E_ * I, E, I, N, ffn,
-                                                       nullptr, nullptr, 0.0f, nullptr, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
+        weight(a.o_w, a.o_s, l, E, QW), E, QW, N, attn, nullptr, nullptr, 0.0f, nullptr, x, nullptr,
+        nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(
+        weight(a.gu_w, a.gu_s, l, 2 * I, E), 2 * I, E, N, x, nm + E, nullptr, a.rms_eps, nullptr,
+        ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
+        weight(a.down_w, a.down_s, l, E, I), E, I, N, ffn, nullptr, nullptr, 0.0f, nullptr, x,
+        nullptr, nullptr, 0, nullptr, st)));
   }
   int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(static_cast<const T*>(a.head), V, E, N, x,
-                                                   a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
-                                                   a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid,
-                                                   st)));
+  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(
+      weight(a.head, a.head_s, 0, V, E), V, E, N, x, a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
+      a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid, st)));
   argmax_slot_rows_kernel<<<N, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.tok_out);
   LAUNCH_CHECK();
   return 0;
@@ -375,7 +390,7 @@ int run_gpt2(const Gpt2BatchVerifyArgs* a, void* stream, bool quant) {
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
   if (!rows_ok(a->batch, a->rows, a->k_kind, a->v_kind, quant, a->ks, a->vs) || H <= 0 ||
       E % H || E % 128 || a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
-      (int4 && (E / 2) % (E / H)))
+      (int4 && (E / 2) % (E / H)) || !gpt2_tier_ok(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return gpt2_verify<float>(*a, st);
@@ -391,7 +406,7 @@ int run_llama(const LlamaBatchVerifyArgs* a, void* stream, bool quant) {
   if (!rows_ok(a->batch, a->rows, a->k_kind, a->v_kind, quant, a->ks, a->vs) ||
       (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || a->n_embd % 8 || a->inter % 8 ||
       a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 ||
-      !a->cos || !a->sin || (int4 && (Hkv * D / 2) % D))
+      !a->cos || !a->sin || (int4 && (Hkv * D / 2) % D) || !llama_tier_ok(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return llama_verify<float>(*a, st);

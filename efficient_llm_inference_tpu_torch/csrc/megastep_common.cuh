@@ -3,7 +3,8 @@
 // megaverify.cu and megabatch_verify.cu): conversions, 16-byte weight
 // streaming, block reductions, the GEMV kernel with its norm prologues,
 // fused epilogues and weight tiers (model dtype, int8, grouped int4; the
-// single-stream chains), decode attention over fp / int8 / half-split int4 panes
+// single-stream chains; the tiers' chunk decode is weight_tier.cuh's, shared
+// with gemv_batch.cuh), decode attention over fp / int8 / half-split int4 panes
 // with quantize-on-write, the final argmax, and the slot strides of batched
 // [L, B, C, W] panes. Each including
 // source gets its own copy (anonymous namespace); the host sides stay in the
@@ -25,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "weight_tier.cuh"
 
 namespace {
 
@@ -136,94 +139,38 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 //                 out[j] = T(T(silu(y_gate)) * T(y_up)), silu in fp32
 //
 // Weight tiers (WK; replaces the JAX kernels' "wscale" / "w4scale" modes,
-// ops/pallas/megakernel.py:474-490, megakernel_llama.py:148-217):
+// ops/pallas/megakernel.py:474-490, megakernel_llama.py:148-217; the chunk
+// decode is weight_tier.cuh's):
 //   W_T   values of the model dtype T, Vec<T>::N a 16-byte chunk;
 //   W_I8  int8 codes, 16 a chunk, one fp32 scale a row (`ws` [N]):
 //         y = (sum_k in[k] q[row, k]) * ws[row], the fp32 sum scaled before
 //         the bias, the epilogue and the argmax compare (JAX: y * wscale,
 //         then + bias);
-//   W_I4  int4 codes, 32 a chunk: byte j of a row holds input 2j in its low
-//         nibble and 2j + 1 in its high one, two's complement (the model's
-//         own order), so nibble i of a little-endian 32-bit word is input
-//         8w + i and a lane reads each in place, no shuffle (`code_i4`).
-//         One scale a row and group of `group` inputs, in T (`ws` [N, K/G];
-//         the JAX packer rounds the scales to the model dtype):
+//   W_I4  int4 codes, 32 a chunk in the model's own nibble order, read in
+//         place, no shuffle. One scale a row and group of `group` inputs,
+//         in T (`ws` [N, K/G]; the JAX packer rounds the scales to the
+//         model dtype):
 //         y = sum over chunks of (sum_k in[k] v[row, k]) * ws[row, k / G],
 //         fp32 sums; G % 32 == 0 keeps a chunk in one group. This is the
 //         JAX kernel's int4w8 form (raw nibble dots, the fp32 sums scaled)
 //         at every G; its grouped form, which rounds each v * s to T before
 //         the dot, is not kept (a multiply and a rounding a weight more).
-// The quantized tiers keep the input in shared memory with 4 floats of
-// padding after every chunk's inputs, so neighbouring lanes' float4 reads
-// of their chunks fall in distinct banks (unpadded, 32 codes a chunk put
-// every lane of a warp on the same banks).
+// The quantized tiers keep the input in shared memory with QTier<WK>::PAD
+// floats of padding after every chunk's inputs, so neighbouring lanes'
+// float4 reads of their chunks fall in distinct banks.
 
 enum { PRO_LN = 0, PRO_VEC = 1, PRO_RMS = 2 };
 template <typename T> constexpr int kPrefetch = 24 / Vec<T>::N;  // 3 in bf16, 6 in fp32
 enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_ARGMAX = 3, EPI_SWIGLU = 4 };
-enum { W_T = 0, W_I4 = 4, W_I8 = 8 };
 
 // Inputs a 16-byte chunk of weights covers, and the shared-memory padding
 // after each chunk's inputs.
-template <typename T, int WK> struct WTier { static constexpr int N = Vec<T>::N, PAD = 0; };
-template <typename T> struct WTier<T, W_I8> { static constexpr int N = 16, PAD = 4; };
-template <typename T> struct WTier<T, W_I4> { static constexpr int N = 32, PAD = 4; };
+template <typename T, int WK> struct WTier : QTier<WK> {};
+template <typename T> struct WTier<T, W_T> { static constexpr int N = Vec<T>::N, PAD = 0; };
 
 // Shared-memory slot of input k (chunks of N inputs, PAD floats after each).
 template <int N, int PAD> __device__ __forceinline__ int hpos(int k) {
   return PAD ? k + PAD * (k / N) : k;
-}
-
-// Codes to fp32 without the conversion unit (16 a clock an SM, the int4
-// tier's limit when each code took one): XOR-ing a word with 0x80808080
-// (int8) or 0x88888888 (int4) turns each two's-complement code v into
-// v + 128 (v + 8), an unsigned field; OR-ed into the mantissa of 2^23 it
-// gives the float 2^23 + v + bias exactly, and subtracting 2^23 + bias
-// leaves v: an integer op and an FADD a code.
-__device__ __forceinline__ float code_i8(unsigned wx, int i) {
-  return __uint_as_float(0x4B000000u | ((wx >> (8 * i)) & 0xFFu)) - 8388736.0f;
-}
-__device__ __forceinline__ float code_i4(unsigned wx, int i) {
-  return __uint_as_float(0x4B000000u | ((wx >> (4 * i)) & 0xFu)) - 8388616.0f;
-}
-
-// acc + the 16 int8 codes in u . hv[0 : 16): four fp32 partial sums (one a
-// 32-bit word, in order), added to acc in order.
-__device__ __forceinline__ float dot_i8(const uint4& u, const float* hv, float acc) {
-  const unsigned w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
-                         u.w ^ 0x80808080u};
-  float p[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 a = reinterpret_cast<const float4*>(hv)[i];
-    p[i] = code_i8(w[i], 0) * a.x;
-    p[i] = fmaf(code_i8(w[i], 1), a.y, p[i]);
-    p[i] = fmaf(code_i8(w[i], 2), a.z, p[i]);
-    p[i] = fmaf(code_i8(w[i], 3), a.w, p[i]);
-  }
-  return acc + ((p[0] + p[1]) + (p[2] + p[3]));
-}
-
-// The fp32 sum of the 32 int4 codes in u times hv[0 : 32): four partial
-// sums (one a 32-bit word of 8 codes, in order), then their sum.
-__device__ __forceinline__ float dot_i4(const uint4& u, const float* hv) {
-  const unsigned w[4] = {u.x ^ 0x88888888u, u.y ^ 0x88888888u, u.z ^ 0x88888888u,
-                         u.w ^ 0x88888888u};
-  float p[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 a = reinterpret_cast<const float4*>(hv)[2 * i];
-    const float4 b = reinterpret_cast<const float4*>(hv)[2 * i + 1];
-    p[i] = code_i4(w[i], 0) * a.x;
-    p[i] = fmaf(code_i4(w[i], 1), a.y, p[i]);
-    p[i] = fmaf(code_i4(w[i], 2), a.z, p[i]);
-    p[i] = fmaf(code_i4(w[i], 3), a.w, p[i]);
-    p[i] = fmaf(code_i4(w[i], 4), b.x, p[i]);
-    p[i] = fmaf(code_i4(w[i], 5), b.y, p[i]);
-    p[i] = fmaf(code_i4(w[i], 6), b.z, p[i]);
-    p[i] = fmaf(code_i4(w[i], 7), b.w, p[i]);
-  }
-  return (p[0] + p[1]) + (p[2] + p[3]);
 }
 
 template <typename T, int N = 1, int PAD = 0>
@@ -310,23 +257,20 @@ gemv_kernel(const void* __restrict__ W, const void* __restrict__ ws, int group, 
   }
   __syncthreads();
 
-  // acc + chunk c of row `row` (its 16 bytes in u) times its inputs. The
-  // int4 scale group of chunk c, floor(c * 32 / G), is taken in fp32: the
-  // product's error (~1e-5 for c < 2^9) stays under the 1e-3 nudge, itself
-  // under the fraction's spacing 32 / G (G <= 2^14), so the floor is exact
-  // without an integer division.
+  // acc + chunk c of row `row` (its 16 bytes in u) times its inputs
   const int n_groups = WK == W_I4 ? K / group : 1;
   const float chunk_to_group = WK == W_I4 ? (float)VN / (float)group : 0.0f;
   auto chunk = [&](const uint4& u, int c, int row, float acc) -> float {
     const float* hv = h + c * (VN + PAD);
     if constexpr (WK == W_T) {
       return dot16<T>(u, hv, acc);
-    } else if constexpr (WK == W_I8) {
-      return dot_i8(u, hv, acc);
     } else {
+      float cd[VN];
+      decode_chunk<WK>(u, cd);
+      if constexpr (WK == W_I8) return acc + chunk_dot_smem<WK>(cd, hv);
       const T* s = static_cast<const T*>(ws) + (size_t)row * n_groups;
-      const int g = __float2int_rz(fmaf((float)c, chunk_to_group, 1e-3f));
-      return fmaf(dot_i4(u, hv), to_f32(s[g]), acc);
+      return fmaf(chunk_dot_smem<WK>(cd, hv), to_f32(s[chunk_group(c, chunk_to_group)]),
+                  acc);
     }
   };
   // the row's sum over the KS warps, scaled by the int8 row scale

@@ -40,6 +40,15 @@
 // merging the writer into the attention launch, the single-stream chain's
 // open items.
 //
+// Weight tiers (the JAX kernels' "wscale" / "w4scale" modes,
+// ops/pallas/megakernel.py:714-721, megakernel_llama.py:763-790): with
+// w_kind 8 or 4 every GEMV of the chain (q|k|v, proj / o, fc / gate-up,
+// fc_proj / down and the LM head, the quantized copy `head`) streams int8
+// or grouped-int4 codes through gemv_batch.cuh's tiers, the codes of a
+// 16-byte load decoded once for all R rows (weight_tier.cuh); the args end
+// with the single-stream structs' tier fields. Bound: the codes and scales
+// once for all R rows (GPT-2 small ~124 MB int8, ~64 MB int4 at G = 128).
+//
 // Numerics: per row, the single-stream chains' rounding points
 // (megastep_common.cuh), with fp32 softmax over the cached rows and the
 // verify rows j <= t in one softmax (the JAX kernels' in-block causal set;
@@ -47,7 +56,8 @@
 //
 // C interface (ctypes): each entry point takes its args struct (mirrored by
 // ops/megakernel.py's GPT2VerifyArgs and ops/megakernel_llama.py's
-// LlamaVerifyArgs: the single-stream MegaArgs / LlamaArgs with `rows` first)
+// LlamaVerifyArgs: the single-stream MegaArgs / LlamaArgs with `rows` first
+// and the weight tier last)
 // and a stream, checks the first error of each launch with cudaGetLastError()
 // and returns it (0 = success); elit_cuda_error_string names a code. length
 // is [1], tok_in and tok_out [R], x_emb [R, E], the panes [L, C, W], the
@@ -87,6 +97,13 @@ struct Gpt2VerifyArgs {
   void* ffn;
   float* lm_val;
   int* lm_idx;
+  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* head;     // [V, E] LM-head codes ([V, E/2] int4), or null: wte
+  const void* attn_s;   // scales: [L, 3E] fp32 (int8), [L, 3E, E/G] T (int4)
+  const void* proj_s;
+  const void* fc_s;
+  const void* fcp_s;
+  const void* head_s;
 };
 
 // Mirrored by ops/megakernel_llama.py's LlamaVerifyArgs (ctypes).
@@ -120,6 +137,12 @@ struct LlamaVerifyArgs {
   void* ffn;
   float* lm_val;
   int* lm_idx;
+  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
+  const void* qkv_s;    // scales: [L, QW + 2 KW] fp32 (int8), [.., E/G] T (int4)
+  const void* o_s;
+  const void* gu_s;     // interleaved like gu_w
+  const void* down_s;
+  const void* head_s;
 };
 
 namespace {
@@ -219,12 +242,10 @@ argmax_rows_kernel(const float* __restrict__ part_val, const int* __restrict__ p
 template <typename T>
 int gpt2_verify(const Gpt2VerifyArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, V = a.vocab, R = a.rows, C = a.capacity;
-  const size_t E_ = E;
-  const T* attn_w = static_cast<const T*>(a.attn_w);
-  const T* proj_w = static_cast<const T*>(a.proj_w);
-  const T* fc_w = static_cast<const T*>(a.fc_w);
-  const T* fcp_w = static_cast<const T*>(a.fcp_w);
   const T* wte = static_cast<const T*>(a.wte);
+  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
+    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
+  };
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -236,9 +257,9 @@ int gpt2_verify(const Gpt2VerifyArgs& a, cudaStream_t st) {
   LAUNCH_CHECK();
   for (int l = 0; l < L; ++l) {
     const float* sm = a.smalls + (size_t)l * 13 * E;
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(attn_w + l * 3 * E_ * E, 3 * E, E, R, x, sm,
-                                                   sm + E, a.ln_eps, sm + 4 * E, qkv, nullptr,
-                                                   nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(
+        weight(a.attn_w, a.attn_s, l, 3 * E, E), 3 * E, E, R, x, sm, sm + E, a.ln_eps, sm + 4 * E,
+        qkv, nullptr, nullptr, 0, nullptr, st)));
     AttnParams ap{};
     ap.qkv = qkv;
     ap.k = static_cast<char*>(a.k) + pane_offset(0, sizeof(T), l, C, E);
@@ -251,20 +272,22 @@ int gpt2_verify(const Gpt2VerifyArgs& a, cudaStream_t st) {
     ap.sm_scale = 1.0f / sqrtf((float)(E / a.n_head));
     ap.out = attn;
     RETURN_IF(verify_attention<T>(ap, R, E / a.n_head, 3 * E, E, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(proj_w + l * E_ * E, E, E, R, attn,
-                                                       nullptr, nullptr, 0.0f, sm + 7 * E, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(fc_w + l * 4 * E_ * E, 4 * E, E, R, x,
-                                                  sm + 2 * E, sm + 3 * E, a.ln_eps, sm + 8 * E,
-                                                  ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(fcp_w + l * 4 * E_ * E, E, 4 * E, R, ffn,
-                                                       nullptr, nullptr, 0.0f, sm + 12 * E, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
+        weight(a.proj_w, a.proj_s, l, E, E), E, E, R, attn, nullptr, nullptr, 0.0f, sm + 7 * E, x,
+        nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(
+        weight(a.fc_w, a.fc_s, l, 4 * E, E), 4 * E, E, R, x, sm + 2 * E, sm + 3 * E, a.ln_eps,
+        sm + 8 * E, ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
+        weight(a.fcp_w, a.fcp_s, l, E, 4 * E), E, 4 * E, R, ffn, nullptr, nullptr, 0.0f,
+        sm + 12 * E, x, nullptr, nullptr, 0, nullptr, st)));
   }
+  const WeightRef head = a.w_kind == W_T ? WeightRef{a.wte, nullptr, W_T, 0}
+                                           : weight(a.head, a.head_s, 0, V, E);
   int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(wte, V, E, R, x, a.lnf, a.lnf + E, a.ln_eps,
-                                                  nullptr, nullptr, a.lm_val, a.lm_idx,
-                                                  a.lm_blocks, &lm_grid, st)));
+  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(
+      head, V, E, R, x, a.lnf, a.lnf + E, a.ln_eps, nullptr, nullptr, a.lm_val, a.lm_idx,
+      a.lm_blocks, &lm_grid, st)));
   argmax_rows_kernel<<<R, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.tok_out);
   LAUNCH_CHECK();
   return 0;
@@ -275,11 +298,9 @@ int llama_verify(const LlamaVerifyArgs& a, cudaStream_t st) {
   const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
   const int R = a.rows, C = a.capacity;
   const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
-  const size_t E_ = E;
-  const T* qkv_w = static_cast<const T*>(a.qkv_w);
-  const T* o_w = static_cast<const T*>(a.o_w);
-  const T* gu_w = static_cast<const T*>(a.gu_w);
-  const T* down_w = static_cast<const T*>(a.down_w);
+  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
+    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
+  };
   T* x = static_cast<T*>(a.x);
   T* qkv = static_cast<T*>(a.qkv);
   T* attn = static_cast<T*>(a.attn);
@@ -291,7 +312,7 @@ int llama_verify(const LlamaVerifyArgs& a, cudaStream_t st) {
   for (int l = 0; l < L; ++l) {
     const float* nm = a.norms + (size_t)l * 2 * E;
     RETURN_IF((gemv_batch<T, PRO_RMS, EPI_STORE, 1>(
-        qkv_w + l * NQKV * E_, NQKV, E, R, x, nm, nullptr, a.rms_eps,
+        weight(a.qkv_w, a.qkv_s, l, NQKV, E), NQKV, E, R, x, nm, nullptr, a.rms_eps,
         a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv, nullptr, nullptr, 0, nullptr, st)));
     AttnParams ap{};
     ap.qkv = qkv;
@@ -309,21 +330,20 @@ int llama_verify(const LlamaVerifyArgs& a, cudaStream_t st) {
     ap.sm_scale = 1.0f / sqrtf((float)D);
     ap.out = attn;
     RETURN_IF(verify_attention<T>(ap, R, D, NQKV, QW, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(o_w + l * E_ * QW, E, QW, R, attn,
-                                                       nullptr, nullptr, 0.0f, nullptr, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(gu_w + l * 2 * (size_t)I * E, 2 * I, E, R,
-                                                     x, nm + E, nullptr, a.rms_eps, nullptr,
-                                                     ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(down_w + l * E_ * I, E, I, R, ffn,
-                                                       nullptr, nullptr, 0.0f, nullptr, x,
-                                                       nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
+        weight(a.o_w, a.o_s, l, E, QW), E, QW, R, attn, nullptr, nullptr, 0.0f, nullptr, x, nullptr,
+        nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_RMS, EPI_SWIGLU, 1>(
+        weight(a.gu_w, a.gu_s, l, 2 * I, E), 2 * I, E, R, x, nm + E, nullptr, a.rms_eps, nullptr,
+        ffn, nullptr, nullptr, 0, nullptr, st)));
+    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
+        weight(a.down_w, a.down_s, l, E, I), E, I, R, ffn, nullptr, nullptr, 0.0f, nullptr, x,
+        nullptr, nullptr, 0, nullptr, st)));
   }
   int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(static_cast<const T*>(a.head), V, E, R, x,
-                                                   a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
-                                                   a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid,
-                                                   st)));
+  RETURN_IF((gemv_batch<T, PRO_RMS, EPI_ARGMAX, 1>(
+      weight(a.head, a.head_s, 0, V, E), V, E, R, x, a.lnf, nullptr, a.rms_eps, nullptr, nullptr,
+      a.lm_val, a.lm_idx, a.lm_blocks, &lm_grid, st)));
   argmax_rows_kernel<<<R, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.tok_out);
   LAUNCH_CHECK();
   return 0;
@@ -333,7 +353,8 @@ int run_gpt2(const Gpt2VerifyArgs* a, void* stream) {
   if (a == nullptr) return (int)cudaErrorInvalidValue;
   const int E = a->n_embd, H = a->n_head;
   if (a->k_kind != 0 || a->v_kind != 0 || a->rows < 1 || a->rows > kMaxVerifyRows || H <= 0 ||
-      E % H || E % 128 || a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0)
+      E % H || E % 128 || a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
+      !gpt2_tier_ok(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return gpt2_verify<float>(*a, st);
@@ -348,7 +369,7 @@ int run_llama(const LlamaVerifyArgs* a, void* stream) {
   if (a->k_kind != 0 || a->v_kind != 0 || a->rows < 1 || a->rows > kMaxVerifyRows ||
       (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || a->n_embd % 8 || a->inter % 8 ||
       a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 ||
-      !a->cos || !a->sin)
+      !a->cos || !a->sin || !llama_tier_ok(*a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return llama_verify<float>(*a, st);

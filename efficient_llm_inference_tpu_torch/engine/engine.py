@@ -15,9 +15,9 @@ kernels (`_mega_batch_spec`), or prompt by prompt where they do not apply.
 k-row verify a round) and `generate_speculative_auto` decode one prompt
 speculatively (engine/speculative.py), with output equal to plain greedy.
 `Config.weight_quant` ("int8", "int4", "int4w8") quantizes the weights at
-`from_model_name` (the JAX engine's serving mode); the single-stream paths
-run on them, megakernel on or off, and `generate_batch` and speculation
-raise on quantized weights (ROADMAP.md Queue 1 item 14).
+`from_model_name` (the JAX engine's serving mode); every path serves them,
+megakernel on or off: on the kernels' weight tiers where the megakernel
+takes the model, else the model's forward over the codes.
 """
 
 from __future__ import annotations
@@ -122,11 +122,6 @@ def quantize_weights(spec: ModelSpec, params: dict, mode: str, group: int) -> di
     return quantize(params, mode=mode, group=group)
 
 
-def _weight_quant_todo(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on weight-quantized params is not ported yet: {mk.WEIGHT_TODO}")
-
-
 # Paths where the reference truncates prompts at prompt_cap.
 _TRUNCATING_METHODS = {
     "no_cache",
@@ -139,8 +134,8 @@ _TRUNCATING_METHODS = {
 
 
 def _check_method(method: str) -> None:
-    if method not in VALID_METHODS:
-        raise ValueError(f"Invalid method: {method}")
+    if method not in VALID_METHODS:  # the JAX engine asserts it
+        raise AssertionError(f"Invalid method: {method}")
     if method not in PORTED_METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported yet: the eviction policies and "
@@ -418,16 +413,14 @@ class InferenceEngine:
         in {"int8", "int4", "mixed"} the panes are quantized and each row
         matches `generate(p, f"quant_{kv_mode}")`; without it, each row
         matches `generate(p, "full_cache")`. The token ids (prompt +
-        generation) of each row are kept in `last_batch_ids`. Weight-quantized
-        params raise NotImplementedError: the batched kernels' weight tiers
-        are ROADMAP.md Queue 1 item 14.
+        generation) of each row are kept in `last_batch_ids`. Over
+        weight-quantized params the batched kernels stream the codes (their
+        weight tiers), and the fallback is the single-stream path on them.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded batched serving is not ported yet: the parallel "
                 "package is ROADMAP.md Queue 1 item 12")
-        if mk.weight_quantized(self.params):
-            raise _weight_quant_todo("generate_batch")
         if not prompts:
             raise ValueError("empty prompt batch")
         # encode as the method this batch emulates: quant_* methods do not
@@ -483,7 +476,8 @@ class InferenceEngine:
         capacity, the JAX engine would pack it for a burst: full-precision
         GPT-2 or a tied full-precision Llama), or None where the JAX engine
         gives the draft no megakernel spec (no mega target, another family,
-        or the JAX structure refuses the draft at the target's capacity)."""
+        or the JAX structure, its weight gates included, refuses the draft
+        at the target's capacity)."""
         if mega is None or dspec.name not in _MEGA_DRAFT:
             return None
         cfg = dspec.config
@@ -491,7 +485,8 @@ class InferenceEngine:
             return None
         cap = mega["capacity"] + 8  # spec_capacity of the mega path
         return (_MEGA[dspec.name][0](cfg, cap, dparams),
-                dspec.name == "gpt2" or cfg.tie_embeddings)
+                (dspec.name == "gpt2" or cfg.tie_embeddings)
+                and not mk.weight_quantized(dparams))
 
     def _draft_mega_spec(self, dspec: ModelSpec, dparams: dict,
                          mega: Optional[dict]) -> Optional[dict]:
@@ -526,13 +521,12 @@ class InferenceEngine:
         (text, n_new, {"n_rounds", "tokens_per_round"}), tokens_per_round =
         (n_new - 1) / n_rounds. The ids (prompt + generation) are kept in
         `last_generation_ids`, the host's reads of the emitted count (before
-        the final read of the tokens) in `last_spec_host_syncs`.
-        Weight-quantized params (target or draft) raise NotImplementedError:
-        the verify kernels' weight tiers are ROADMAP.md Queue 1 item 14.
+        the final read of the tokens) in `last_spec_host_syncs`. Over
+        weight-quantized params the verify runs on its kernel's weight tier,
+        and a quantized draft (the self-draft of a quantized target) takes
+        k whole-step launches on theirs: as in the JAX engine, only a
+        full-precision draft has a burst.
         """
-        if mk.weight_quantized(self.params) or (
-                draft is not None and mk.weight_quantized(draft[1])):
-            raise _weight_quant_todo("generate_speculative")
         ids = self._encode(prompt, "full_cache")
         true_len = len(ids)
         if true_len == 0:
@@ -589,8 +583,6 @@ class InferenceEngine:
         1 + k * max(draft/target layer-width ratio, 0.02) for a draft),
         re-probing the runner-up every 8th call. Output equals plain greedy
         for any candidate."""
-        if mk.weight_quantized(self.params):
-            raise _weight_quant_todo("generate_speculative_auto")
         cands = [("ngram", 8, None), ("ngram", 4, None)]
         if draft is not None:
             cands += [("draft", 8, draft), ("draft", 4, draft)]

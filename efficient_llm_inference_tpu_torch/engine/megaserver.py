@@ -168,13 +168,8 @@ class MegaBatchServer:
         <= capacity - 8 in spec mode (capacity - 1 plain): past that the
         cursor clamps and tokens are computed against a frozen context, as
         in the JAX server. `enable_prefix_cache=True` raises
-        NotImplementedError (ROADMAP.md Queue 1 item 13), and so do
-        weight-quantized params (the batched kernels' weight tiers, item
-        14)."""
-        if mk.weight_quantized(params):
-            raise NotImplementedError(
-                f"MegaBatchServer on weight-quantized params is not ported yet: "
-                f"{mk.WEIGHT_TODO}")
+        NotImplementedError (ROADMAP.md Queue 1 item 13). Weight-quantized
+        params (`Config.weight_quant`) serve on the kernels' weight tiers."""
         if enable_prefix_cache:
             raise NotImplementedError(
                 "MegaBatchServer's shared-prefix caching is not ported yet "
@@ -400,7 +395,8 @@ class MegaBatchServer:
         if n_steps in self._chunks:
             return self._chunks[n_steps]
         B = self.pool_cfg.n_slots
-        counter = self._fam.step_quant if self.kv_mode else self._fam.step
+        counter = mk.launch_counter(self._fam.step_quant if self.kv_mode else self._fam.step,
+                                    self.packed)
         toks_all = torch.zeros((n_steps, B), dtype=torch.int32, device=self.device)
         if self.device.type != "cuda":
             def chunk():
@@ -470,6 +466,7 @@ class MegaBatchServer:
             return self._chunks[key]
         B, dev, cfg = self.pool_cfg.n_slots, self.device, self.model.config
         quant = self._fam.verify_quant if self.kv_mode else self._fam.verify
+        counter = mk.launch_counter(quant, self.packed)
         em = torch.zeros((n_rounds, B, R), dtype=torch.int32, device=dev)
         nn = torch.zeros((n_rounds, B), dtype=torch.int32, device=dev)
         if dev.type != "cuda":
@@ -507,7 +504,7 @@ class MegaBatchServer:
 
             def chunk():
                 graph.replay()
-                quant.launches += per_replay
+                counter.launches += per_replay
                 return em, nn
 
             chunk.graph, chunk.launcher = graph, launcher  # alive with the chunk

@@ -14,10 +14,12 @@ accepted prefix by a length update (rows past it are overwritten later).
 Two paths, as in the JAX package:
 
 * megakernel (`mega`, engine `_mega_spec`): the target's verify is one
-  launch of `gpt2_megaverify` / `llama_megaverify` over [L, C, W] panes; a
-  draft runs as one `gpt2_draft_burst` / `llama_draft_burst` launch where
-  the burst takes it, else as k launches of its whole-step kernel
-  (`gpt2_megastep` / `llama_megastep`), else as k eager forward passes. On a
+  launch of `gpt2_megaverify` / `llama_megaverify` over [L, C, W] panes
+  (on its weight tier over quantized weights); a full-precision draft runs
+  as one `gpt2_draft_burst` / `llama_draft_burst` launch where the burst
+  takes it, else (and a quantized draft, which has no burst) as k launches
+  of its whole-step kernel (`gpt2_megastep` / `llama_megastep`), else as k
+  eager forward passes. On a
   card a round (proposal, verify, acceptance, length updates) is captured
   once per built configuration as a CUDA graph over static device tensors
   and replayed; the host reads the emitted count after ceil(r / k) rounds,
@@ -71,10 +73,15 @@ _KINDS = {
 
 def make_self_draft(spec: ModelSpec, params: dict, n_layers: int):
     """Truncated self-draft: the target's own first `n_layers` layers
-    (shares the embeddings and the LM head; the block tensors are views)."""
+    (shares the embeddings and the LM head, or its quantized copy; the
+    block tensors, codes and scales too, are views)."""
     dspec = spec_with_config(spec, dataclasses.replace(spec.config, n_layer=n_layers))
+
+    def first(t):  # every leaf of a block weight (JAX: jax.tree.map)
+        return {k: first(v) for k, v in t.items()} if isinstance(t, dict) else t[:n_layers]
+
     dparams = dict(params)
-    dparams["blocks"] = {n: t[:n_layers] for n, t in params["blocks"].items()}
+    dparams["blocks"] = first(params["blocks"])
     return dspec, dparams
 
 
@@ -194,7 +201,7 @@ class _DraftPanes:
         self.strategy = d_strategy
         kind = _KINDS[dmega["kind"]]
         self.step_fn, self.burst_fn = kind.step, kind.burst
-        self.counter = kind.burst if burst else kind.step
+        self.counter = mk.launch_counter(kind.burst if burst else kind.step, self.packed)
         W = draft.n_kv_head * draft.head_dim
         self.dk = torch.zeros(draft.n_layer, cap, W, dtype=dtype, device=device)
         self.dv = torch.zeros_like(self.dk)
@@ -288,7 +295,8 @@ class _PaneTarget:
     def __init__(self, target: ModelSpec, mega: dict, k: int, cap: int, device, dtype):
         self.cfg, self.packed = mega["cfg"], mega["packed"]
         kind = _KINDS[mega["kind"]]
-        self.counter, launcher = kind.verify, kind.verify_launcher
+        self.verify_fn, launcher = kind.verify, kind.verify_launcher
+        self.counter = mk.launch_counter(kind.verify, self.packed)
         i32 = dict(dtype=torch.int32, device=device)
         W = target.n_kv_head * target.head_dim
         self.tk = torch.zeros(target.n_layer, cap, W, dtype=dtype, device=device)
@@ -312,8 +320,8 @@ class _PaneTarget:
         if self.launcher is not None:
             self.launcher.launch()
         else:
-            self.greedy.copy_(self.counter(self.packed, self.tk, self.tv, self.t_len,
-                                           self.vin, cfg=self.cfg)[0])
+            self.greedy.copy_(self.verify_fn(self.packed, self.tk, self.tv, self.t_len,
+                                             self.vin, cfg=self.cfg)[0])
         return self.greedy
 
     def accept(self, n_new) -> None:

@@ -43,9 +43,11 @@ pack into the same row-major [out, in] rows, of codes instead of values:
 
 The LM head of a quantized model is its quantized copy (`lm_q` / `lm_q4`,
 exactly V rows: no padding to carry); the embedding lookup stays on `wte`.
-The tiers run in the single-stream steps (#9 here, #11, #12 and #13 at
-R = 1); the verify, batched and batched-verify launchers refuse them
-(ROADMAP.md Queue 1 item 14).
+Every chain streams the tiers from the same packing: the single-stream
+steps (#9 here, #11, #12 and #13 at R = 1) through `gemv_kernel`, the
+verify passes (#10 here, #13 at R > 1), the batched steps (#14-#17) and the
+batched verifies (#18-#21) through the batched GEMV (`csrc/gemv_batch.cuh`);
+each wrapper counts a tier's launches in `<wrapper>.tiers[kind]`.
 
 Numerics follow the JAX kernel's rounding points: layer-norm statistics in
 fp32; the LN output, q, k, v, the attention output, the GELU output and each
@@ -93,8 +95,6 @@ def to_mega_layout(buf: torch.Tensor) -> torch.Tensor:
 WEIGHT_CODE = {"fp": 0, "int8": 8, "int4": 4}
 # The int4 tier reads 32 codes (16 bytes) a load, all in one scale group.
 INT4_CHUNK = 32
-WEIGHT_TODO = ("the weight tiers of the verify, batched and batched-verify kernels "
-               "(ROADMAP.md Queue 1 item 14)")
 
 
 def _full_precision_dtype(params: dict) -> Optional[torch.dtype]:
@@ -181,10 +181,11 @@ def _int4_group_ok(G: int) -> bool:
     return G > 0 and G % INT4_CHUNK == 0
 
 
-def _weights_ok(cfg, params: dict) -> bool:
+def _weights_ok(cfg, params: dict, kernels: bool = True) -> bool:
     """The JAX package's weight gates (uniform weights: full precision,
     int8 with `lm_q`, or grouped int4 with `lm_q4` at one group G with
-    E % G == 0, (E/2) % G == 0 and E % 16 == 0) and the kernels' G % 32."""
+    E % G == 0, (E/2) % G == 0 and E % 16 == 0) and, with `kernels`, the
+    kernels' G % 32."""
     b = params.get("blocks", {})
     mode = _gpt2_weight_mode(b)
     wte = params.get("wte")
@@ -194,7 +195,7 @@ def _weights_ok(cfg, params: dict) -> bool:
         return False
     if mode == "int4":
         E, G = cfg.n_embd, _gpt2_int4_group(params)
-        if G == 0 or E % G or (E // 2) % G or E % 16 or not _int4_group_ok(G):
+        if G == 0 or E % G or (E // 2) % G or E % 16 or (kernels and not _int4_group_ok(G)):
             return False
     return True
 
@@ -209,11 +210,10 @@ def mega_supported(cfg, capacity: int, params: dict) -> bool:
 
 
 def jax_structure_ok(cfg, capacity: int, params: dict) -> bool:
-    """The JAX package's eligibility for full-precision weights without its
-    VMEM budget (uniform full-precision weights, E % 128 == 0,
-    capacity % 8 == 0): what decides the JAX engine's routes for a small
-    speculative draft."""
-    return (_full_precision_dtype(params) is not None and cfg.n_embd % 128 == 0
+    """The JAX package's eligibility without its VMEM budget (its weight
+    gates, E % 128 == 0, capacity % 8 == 0): what decides the JAX engine's
+    routes for a speculative draft."""
+    return (_weights_ok(cfg, params, kernels=False) and cfg.n_embd % 128 == 0
             and capacity % 8 == 0)
 
 
@@ -431,8 +431,19 @@ def gpt2_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
 # The kernels: arguments, launcher, CUDA graph of a decode loop.
 
 
-class MegaArgs(ctypes.Structure):
-    """Mirror of `struct MegaArgs` in csrc/gpt2_megastep.cu (same order)."""
+def tier_fields(scales) -> list:
+    """The weight-tier fields that end every chain's args struct: the tier
+    (0 = model dtype, 8 = int8, 4 = grouped int4), the int4 group, then one
+    pointer a name (code rows or scales; null for the fp tier)."""
+    return ([("w_kind", ctypes.c_int), ("w_group", ctypes.c_int)]
+            + [(n, ctypes.c_void_p) for n in scales])
+
+
+class MegaStepArgs(ctypes.Structure):
+    """Mirror of `struct MegaArgs` in csrc/gpt2_megastep.cu (same order): the
+    fields the batched and verify structs repeat after their leading rows /
+    batch, ending with the weight tier: the LM head's code rows (`head`;
+    null: wte is the head) and each weight's scales."""
 
     _fields_ = [
         ("dtype", ctypes.c_int),
@@ -470,25 +481,7 @@ class MegaArgs(ctypes.Structure):
         ("ffn", ctypes.c_void_p),
         ("lm_val", ctypes.c_void_p),
         ("lm_idx", ctypes.c_void_p),
-    ]
-
-
-def tier_fields(scales) -> list:
-    """The weight-tier fields that end a single-stream step's args struct:
-    the tier (0 = model dtype, 8 = int8, 4 = grouped int4), the int4 group,
-    then one pointer a name (code rows or scales; null for the fp tier)."""
-    return ([("w_kind", ctypes.c_int), ("w_group", ctypes.c_int)]
-            + [(n, ctypes.c_void_p) for n in scales])
-
-
-class MegaStepArgs(ctypes.Structure):
-    """Mirror of `struct MegaArgs` in csrc/gpt2_megastep.cu: `MegaArgs` (the
-    fields the batched and verify structs repeat) and the weight tier: the
-    LM head's code rows (`head`; null: wte is the head) and each weight's
-    scales."""
-
-    _fields_ = MegaArgs._fields_ + tier_fields(
-        ("head", "attn_s", "proj_s", "fc_s", "fcp_s", "head_s"))
+    ] + tier_fields(("head", "attn_s", "proj_s", "fc_s", "fcp_s", "head_s"))
 
 
 _lib = None
@@ -540,12 +533,17 @@ def set_tier(args, packed: dict, weights, kind: str, group: int) -> None:
 
 
 class TierCount:
-    """The launch count of one weight tier of a single-stream step wrapper
+    """The launch count of one weight tier of a kernel wrapper
     (`<wrapper>.tiers[kind].launches`): the tiers share the wrapper and are
     counted apart from its full-precision launches."""
 
     def __init__(self):
         self.launches = 0
+
+
+def tier_counts() -> dict:
+    """A wrapper's `tiers`: one `TierCount` a quantized tier."""
+    return {"int8": TierCount(), "int4": TierCount()}
 
 
 def launch_counter(wrapper, packed: dict):
@@ -609,7 +607,6 @@ class StepLauncher:
     args_type = MegaStepArgs
     batched = False
     max_rows = 1
-    weight_tiers = tuple(WEIGHT_CODE)  # the verify and batched launchers: ("fp",)
     launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
 
     def layout(self, k, rows: Optional[int]) -> tuple:
@@ -628,9 +625,6 @@ class StepLauncher:
         E, L, C = cfg.n_embd, cfg.n_layer, k.shape[-2]
         dtype = packed["wte"].dtype
         wkind = weight_kind(packed)
-        if wkind not in self.weight_tiers:
-            raise NotImplementedError(f"{type(self).__name__}: {wkind} weights: "
-                                      f"{WEIGHT_TODO}")
         dev = k.device
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
@@ -739,7 +733,7 @@ def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
 
 
 gpt2_megastep.launches = 0
-gpt2_megastep.tiers = {"int8": TierCount(), "int4": TierCount()}
+gpt2_megastep.tiers = tier_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -809,9 +803,9 @@ def gpt2_megaverify_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
 
 class GPT2VerifyArgs(ctypes.Structure):
     """Mirror of `struct Gpt2VerifyArgs` in csrc/megaverify.cu: R, then
-    MegaArgs."""
+    `MegaStepArgs`."""
 
-    _fields_ = [("rows", ctypes.c_int)] + MegaArgs._fields_
+    _fields_ = [("rows", ctypes.c_int)] + MegaStepArgs._fields_
 
 
 _verify_lib = None
@@ -835,10 +829,7 @@ def verify_kernels() -> ctypes.CDLL:
 
 class VerifyLayout:
     """The verify launchers' layout: [L, C, W] panes of one sequence, R
-    token rows, one length, R first in the args struct; fp panes and
-    full-precision weights only."""
-
-    weight_tiers = ("fp",)
+    token rows, one length, R first in the args struct; fp panes."""
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         if k.dim() != 3:
@@ -869,7 +860,7 @@ def launch_verify(launcher, counter, packed, cfg, k, v, length, x):
           else {"tok_in": x.to(torch.int32).contiguous()})
     launcher(packed, cfg, k, v, _length_tensor(length, k.device), tok, rows=R,
              **kw).launch()
-    counter.launches += 1
+    launch_counter(counter, packed).launches += 1
     return tok
 
 
@@ -884,10 +875,11 @@ def gpt2_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     written to row length + t of every layer (in place; none at or past
     capacity) and it attends the cache rows < length plus the verify rows
     j <= t; tokens[t] is its greedy argmax. k, v: [L, C, E] panes in the
-    model dtype; length: int or int32 tensor. On a CUDA tensor it launches
-    the chain of `csrc/megaverify.cu` and counts one launch in
-    `gpt2_megaverify.launches`; on a CPU tensor it runs
-    `gpt2_megaverify_plain`.
+    model dtype; length: int or int32 tensor; packed: of full-precision or
+    quantized weights. On a CUDA tensor it launches the chain of
+    `csrc/megaverify.cu` and counts one launch in `gpt2_megaverify.launches`
+    (full-precision weights) or `gpt2_megaverify.tiers["int8" |
+    "int4"].launches`; on a CPU tensor it runs `gpt2_megaverify_plain`.
     """
     if k.device.type == "cpu":
         return gpt2_megaverify_plain(packed, k, v, length, x, cfg=cfg)
@@ -896,6 +888,7 @@ def gpt2_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
 
 
 gpt2_megaverify.launches = 0
+gpt2_megaverify.tiers = tier_counts()
 
 
 class MegaDecodeGraph:

@@ -3,7 +3,8 @@
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py
 (`to_mega_layout_batch`, `from_mega_layout_batch`, `mega_batch_supported`,
 `llama_mega_batch_supported`, `gpt2_megabatch`, `llama_megabatch`;
-full-precision weights). The TPU program streams the weights once per step
+full-precision weights and the int8 / grouped-int4 weight tiers of
+ops/megakernel.py's packing). The TPU program streams the weights once per step
 for all B slots; on the H100 the step is the single-stream chain of
 ops/megakernel.py / ops/megakernel_llama.py with a slot dimension,
 `csrc/megabatch.cu`: every weight row is read once and applied to the B
@@ -60,10 +61,9 @@ def mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
     128, capacity <= 8192, batch <= MAX_BATCH. The JAX package's VMEM
     budget (`_pick_tps_batch`) is a TPU limit and is not carried over: the
     GEMVs stage their inputs in K-chunks that fit shared memory at any
-    width. Full-precision weights only: the weight tiers of the batched
-    kernels are ROADMAP.md Queue 1 item 14."""
-    return (mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
-            and not mk.weight_quantized(params))
+    width. The weight gates are the single-stream step's (`mk._weights_ok`:
+    JAX's, and the kernels' G % 32 for int4)."""
+    return mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
 
 
 def llama_mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
@@ -73,9 +73,9 @@ def llama_mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> 
     `_tile_geometry`) and the kernels' limits (`megakernel_llama.
     mega_supported`, batch <= MAX_BATCH). The TPU memory envelopes (the VMEM
     budget `_llama_pick_tps_batch`, the 4 GiB stream cap, the 2048-tile DMA
-    gate) are not carried over. Full-precision weights only."""
-    return (ml.mega_supported(cfg, capacity, params) and _batch_ok(batch)
-            and not mk.weight_quantized(params))
+    gate) are not carried over. The weight gates are the single-stream
+    step's (`ml._weights_ok`)."""
+    return ml.mega_supported(cfg, capacity, params) and _batch_ok(batch)
 
 
 # ---------------------------------------------------------------------------
@@ -122,16 +122,16 @@ def llama_megabatch_plain(packed: dict, k: torch.Tensor, v: torch.Tensor, length
 
 class GPT2BatchArgs(ctypes.Structure):
     """Mirror of `struct Gpt2BatchArgs` in csrc/megabatch.cu: B, then
-    ops/megakernel.py's MegaArgs."""
+    ops/megakernel.py's `MegaStepArgs`."""
 
-    _fields_ = [("batch", ctypes.c_int)] + mk.MegaArgs._fields_
+    _fields_ = [("batch", ctypes.c_int)] + mk.MegaStepArgs._fields_
 
 
 class LlamaBatchArgs(ctypes.Structure):
     """Mirror of `struct LlamaBatchArgs` in csrc/megabatch.cu: B, then
-    ops/megakernel_llama.py's LlamaArgs."""
+    ops/megakernel_llama.py's `LlamaStepArgs`."""
 
-    _fields_ = [("batch", ctypes.c_int)] + ml.LlamaArgs._fields_
+    _fields_ = [("batch", ctypes.c_int)] + ml.LlamaStepArgs._fields_
 
 
 _lib = None
@@ -157,7 +157,6 @@ class GPT2BatchLauncher(mk.StepLauncher):
 
     entry = {False: "elit_gpt2_megabatch", True: "elit_gpt2_megabatch_quant"}
     args_type = GPT2BatchArgs
-    weight_tiers = ("fp",)
     batched = True
     max_rows = MAX_BATCH
 
@@ -170,7 +169,6 @@ class LlamaBatchLauncher(ml.LlamaStepLauncher):
 
     entry = {False: "elit_llama_megabatch", True: "elit_llama_megabatch_quant"}
     args_type = LlamaBatchArgs
-    weight_tiers = ("fp",)
     batched = True
     max_rows = MAX_BATCH
 
@@ -183,7 +181,7 @@ def launch_batch(launcher, counter, packed, cfg, k, v, lengths, x_emb, **kw):
     tok = torch.empty(k.shape[1], dtype=torch.int32, device=k.device)
     launcher(packed, cfg, k, v, mk._length_tensor(lengths, k.device), tok,
              x_emb=x_emb.contiguous(), **kw).launch()
-    counter.launches += 1
+    mk.launch_counter(counter, packed).launches += 1
     return tok
 
 
@@ -192,13 +190,14 @@ def gpt2_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
     """One decode step of B independent GPT-2 streams (greedy). Returns
     (tokens int32 [B], k, v).
 
-    packed: ops.megakernel.pack_gpt2_mega(params, cfg); k, v: [L, B, C, E]
-    panes in the model dtype, slot b's row lengths[b] written in place;
-    lengths: int32 [B] (tensor or ints); x_emb: [B, E] token + position
-    embeddings in the model dtype. On a CUDA tensor it launches the GPT-2
-    chain of `csrc/megabatch.cu` and counts one launch in
-    `gpt2_megabatch.launches`; on a CPU tensor it runs
-    `gpt2_megabatch_plain`.
+    packed: ops.megakernel.pack_gpt2_mega(params, cfg), of full-precision
+    or quantized weights; k, v: [L, B, C, E] panes in the model dtype, slot
+    b's row lengths[b] written in place; lengths: int32 [B] (tensor or
+    ints); x_emb: [B, E] token + position embeddings in the model dtype. On
+    a CUDA tensor it launches the GPT-2 chain of `csrc/megabatch.cu` and
+    counts one launch in `gpt2_megabatch.launches` (full-precision weights)
+    or `gpt2_megabatch.tiers["int8" | "int4"].launches`; on a CPU tensor it
+    runs `gpt2_megabatch_plain`.
     """
     if k.device.type == "cpu":
         return gpt2_megabatch_plain(packed, k, v, lengths, x_emb, cfg=cfg)
@@ -207,6 +206,7 @@ def gpt2_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
 
 
 gpt2_megabatch.launches = 0
+gpt2_megabatch.tiers = mk.tier_counts()
 
 
 def llama_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
@@ -218,7 +218,8 @@ def llama_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
     [L, B, C, KW] panes; x_emb: [B, E] token embeddings; slot b's RoPE row is
     min(lengths[b], P - 1) of the packed tables. On a CUDA tensor it launches
     the Llama chain of `csrc/megabatch.cu` and counts one launch in
-    `llama_megabatch.launches`; on a CPU tensor it runs
+    `llama_megabatch.launches` or its weight tier's
+    `llama_megabatch.tiers[...]`; on a CPU tensor it runs
     `llama_megabatch_plain`.
     """
     if k.device.type == "cpu":
@@ -228,3 +229,4 @@ def llama_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
 
 
 llama_megabatch.launches = 0
+llama_megabatch.tiers = mk.tier_counts()

@@ -3,7 +3,7 @@
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel_batch_quant.py
 (`_quant_pane_tokens`, `quantize_panes_batch`, `mega_batch_quant_supported`,
 `llama_mega_batch_quant_supported`, `gpt2_megabatch_quant`,
-`llama_megabatch_quant`; full-precision weights): the batched chains of
+`llama_megabatch_quant`; every weight tier): the batched chains of
 ops/megakernel_batch.py over int8, half-split int4 or mixed (K int8, V int4)
 panes [L, B, C, W(/2)] with per-(slot, token) fp32 scales [L, B, C]. Per
 slot the step is the single-stream quantized step (ops/megakernel_quant.py):
@@ -63,10 +63,9 @@ def mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: int,
     package's structure (`megakernel_quant.mega_quant_supported`: uniform
     full-precision weights, E % 128, capacity % 8, (E/2) % 128 for an int4
     pane), batch >= 1, and the kernels' limits (batch <= MAX_BATCH). The
-    VMEM budget (`_pick_tps_batch_quant`) is not carried over. Full-precision
-    weights only."""
-    return (mq.mega_quant_supported(cfg, capacity, params, kv_mode) and _batch_ok(batch)
-            and not mk.weight_quantized(params))
+    VMEM budget (`_pick_tps_batch_quant`) is not carried over. The weight
+    gates are the single-stream step's."""
+    return mq.mega_quant_supported(cfg, capacity, params, kv_mode) and _batch_ok(batch)
 
 
 def llama_mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -74,10 +73,9 @@ def llama_mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: in
     """The batched quantized-pane Llama/Qwen step's eligibility: the
     single-stream one (`megakernel_quant.llama_mega_quant_supported`: the fp
     step's structure and 128-lane pane widths), batch >= 1, and
-    batch <= MAX_BATCH. The TPU memory envelopes are not carried over.
-    Full-precision weights only."""
+    batch <= MAX_BATCH. The TPU memory envelopes are not carried over."""
     return (mq.llama_mega_quant_supported(cfg, capacity, params, kv_mode)
-            and _batch_ok(batch) and not mk.weight_quantized(params))
+            and _batch_ok(batch))
 
 
 def gpt2_megabatch_quant_plain(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
@@ -123,7 +121,8 @@ def gpt2_megabatch_quant(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
     from `kv_mode`); ks, vs: fp32 [L, B, C]; slot b's row lengths[b] is
     quantized and written in place. On a CUDA tensor it launches the GPT-2
     chain of `csrc/megabatch.cu` and counts one launch in
-    `gpt2_megabatch_quant.launches`; on a CPU tensor it runs
+    `gpt2_megabatch_quant.launches` or its weight tier's
+    `gpt2_megabatch_quant.tiers[...]`; on a CPU tensor it runs
     `gpt2_megabatch_quant_plain`.
     """
     if k.device.type == "cpu":
@@ -135,6 +134,7 @@ def gpt2_megabatch_quant(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
 
 
 gpt2_megabatch_quant.launches = 0
+gpt2_megabatch_quant.tiers = mk.tier_counts()
 
 
 def llama_megabatch_quant(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
@@ -143,7 +143,8 @@ def llama_megabatch_quant(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
     panes ([L, B, C, KW(/2)], scales [L, B, C]). Returns (tokens int32 [B],
     k, v, ks, vs). On a CUDA tensor it launches the Llama chain of
     `csrc/megabatch.cu` and counts one launch in
-    `llama_megabatch_quant.launches`; on a CPU tensor it runs
+    `llama_megabatch_quant.launches` or its weight tier's
+    `llama_megabatch_quant.tiers[...]`; on a CPU tensor it runs
     `llama_megabatch_quant_plain`.
     """
     if k.device.type == "cpu":
@@ -155,3 +156,4 @@ def llama_megabatch_quant(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
 
 
 llama_megabatch_quant.launches = 0
+llama_megabatch_quant.tiers = mk.tier_counts()

@@ -5,12 +5,13 @@ Port of efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py
 `llama_mega_batch_verify_supported`, `llama_mega_batch_verify_quant_supported`,
 `gpt2_megabatch_verify`, `gpt2_megabatch_verify_quant`,
 `llama_megabatch_verify`, `llama_megabatch_verify_quant`; full-precision
-weights). The TPU program verifies every slot's R-row block on one weight
-pass; on the H100 the pass is the verify chain of ops/megakernel.py's
-`gpt2_megaverify` with the slot dimension of ops/megakernel_batch.py,
-`csrc/megabatch_verify.cu`: every weight row is read once for all B x R rows,
-a writer stores each slot's R new K/V rows at lengths[b] .. lengths[b] + R - 1
-before attention, and attention runs one block per (query head, row, slot).
+weights and the int8 / grouped-int4 weight tiers). The TPU program
+verifies every slot's R-row block on one weight pass; on the H100 the pass
+is the verify chain of ops/megakernel.py's `gpt2_megaverify` with the slot
+dimension of ops/megakernel_batch.py, `csrc/megabatch_verify.cu`: every
+weight row is read once for all B x R rows, a writer stores each slot's R
+new K/V rows at lengths[b] .. lengths[b] + R - 1 before attention, and
+attention runs one block per (query head, row, slot).
 The continuous-batching server's speculative chunks
 (engine/megaserver.py) launch it once a round.
 
@@ -51,12 +52,11 @@ from .megakernel_batch_quant import _quant_kw
 MAX_ROWS = 256
 
 
-def _rows_ok(capacity: int, batch: int, rows: int, params: dict) -> bool:
+def _rows_ok(capacity: int, batch: int, rows: int) -> bool:
     """The JAX structure (1 <= R <= 8, capacity % 8 == 0, capacity >= 16,
-    batch >= 1) and the kernel's B x R <= MAX_ROWS, over full-precision
-    weights (the weight tiers are ROADMAP.md Queue 1 item 14)."""
-    return (not mk.weight_quantized(params) and 1 <= rows <= mk.MAX_VERIFY_ROWS
-            and capacity >= 16 and capacity % 8 == 0
+    batch >= 1) and the kernel's B x R <= MAX_ROWS (the weight gates are
+    the single-stream step's, `mk._weights_ok` / `ml._weights_ok`)."""
+    return (1 <= rows <= mk.MAX_VERIFY_ROWS and capacity >= 16 and capacity % 8 == 0
             and batch >= 1 and batch * rows <= MAX_ROWS)
 
 
@@ -67,7 +67,7 @@ def mega_batch_verify_supported(cfg, capacity: int, params: dict, batch: int,
     1 <= rows <= 8, batch >= 1), the step kernels' limits (head_dim 64 or
     128, capacity <= 8192) and B x R <= MAX_ROWS. The VMEM envelope
     (`_pick_tps_batch_verify`) is a TPU limit and is not carried over."""
-    return mk.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows, params)
+    return mk.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows)
 
 
 def mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -75,7 +75,7 @@ def mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, batch: i
     """As `mega_batch_verify_supported` over quantized panes: (E/2) % 128
     for an int4 pane, as in the JAX package (`mq.mega_quant_supported`)."""
     return (mq.mega_quant_supported(cfg, capacity, params, kv_mode)
-            and _rows_ok(capacity, batch, rows, params))
+            and _rows_ok(capacity, batch, rows))
 
 
 def llama_mega_batch_verify_supported(cfg, capacity: int, params: dict, batch: int,
@@ -84,7 +84,7 @@ def llama_mega_batch_verify_supported(cfg, capacity: int, params: dict, batch: i
     structure (`megakernel_llama.mega_supported`), 1 <= rows <= 8,
     capacity >= 16 and B x R <= MAX_ROWS. The TPU envelopes
     (`_llama_pick_tps_verify`) are not carried over."""
-    return ml.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows, params)
+    return ml.mega_supported(cfg, capacity, params) and _rows_ok(capacity, batch, rows)
 
 
 def llama_mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -92,7 +92,7 @@ def llama_mega_batch_verify_quant_supported(cfg, capacity: int, params: dict, ba
     """As `llama_mega_batch_verify_supported` over quantized panes whose
     widths are multiples of 128 lanes (`mq.llama_mega_quant_supported`)."""
     return (mq.llama_mega_quant_supported(cfg, capacity, params, kv_mode)
-            and _rows_ok(capacity, batch, rows, params))
+            and _rows_ok(capacity, batch, rows))
 
 
 # ---------------------------------------------------------------------------
@@ -203,16 +203,16 @@ def llama_megabatch_verify_quant_plain(packed: dict, k, v, ks, vs, lengths, x, *
 
 class GPT2BatchVerifyArgs(ctypes.Structure):
     """Mirror of `struct Gpt2BatchVerifyArgs` in csrc/megabatch_verify.cu: B,
-    R, then ops/megakernel.py's MegaArgs."""
+    R, then ops/megakernel.py's `MegaStepArgs`."""
 
-    _fields_ = [("batch", ctypes.c_int), ("rows", ctypes.c_int)] + mk.MegaArgs._fields_
+    _fields_ = [("batch", ctypes.c_int), ("rows", ctypes.c_int)] + mk.MegaStepArgs._fields_
 
 
 class LlamaBatchVerifyArgs(ctypes.Structure):
     """Mirror of `struct LlamaBatchVerifyArgs` in csrc/megabatch_verify.cu:
-    B, R, then ops/megakernel_llama.py's LlamaArgs."""
+    B, R, then ops/megakernel_llama.py's `LlamaStepArgs`."""
 
-    _fields_ = [("batch", ctypes.c_int), ("rows", ctypes.c_int)] + ml.LlamaArgs._fields_
+    _fields_ = [("batch", ctypes.c_int), ("rows", ctypes.c_int)] + ml.LlamaStepArgs._fields_
 
 
 _lib = None
@@ -234,10 +234,7 @@ def kernels() -> ctypes.CDLL:
 
 class BatchVerifyLayout:
     """The batched verify launchers' layout: [L, B, C, W] panes, R rows a
-    slot (B x R token rows), B lengths, (B, R) first in the args struct;
-    full-precision weights only."""
-
-    weight_tiers = ("fp",)
+    slot (B x R token rows), B lengths, (B, R) first in the args struct."""
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         if k.dim() != 4:
@@ -280,7 +277,7 @@ def launch_batch_verify(launcher, counter, packed, cfg, k, v, lengths, x, **kw):
             else {"tok_in": x.to(torch.int32).contiguous()})
     launcher(packed, cfg, k, v, mk._length_tensor(lengths, k.device), tok, rows=R,
              **rows, **kw).launch()
-    counter.launches += 1
+    mk.launch_counter(counter, packed).launches += 1
     return tok.reshape(B, R)
 
 
@@ -294,10 +291,12 @@ def gpt2_megabatch_verify(packed: dict, k, v, lengths, x, *, cfg):
     P - 1)]) in the model dtype, or [B x R] token ids embedded on the
     device. Slot b's row t is written to column lengths[b] + t of its panes
     (in place) and attends its columns < lengths[b] plus its rows j <= t;
-    tokens[b, t] is its greedy argmax. On a CUDA tensor it launches the
-    GPT-2 chain of `csrc/megabatch_verify.cu` and counts one launch in
-    `gpt2_megabatch_verify.launches`; on a CPU tensor it runs
-    `gpt2_megabatch_verify_plain`.
+    tokens[b, t] is its greedy argmax. packed: of full-precision or
+    quantized weights. On a CUDA tensor it launches the GPT-2 chain of
+    `csrc/megabatch_verify.cu` and counts one launch in
+    `gpt2_megabatch_verify.launches` (full-precision weights) or
+    `gpt2_megabatch_verify.tiers["int8" | "int4"].launches`; on a CPU tensor
+    it runs `gpt2_megabatch_verify_plain`.
     """
     if k.device.type == "cpu":
         return gpt2_megabatch_verify_plain(packed, k, v, lengths, x, cfg=cfg)
@@ -306,6 +305,7 @@ def gpt2_megabatch_verify(packed: dict, k, v, lengths, x, *, cfg):
 
 
 gpt2_megabatch_verify.launches = 0
+gpt2_megabatch_verify.tiers = mk.tier_counts()
 
 
 def gpt2_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
@@ -316,7 +316,8 @@ def gpt2_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
     in-block rows j < t read back through their codes, row t's own at full
     precision. Returns (tokens int32 [B, R], k, v, ks, vs). On a CUDA tensor
     it launches `csrc/megabatch_verify.cu` and counts one launch in
-    `gpt2_megabatch_verify_quant.launches`; on a CPU tensor it runs
+    `gpt2_megabatch_verify_quant.launches` or its weight tier's
+    `gpt2_megabatch_verify_quant.tiers[...]`; on a CPU tensor it runs
     `gpt2_megabatch_verify_quant_plain`.
     """
     if k.device.type == "cpu":
@@ -328,6 +329,7 @@ def gpt2_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
 
 
 gpt2_megabatch_verify_quant.launches = 0
+gpt2_megabatch_verify_quant.tiers = mk.tier_counts()
 
 
 def llama_megabatch_verify(packed: dict, k, v, lengths, x, *, cfg):
@@ -339,7 +341,8 @@ def llama_megabatch_verify(packed: dict, k, v, lengths, x, *, cfg):
     from the packed RoPE tables (the JAX kernel takes the same rows as
     cos_q/sin_q inputs). k, v: [L, B, C, KW] panes. On a CUDA tensor it
     launches the Llama chain of `csrc/megabatch_verify.cu` and counts one
-    launch in `llama_megabatch_verify.launches`; on a CPU tensor it runs
+    launch in `llama_megabatch_verify.launches` or its weight tier's
+    `llama_megabatch_verify.tiers[...]`; on a CPU tensor it runs
     `llama_megabatch_verify_plain`.
     """
     if k.device.type == "cpu":
@@ -349,6 +352,7 @@ def llama_megabatch_verify(packed: dict, k, v, lengths, x, *, cfg):
 
 
 llama_megabatch_verify.launches = 0
+llama_megabatch_verify.tiers = mk.tier_counts()
 
 
 def llama_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
@@ -357,7 +361,8 @@ def llama_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
     scales [L, B, C]), as `gpt2_megabatch_verify_quant`. Returns (tokens
     int32 [B, R], k, v, ks, vs). On a CUDA tensor it launches
     `csrc/megabatch_verify.cu` and counts one launch in
-    `llama_megabatch_verify_quant.launches`; on a CPU tensor it runs
+    `llama_megabatch_verify_quant.launches` or its weight tier's
+    `llama_megabatch_verify_quant.tiers[...]`; on a CPU tensor it runs
     `llama_megabatch_verify_quant_plain`.
     """
     if k.device.type == "cpu":
@@ -369,3 +374,4 @@ def llama_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
 
 
 llama_megabatch_verify_quant.launches = 0
+llama_megabatch_verify_quant.tiers = mk.tier_counts()

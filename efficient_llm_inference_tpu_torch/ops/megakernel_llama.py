@@ -61,14 +61,12 @@ import torch
 
 from ..models.llama import WEIGHT_NAMES, _rms_norm, apply_rope, rope_cos_sin
 from . import _build
-from . import megakernel as mk
 from .megakernel import (
     _DTYPE_CODE,
     HEAD_DIMS,
     KIND_CODE,
     MAX_CAPACITY,
     StepLauncher,
-    TierCount,
     VerifyLayout,
     Workspace,
     _check,
@@ -83,6 +81,7 @@ from .megakernel import (
     lm_rows,
     pack_rows,
     set_tier,
+    tier_counts,
     tier_fields,
     verify_plain,
     verify_rows_check,
@@ -154,11 +153,10 @@ def _geometry_ok(cfg, capacity: int) -> bool:
 
 
 def jax_structure_ok(cfg, capacity: int, params: dict) -> bool:
-    """The JAX package's eligibility for full-precision weights without its
-    TPU memory envelopes: what decides the JAX engine's routes for a small
+    """The JAX package's eligibility without its TPU memory envelopes (its
+    weight gates and structure): what decides the JAX engine's routes for a
     speculative draft."""
-    return (_full_precision_dtype(params, cfg) is not None
-            and _jax_geometry_ok(cfg, capacity))
+    return _weights_ok(cfg, params, kernels=False) and _jax_geometry_ok(cfg, capacity)
 
 
 def _weight_mode(b: dict) -> Optional[str]:
@@ -167,13 +165,13 @@ def _weight_mode(b: dict) -> Optional[str]:
     return weight_mode(b, WEIGHT_NAMES)
 
 
-def _weights_ok(cfg, params: dict) -> bool:
+def _weights_ok(cfg, params: dict, kernels: bool = True) -> bool:
     """The JAX package's weight gates: uniform weights (full precision with
     an lm_head when untied, int8 with `lm_q`, or grouped int4 with `lm_q4`
     at one group G with TR % G == 0, (TR/2) % G == 0, TR % 16 == 0 and
-    (Ip - I) % G == 0, the copied `_tile_geometry`), and the kernels' own:
-    G % 32 == 0 (int4), and E, QW and I multiples of 16 (int8: 16 codes a
-    load)."""
+    (Ip - I) % G == 0, the copied `_tile_geometry`), and, with `kernels`,
+    the kernels' own: G % 32 == 0 (int4), and E, QW and I multiples of 16
+    (int8: 16 codes a load)."""
     b = params.get("blocks", {})
     mode = _weight_mode(b)
     embed = params.get("embed")
@@ -182,7 +180,8 @@ def _weights_ok(cfg, params: dict) -> bool:
     if not _tier_ok(params, mode, dtype):
         return False
     QW = cfg.n_head * cfg.head_dim
-    if mode == "int8" and any(d % 16 for d in (cfg.hidden_size, QW, cfg.intermediate_size)):
+    if (kernels and mode == "int8"
+            and any(d % 16 for d in (cfg.hidden_size, QW, cfg.intermediate_size))):
         return False
     if mode == "int4":
         gs = {_q4_group(b[n]) for n in WEIGHT_NAMES} | {_q4_group({"q4": params["lm_q4"]})}
@@ -191,7 +190,7 @@ def _weights_ok(cfg, params: dict) -> bool:
         G = gs.pop()
         TR, _, Ip = _tile_geometry(cfg)
         if (TR % G or (TR // 2) % G or TR % 16 or (Ip - cfg.intermediate_size) % G
-                or not _int4_group_ok(G)):
+                or (kernels and not _int4_group_ok(G))):
             return False
     return True
 
@@ -327,8 +326,11 @@ def llama_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
 # The kernels: arguments and launcher (the CUDA graph is ops/megakernel.py's).
 
 
-class LlamaArgs(ctypes.Structure):
-    """Mirror of `struct LlamaArgs` in csrc/llama_megastep.cu (same order)."""
+class LlamaStepArgs(ctypes.Structure):
+    """Mirror of `struct LlamaArgs` in csrc/llama_megastep.cu (same order):
+    the fields the batched and verify structs repeat after their leading
+    rows / batch, ending with the weight tier (ops/megakernel.py
+    `tier_fields`): each weight's scales."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "dtype", "n_layer", "n_embd", "n_head", "n_kv_head", "head_dim",
@@ -338,16 +340,8 @@ class LlamaArgs(ctypes.Structure):
     ] + [(n, ctypes.c_void_p) for n in (
         "qkv_w", "o_w", "gu_w", "down_w", "embed", "head", "norms", "lnf",
         "qkvb", "cos", "sin", "k", "v", "ks", "vs", "length", "tok_in",
-        "x_emb", "tok_out", "x", "qkv", "attn", "ffn", "lm_val", "lm_idx")]
-
-
-class LlamaStepArgs(ctypes.Structure):
-    """Mirror of `struct LlamaArgs` in csrc/llama_megastep.cu: `LlamaArgs`
-    (the fields the batched and verify structs repeat) and the weight tier
-    (ops/megakernel.py `tier_fields`): each weight's scales."""
-
-    _fields_ = LlamaArgs._fields_ + tier_fields(("qkv_s", "o_s", "gu_s", "down_s",
-                                                 "head_s"))
+        "x_emb", "tok_out", "x", "qkv", "attn", "ffn", "lm_val", "lm_idx")] + tier_fields(
+        ("qkv_s", "o_s", "gu_s", "down_s", "head_s"))
 
 
 _lib = None
@@ -366,8 +360,8 @@ def kernels() -> ctypes.CDLL:
 
 class LlamaStepLauncher(StepLauncher):
     """The prepared arguments of one configuration's Llama step (the
-    LlamaArgs of csrc/llama_megastep.cu); `set_tokens` and `launch` are
-    ops.megakernel.StepLauncher's."""
+    LlamaArgs of csrc/llama_megastep.cu, `LlamaStepArgs`); `set_tokens` and
+    `launch` are ops.megakernel.StepLauncher's."""
 
     entry = {False: "elit_llama_megastep", True: "elit_llama_megastep_quant"}
     args_type = LlamaStepArgs
@@ -383,9 +377,6 @@ class LlamaStepLauncher(StepLauncher):
         QW, KW = cfg.n_head * D, cfg.n_kv_head * D
         dtype = packed["embed"].dtype
         wkind = weight_kind(packed)
-        if wkind not in self.weight_tiers:
-            raise NotImplementedError(f"{type(self).__name__}: {wkind} weights: "
-                                      f"{mk.WEIGHT_TODO}")
         dev = k.device
         if dev.type != "cuda":
             raise ValueError(f"no kernel for device {dev}")
@@ -470,7 +461,7 @@ def llama_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
 
 
 llama_megastep.launches = 0
-llama_megastep.tiers = {"int8": TierCount(), "int4": TierCount()}
+llama_megastep.tiers = tier_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -498,9 +489,9 @@ def llama_megaverify_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
 
 class LlamaVerifyArgs(ctypes.Structure):
     """Mirror of `struct LlamaVerifyArgs` in csrc/megaverify.cu: R, then
-    LlamaArgs."""
+    `LlamaStepArgs`."""
 
-    _fields_ = [("rows", ctypes.c_int)] + LlamaArgs._fields_
+    _fields_ = [("rows", ctypes.c_int)] + LlamaStepArgs._fields_
 
 
 class LlamaVerifyLauncher(VerifyLayout, LlamaStepLauncher):
@@ -520,7 +511,8 @@ def llama_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     min(length + t, P - 1) from the packed RoPE tables (the JAX kernel takes
     the same rows as cos_q/sin_q inputs). k, v: [L, C, KW] panes. On a CUDA
     tensor it launches the chain of `csrc/megaverify.cu` and counts one
-    launch in `llama_megaverify.launches`; on a CPU tensor it runs
+    launch in `llama_megaverify.launches` or its weight tier's
+    `llama_megaverify.tiers[...]`; on a CPU tensor it runs
     `llama_megaverify_plain`.
     """
     if k.device.type == "cpu":
@@ -530,3 +522,4 @@ def llama_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
 
 
 llama_megaverify.launches = 0
+llama_megaverify.tiers = tier_counts()

@@ -38,11 +38,11 @@ from . import megakernel_llama as ml
 from .megakernel import (
     NEG_INF,
     StepLauncher,
-    TierCount,
     _length_tensor,
     launch_counter,
     mega_supported,
     plain_step,
+    tier_counts,
 )
 from .quantization import unpack_int4
 from .quantize import quantize_int8_rows_plain, scale_rows
@@ -209,7 +209,7 @@ def gpt2_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
 
 
 gpt2_megastep_quant.launches = 0
-gpt2_megastep_quant.tiers = {"int8": TierCount(), "int4": TierCount()}
+gpt2_megastep_quant.tiers = tier_counts()
 
 
 def llama_mega_quant_supported(cfg, capacity: int, params: dict, kv_mode: str) -> bool:
@@ -271,4 +271,4 @@ def llama_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
 
 
 llama_megastep_quant.launches = 0
-llama_megastep_quant.tiers = {"int8": TierCount(), "int4": TierCount()}
+llama_megastep_quant.tiers = tier_counts()

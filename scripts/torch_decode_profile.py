@@ -2,7 +2,7 @@
 """Where the time of the PyTorch/CUDA port's main path goes on one GPU.
 
     python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...]
-        [--weight-quant int8|int4|int4w8 | --batch B | --spec | --server [--spec]]
+        [--weight-quant int8|int4|int4w8] [--batch B | --spec | --server [--spec]]
 
 A model of the registry at full width (GPT-2 small by default; random
 weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
@@ -26,10 +26,11 @@ prints one JSON line with:
   (the prefill and the host around it);
 - kernels_per_generation, and the six kernels with the most device time.
 
-With `--weight-quant` the single-stream profile runs on weights quantized
-by `Config(weight_quant=...)`, megakernel on only (the chains' weight
-tiers): off, every eager decode step widens all the codes to fp32 (a
-Llama-3.2-1B int4 run of the off path took most of a 1200 s call).
+With `--weight-quant` the profile runs on weights quantized by
+`Config(weight_quant=...)` (the chains' weight tiers), the single stream
+with the megakernel on only: off, every eager decode step widens all the
+codes to fp32 (a Llama-3.2-1B int4 run of the off path took most of a
+1200 s call). It combines with `--batch`, `--spec` and `--server`.
 
 With `--batch B` it profiles static-batch serving instead:
 `generate_batch` of B prompts (256 tokens each, one per seed) with 64 new
@@ -120,9 +121,14 @@ def profiled(fn):
     return kernel_ms, len(device), by_name
 
 
-def profile_batch(model: str, batch: int) -> None:
+def _engine(model: str, wq):
+    return InferenceEngine.from_model_name(model, config=Config(model_name=model,
+                                                                weight_quant=wq))
+
+
+def profile_batch(model: str, batch: int, wq=None) -> None:
     texts = [prompt(seed) for seed in range(batch)]
-    eng = InferenceEngine.from_model_name(model)
+    eng = _engine(model, wq)
     for kv_mode in (None, "int8", "int4", "mixed"):
         run_batch(eng, texts, kv_mode)  # build, load, capture, warm
         walls = [run_batch(eng, texts, kv_mode) for _ in range(5)]
@@ -133,20 +139,20 @@ def profile_batch(model: str, batch: int) -> None:
         wall = statistics.median(walls)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         print(json.dumps({
-            "model": model, "batch": batch, "kv_mode": kv_mode,
+            "model": model, "weight_quant": wq, "batch": batch, "kv_mode": kv_mode,
             "wall_ms": wall, "wall_ms_runs": walls,
             "tokens_per_s": batch * NEW_TOKENS / wall * 1e3,
             "step_ms": (wall - wall_1) / (NEW_TOKENS - 1),
             "kernel_ms": kernel_ms,
             "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
             "kernels_per_generation": count,
-            "top": [{"name": n[:160], "count": c, "ms": ms} for n, (c, ms) in top],
+            "top": [{"name": n[:200], "count": c, "ms": ms} for n, (c, ms) in top],
         }), flush=True)
 
 
-def profile_spec(model: str) -> None:
+def profile_spec(model: str, wq=None) -> None:
     text = prompt()
-    eng = InferenceEngine.from_model_name(model)
+    eng = _engine(model, wq)
     for n in (NEW_TOKENS, 1):
         eng.generate_ids(text, "full_cache", n)  # build, load, capture, warm
     full = statistics.median(wall_ms(eng, text, "full_cache") for _ in range(5))
@@ -165,7 +171,7 @@ def profile_spec(model: str) -> None:
         wall = statistics.median(walls)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
         print(json.dumps({
-            "model": model, "mode": mode, "k": k,
+            "model": model, "weight_quant": wq, "mode": mode, "k": k,
             "wall_ms": wall, "wall_ms_runs": walls,
             "tokens_per_s": NEW_TOKENS / wall * 1e3,
             "full_cache_wall_ms": full,
@@ -192,10 +198,10 @@ def server_prompts(tokenizer, n: int) -> list:
         rng.choice(SERVER_WORDS, max(3, 8 + int(rng.integers(-2, 3)))))) for i in range(n)]
 
 
-def profile_server(model: str, spec: bool) -> None:
+def profile_server(model: str, spec: bool, wq=None) -> None:
     from efficient_llm_inference_tpu_torch import MegaBatchServer, MegaPoolConfig, Request
 
-    eng = InferenceEngine.from_model_name(model)
+    eng = _engine(model, wq)
     slots = 8 if model.startswith("llama") else 16
     prompts = server_prompts(eng.tokenizer, 2 * slots)
     for kv_mode in (None, "int8"):
@@ -223,7 +229,8 @@ def profile_server(model: str, spec: bool) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
         stats = srv.spec_stats
         print(json.dumps({
-            "model": model, "slots": slots, "requests": len(prompts), "kv_mode": kv_mode,
+            "model": model, "weight_quant": wq, "slots": slots, "requests": len(prompts),
+            "kv_mode": kv_mode,
             "spec": "ngram" if spec else None,
             "wall_ms": wall, "wall_ms_runs": walls,
             "tokens_per_s": len(prompts) * NEW_TOKENS / wall * 1e3,
@@ -248,7 +255,7 @@ def main() -> int:
     parser.add_argument("--server", action="store_true",
                         help="profile MegaBatchServer.run on the server protocol")
     parser.add_argument("--weight-quant", choices=("int8", "int4", "int4w8"),
-                        help="single stream over weights quantized by Config.weight_quant")
+                        help="weights quantized by Config.weight_quant (any profile)")
     args = parser.parse_args()
     model = args.model
     if not torch.cuda.is_available():
@@ -258,18 +265,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    wq = args.weight_quant
     if args.server:
-        profile_server(model, args.spec)
+        profile_server(model, args.spec, wq)
         return 0
     if args.batch:
-        profile_batch(model, args.batch)
+        profile_batch(model, args.batch, wq)
         return 0
     if args.spec:
-        profile_spec(model)
+        profile_spec(model, wq)
         return 0
     text = prompt()
     t0 = time.perf_counter()
-    wq = args.weight_quant
     base = InferenceEngine.from_model_name(
         model, config=Config(model_name=model, megakernel=False, weight_quant=wq))
     print(json.dumps({"model": model, "weight_quant": wq,

@@ -20,7 +20,11 @@ chip_smoke.py's tolerances (a token within 2e-2 of the plain maximum logit,
 fp rows within 1.6e-2 of their largest value, quantized rows within two
 steps). The batched verify kernels (#18-#21) likewise per slot and row, B in
 {1, 3, 16} x R in {2, 5, 8}, and the continuous-batching server on the card
-against the same server on the CPU, with its launch counts.
+against the same server on the CPU, with its launch counts. The weight tiers
+(int8, grouped int4, int4w8) of every chain: the single-stream steps, the
+verifies (#10, #13 at R = 8), the batched steps (B = 9) and the batched
+verifies (3 x 5 rows), each against its plain version with the same
+checks, each launch counted in its wrapper's tier.
 """
 
 import dataclasses
@@ -412,13 +416,18 @@ def test_engine_llama_megakernel_graph_matches_plain_steps(cuda, method):
 BATCH_LENGTHS = [0, 37, 127, 5, 64, 126, 1, 100]  # C = 128: no visible row, the last column
 
 
-def _batch_case(family, mode, dtype, B, device):
+def _batch_case(family, mode, dtype, B, device, wq=None):
     """(packed, cfg, panes and scales [L, B, C, W], x [B, E]) of a model of
     `family`: "gpt2" E = 256, head_dim 128; "gpt2-full" GPT-2 small at full
     width (a 48 KB staged input at B = 8 in bf16: the shared-memory opt-in);
-    "llama" G = 2, KW = 256."""
+    "llama" G = 2, KW = 256. With `wq`, the weights of that weight_quant
+    (`_tier_packed`)."""
     C = 128
-    if family.startswith("gpt2"):
+    if wq is not None:
+        kind, cfg, packed = _tier_packed(TIER_OF[family], wq, dtype, device)
+        W = cfg.n_embd if kind == "gpt2" else cfg.n_kv_head * cfg.head_dim
+        E = cfg.n_embd if kind == "gpt2" else cfg.hidden_size
+    elif family.startswith("gpt2"):
         cfg = tgpt2.GPT2Config(**MEGA_CFGS["small-test" if family == "gpt2" else "gpt2"])
         params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(1), cfg,
                                         torch.float32, device)
@@ -427,8 +436,9 @@ def _batch_case(family, mode, dtype, B, device):
         cfg = _llama_cfg("g2")
         packed = tml.pack_llama_mega(_llama_params(cfg, device), cfg)
         W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
-    packed = {k: (v.to(dtype) if v.dtype == torch.float32 and k not in (
-        "smalls", "lnf", "norms", "cos", "sin", "qkvb") else v) for k, v in packed.items()}
+    if wq is None:
+        packed = {k: (v.to(dtype) if v.dtype == torch.float32 and k not in (
+            "smalls", "lnf", "norms", "cos", "sin", "qkvb") else v) for k, v in packed.items()}
     g = torch.Generator(device="cpu").manual_seed(B * 7 + len(mode))
     L = cfg.n_layer
     x = (torch.randn((B, E), generator=g) * 0.5).to(dtype).to(device)
@@ -458,7 +468,11 @@ def test_megabatch_matches_plain(cuda, family, mode, dtype, B):
     step, scales within rtol 1e-5. bf16: a token whose plain logit is within
     2e-2 of the maximum, fp rows within 1.6e-2 of the row's largest value,
     dequantized rows within two steps (chip_smoke.py's tolerances)."""
-    packed, cfg, state, x = _batch_case(family, mode, dtype, B, cuda)
+    _check_megabatch(cuda, family, mode, dtype, B)
+
+
+def _check_megabatch(cuda, family, mode, dtype, B, wq=None):
+    packed, cfg, state, x = _batch_case(family, mode, dtype, B, cuda, wq)
     lengths = [BATCH_LENGTHS[b % len(BATCH_LENGTHS)] for b in range(B)]
     got = [t.clone() for t in state]
     want = [t.clone() for t in state]
@@ -471,10 +485,12 @@ def test_megabatch_matches_plain(cuda, family, mode, dtype, B):
         kern = tmbq.gpt2_megabatch_quant if gpt2 else tmbq.llama_megabatch_quant
         plain = tmbq.gpt2_megabatch_quant_plain if gpt2 else tmbq.llama_megabatch_quant_plain
         kw = {"kv_mode": mode}
-    before = kern.launches
+    counter = tmk.launch_counter(kern, packed)  # the wrapper, or its weight tier's count
+    before = (kern.launches, counter.launches)
     toks = kern(packed, *got, torch.tensor(lengths, dtype=torch.int32, device=cuda), x,
                 cfg=cfg, **kw)[0]
-    assert kern.launches == before + 1 and toks.shape == (B,)
+    assert counter.launches == before[1] + 1 and toks.shape == (B,)
+    assert kern.launches == before[0] + (counter is kern)
     logits = plain(packed, *want, lengths, x, cfg=cfg, return_logits=True, **kw)[-1]
     torch.cuda.synchronize()
     for b in range(B):
@@ -589,8 +605,8 @@ def test_megabatch_verify_past_128_rows_matches_plain(cuda, family, mode, dtype,
     _check_megabatch_verify(cuda, family, mode, dtype, B, 8)
 
 
-def _check_megabatch_verify(cuda, family, mode, dtype, B, R):
-    packed, cfg, state, _ = _batch_case(family, mode, dtype, B, cuda)
+def _check_megabatch_verify(cuda, family, mode, dtype, B, R, wq=None):
+    packed, cfg, state, _ = _batch_case(family, mode, dtype, B, cuda, wq)
     lengths = [VERIFY_BATCH_LENGTHS[b % len(VERIFY_BATCH_LENGTHS)] for b in range(B)]
     g = torch.Generator(device="cpu").manual_seed(B * 10 + R)
     ids = torch.randint(0, cfg.vocab_size, (B * R,), generator=g).to(torch.int32).to(cuda)
@@ -606,10 +622,12 @@ def _check_megabatch_verify(cuda, family, mode, dtype, B, R):
     kw = {"kv_mode": mode} if quant else {}
     got = [t.clone() for t in state]
     want = [t.clone() for t in state]
-    before = kern.launches
+    counter = tmk.launch_counter(kern, packed)
+    before = (kern.launches, counter.launches)
     toks = kern(packed, *got, torch.tensor(lengths, dtype=torch.int32, device=cuda), ids,
                 cfg=cfg, **kw)[0]
-    assert kern.launches == before + 1 and toks.shape == (B, R)
+    assert counter.launches == before[1] + 1 and toks.shape == (B, R)
+    assert kern.launches == before[0] + (counter is kern)
     logits = plain(packed, *want, lengths, ids, cfg=cfg, return_logits=True, **kw)[-1]
     torch.cuda.synchronize()
     C = state[0].shape[2]
@@ -714,9 +732,13 @@ def test_server_graph_matches_cpu_server(cuda, spec, kv_mode):
 VERIFY_FAMILIES = ["gpt2", "gpt2-full", "g2", "g4-untied", "g7-qwen", "d128"]
 
 
-def _verify_case(family, dtype, device):
+def _verify_case(family, dtype, device, wq=None):
     """(kind, packed, cfg) of a verify target: GPT-2 at E = 256 or GPT-2
-    small's full width, or a small Llama/Qwen geometry of LLAMA_CFGS."""
+    small's full width, or a small Llama/Qwen geometry of LLAMA_CFGS; with
+    `wq`, the weights of that weight_quant (`_tier_packed`)."""
+    if wq is not None:
+        kind, cfg, packed = _tier_packed(TIER_OF[family], wq, dtype, device)
+        return kind, packed, cfg
     if family.startswith("gpt2"):
         cfg = tgpt2.GPT2Config(**MEGA_CFGS["small-test" if family == "gpt2" else "gpt2"])
         params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(2), cfg,
@@ -755,7 +777,11 @@ def test_megaverify_matches_plain(cuda, family, R, cur, dtype):
     tolerances), the R new rows (fp32 1e-5, bf16 1.6e-2 of their largest
     value), every other row untouched; fed token ids (embedded on the
     device) and embeddings."""
-    kind, packed, cfg = _verify_case(family, dtype, cuda)
+    _check_megaverify(cuda, family, R, cur, dtype)
+
+
+def _check_megaverify(cuda, family, R, cur, dtype, wq=None):
+    kind, packed, cfg = _verify_case(family, dtype, cuda, wq)
     kern = tmk.gpt2_megaverify if kind == "gpt2" else tml.llama_megaverify
     plain = tmk.gpt2_megaverify_plain if kind == "gpt2" else tml.llama_megaverify_plain
     L = cfg.n_layer
@@ -778,10 +804,12 @@ def test_megaverify_matches_plain(cuda, family, R, cur, dtype):
             else:
                 x = packed["embed"][ids]
         got = [t.clone() for t in state]
-        before = kern.launches
+        counter = tmk.launch_counter(kern, packed)
+        before = (kern.launches, counter.launches)
         toks = kern(packed, *got, length, x, cfg=cfg)[0]
         torch.cuda.synchronize()
-        assert kern.launches == before + 1 and toks.shape == (R,)
+        assert counter.launches == before[1] + 1 and toks.shape == (R,)
+        assert kern.launches == before[0] + (counter is kern)
         for t in range(R):
             assert _token_close(int(toks[t]), logits[t], dtype), (t, int(toks[t]))
         for g_, w_, b_ in zip(got, want, state):
@@ -1246,3 +1274,42 @@ def test_engine_weight_quant_graph_matches_plain_steps(cuda, family, method, wq)
     first_unclear = int((~clear).nonzero()[0]) if not bool(clear.all()) else n
     assert got[:len(got) - n + first_unclear] == want[:len(want) - n + first_unclear]
 
+
+
+# ------------------------- weight tiers of #10, #13 at R > 1, #14-#21
+
+# the batched and verify cases' families -> TIER_CFGS
+TIER_OF = {"gpt2": "gpt2-small-test", "gpt2-full": "gpt2-full", "llama": "llama-g2",
+           "g2": "llama-g2", "llama-3-1b-L2": "llama-3-1b-L2"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cur", [0, 47])
+@pytest.mark.parametrize("wq", ["int8", "int4", "int4w8"])
+@pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "g2", "llama-3-1b-L2"])
+def test_tier_megaverify_matches_plain(cuda, family, wq, cur, dtype):
+    """#10 and #13 at R = 8 over quantized weights (int8, int4 at G = 128,
+    int4w8) against their plain versions, with test_megaverify_matches_plain's
+    checks (Llama-3.2-1B's width at 2 layers included); the launch lands in
+    the wrapper's tier count, not its full-precision one."""
+    _check_megaverify(cuda, family, 8, cur, dtype, wq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "mixed"])
+@pytest.mark.parametrize("wq", ["int8", "int4", "int4w8"])
+@pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "llama"])
+def test_tier_megabatch_matches_plain(cuda, family, wq, mode, dtype):
+    """#14-#17 over quantized weights, B = 9 slots (two groups of 8 rows),
+    with test_megabatch_matches_plain's checks and tolerances."""
+    _check_megabatch(cuda, family, mode, dtype, 9, wq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8"])
+@pytest.mark.parametrize("wq", ["int8", "int4", "int4w8"])
+@pytest.mark.parametrize("family", ["gpt2", "gpt2-full", "llama"])
+def test_tier_megabatch_verify_matches_plain(cuda, family, wq, mode, dtype):
+    """#18-#21 over quantized weights, 3 slots x 5 rows, with
+    test_megabatch_verify_matches_plain's checks and tolerances."""
+    _check_megabatch_verify(cuda, family, mode, dtype, 3, 5, wq)

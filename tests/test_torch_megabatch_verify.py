@@ -50,7 +50,17 @@ from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as tmbq
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as tbv
 from efficient_llm_inference_tpu_torch.ops import megakernel_llama as tml
 from efficient_llm_inference_tpu_torch.ops import megakernel_quant as tmq
-from torch_port_helpers import np_gpt2_params, np_llama_params, to_jax
+from torch_port_helpers import (
+    DMA_GATE,
+    STREAM_CAP,
+    VMEM,
+    fake_params,
+    jax_envelope,
+    np_gpt2_params,
+    np_llama_params,
+    served_configs,
+    to_jax,
+)
 
 C = 48
 LENGTHS = [0, 7, 23]
@@ -289,18 +299,27 @@ ENVELOPE_ONLY = {
 }
 
 
-def _fake(names, jax_side: bool, embed: str, tied: bool = True):
-    """Full-precision bf16 params in name only (the gates read the weight
-    kinds and dtypes, not the values)."""
-    z = jnp.zeros((1,), jnp.bfloat16) if jax_side else torch.zeros(1, dtype=torch.bfloat16)
-    p = {embed: z, "blocks": {n: z for n in names}}
-    if not tied:
-        p["lm_head"] = z
-    return p
+_fake = fake_params  # bf16 params in name only (the gates read kinds, dtypes, groups)
+
+
+# Over quantized weights, the (model, weight_quant) pairs a JAX envelope
+# refuses in some cell, and the envelope (named by JAX's own tile math,
+# torch_port_helpers.jax_envelope): the port accepts every such cell.
+WEIGHT_ENVELOPE = {
+    **{(name, wq): VMEM for name in ("gpt2-medium", "gpt2-large", "llama-3-3b")
+       for wq in ("int8", "int4", "int4w8")},
+    **{(name, wq): VMEM for name in ("llama-3-8b", "llama3-8b") for wq in ("int4", "int4w8")},
+    **{(name, "int8"): STREAM_CAP for name in ("llama-3-8b", "llama3-8b", "qwen2.5-7b",
+                                               "qwen/qwen2.5-7b")},
+    ("qwen2.5-0.5b", "int8"): DMA_GATE, ("qwen2.5-0.5b", "int4w8"): DMA_GATE,
+    ("qwen2.5-1.5b", "int4"): DMA_GATE, ("qwen2.5-1.5b", "int4w8"): DMA_GATE,
+}
 
 
 def _decisions(capacity: int = 128, names=tuple(_GPT2_SIZE) + LLAMA_NAMES, kvs=KV,
-               batches=BATCHES, rows=ROWS) -> dict:
+               batches=BATCHES, rows=ROWS, wq=None) -> dict:
+    """(name, kv, B, R) -> (JAX, port), over full-precision weights or those
+    of weight_quant `wq` (the engine's plan on both sides)."""
     table = {}
     for name in names:
         if name in _GPT2_SIZE:
@@ -316,7 +335,11 @@ def _decisions(capacity: int = 128, names=tuple(_GPT2_SIZE) + LLAMA_NAMES, kvs=K
             jq = jbv.llama_mega_batch_verify_quant_supported
             tfp = tbv.llama_mega_batch_verify_supported
             tq = tbv.llama_mega_batch_verify_quant_supported
-        jp, tp = _fake(names, True, embed, tied), _fake(names, False, embed, tied)
+        mode, group = "fp", 0
+        if wq is not None:
+            jcfg, tcfg, mode, group = served_configs(name, wq)
+        jp = _fake(names, True, embed, tied, mode, group)
+        tp = _fake(names, False, embed, tied, mode, group)
         for kv in kvs:
             for bs in batches:
                 for r in rows:
@@ -343,6 +366,20 @@ def test_batch_verify_eligibility_table_matches_jax():
                     assert table[(name, kv, bs, r)] == (True, True), (name, kv, bs, r)
     assert table[("gpt2-tiny", None, 1, 2)] == (False, False)  # E % 128
     assert table[("qwen2.5-0.5b", "int4", 8, 2)] == (False, False)  # KW / 2 = 64 lanes
+    # the weight tiers: every difference is a JAX envelope of WEIGHT_ENVELOPE
+    # (the port only the more permissive), named by JAX's own tile math
+    envelopes = set()
+    for wq in ("int8", "int4", "int4w8"):
+        table = _decisions(wq=wq)
+        for key, (want, got) in table.items():
+            if want != got:
+                assert (want, got) == (False, True), (key, wq)
+                jcfg, _, mode, group = served_configs(key[0], wq)
+                assert jax_envelope(jcfg, mode, group) == WEIGHT_ENVELOPE[(key[0], wq)]
+                envelopes.add((key[0], wq))
+        for key in (k for k in table if k[0] in ("gpt2", "llama-3-1b")):
+            assert table[key] == (True, True), (key, wq)
+    assert envelopes == set(WEIGHT_ENVELOPE)
 
 
 def test_batch_verify_gates_port_limits():

@@ -17,8 +17,9 @@ package's, on the CPU in fp32.
   E = 64) and for a batch beyond the kernels' largest (MAX_BATCH = 32).
 * The eligibility of `generate_batch` for every registry GPT-2 and
   Llama/Qwen name x {fp, int8, int4, mixed} x B in {1, 8} at capacity 320,
-  against the JAX package's; the differences are the TPU memory envelopes
-  the port leaves out, each named.
+  against the JAX package's, over full-precision weights and each
+  weight_quant (int8, int4, int4w8 at the engine's groups); the differences
+  are the TPU memory envelopes the port leaves out, each named.
 """
 
 import numpy as np
@@ -45,12 +46,18 @@ from efficient_llm_inference_tpu_torch.ops import megakernel_batch as tmb
 from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as tmbq
 from efficient_llm_inference_tpu_torch.ops import megakernel_llama as tml
 from torch_port_helpers import (
+    DMA_GATE,
     PROMPTS,
+    STREAM_CAP,
+    VMEM,
     check_generate_batch,
     engine_pair,
+    fake_params,
+    jax_envelope,
     jax_rope_rows,
     np_gpt2_params,
     np_llama_params,
+    served_configs,
     to_jax,
 )
 
@@ -276,19 +283,28 @@ ENVELOPE_ONLY = {
 }
 
 
-def _fake(names, jax_side: bool, embed: str, tied: bool = True):
-    """Full-precision bf16 params in name only (the eligibility reads the
-    weight kinds and dtypes, not the values), as the JAX tests fake them."""
-    z = jnp.zeros((1,), jnp.bfloat16) if jax_side else torch.zeros(1, dtype=torch.bfloat16)
-    p = {embed: z, "blocks": {n: z for n in names}}
-    if not tied:
-        p["lm_head"] = z
-    return p
+_fake = fake_params  # bf16 params in name only (the gates read kinds, dtypes, groups)
 
 
-def _decisions(capacity: int = 320) -> dict:
+# Over quantized weights (bf16 scales and embeddings), the (model,
+# weight_quant) pairs a JAX envelope refuses in some cell, and the envelope
+# (torch_port_helpers.jax_envelope names it from JAX's own tile math): the
+# port accepts every such cell.
+WEIGHT_ENVELOPE = {
+    **{("gpt2-large", wq): VMEM for wq in ("int8", "int4", "int4w8")},
+    ("llama-3-3b", "int8"): VMEM,
+    **{(name, "int8"): STREAM_CAP for name in ("llama-3-8b", "llama3-8b", "qwen2.5-7b",
+                                               "qwen/qwen2.5-7b")},
+    ("qwen2.5-0.5b", "int8"): DMA_GATE, ("qwen2.5-0.5b", "int4w8"): DMA_GATE,
+    ("qwen2.5-1.5b", "int4"): DMA_GATE, ("qwen2.5-1.5b", "int4w8"): DMA_GATE,
+}
+
+
+def _decisions(capacity: int = 320, weights=(None,)) -> dict:
+    """(name, kv, B) -> (JAX, port) over full-precision weights; with
+    `weights` naming weight_quant values, (name, kv, B, wq) too."""
     table = {}
-    for name in GPT2_NAMES + LLAMA_NAMES:
+    for name, wq in ((n, w) for n in GPT2_NAMES + LLAMA_NAMES for w in weights):
         llama = name not in GPT2_NAMES
         if llama:
             jcfg, tcfg = jllama.LlamaConfig.by_name(name), tllama.LlamaConfig.by_name(name)
@@ -301,14 +317,18 @@ def _decisions(capacity: int = 320) -> dict:
             names, embed, tied = tmk.WEIGHT_NAMES, "wte", True
             jfp, jq = jmb.mega_batch_supported, jmbq.mega_batch_quant_supported
             tfp, tq = tmb.mega_batch_supported, tmbq.mega_batch_quant_supported
-        jp, tp = _fake(names, True, embed, tied), _fake(names, False, embed, tied)
+        mode, group = "fp", 0
+        if wq is not None:
+            jcfg, tcfg, mode, group = served_configs(name, wq)
+        jp = _fake(names, True, embed, tied, mode, group)
+        tp = _fake(names, False, embed, tied, mode, group)
         for kv in KV:
             for bs in BATCHES:
                 if kv is None:
                     pair = (jfp(jcfg, capacity, jp, bs), tfp(tcfg, capacity, tp, bs))
                 else:
                     pair = (jq(jcfg, capacity, jp, bs, kv), tq(tcfg, capacity, tp, bs, kv))
-                table[(name, kv, bs)] = pair
+                table[(name, kv, bs) + ((wq,) if wq else ())] = pair
     return table
 
 
@@ -325,3 +345,16 @@ def test_batch_eligibility_table_matches_jax():
                 assert table[(name, kv, bs)] == (True, True), (name, kv, bs)
     assert table[("gpt2-tiny", None, 1)] == (False, False)  # E % 128
     assert table[("qwen2.5-0.5b", "int4", 8)] == (False, False)  # KW / 2 = 64 lanes
+    # the weight tiers: every difference is a JAX envelope of WEIGHT_ENVELOPE
+    # (the port only the more permissive), named by JAX's own tile math
+    table = _decisions(weights=("int8", "int4", "int4w8"))
+    differ = {key for key, (want, got) in table.items() if want != got}
+    assert {(k[0], k[3]) for k in differ} == set(WEIGHT_ENVELOPE), sorted(differ, key=str)
+    for name, kv, bs, wq in differ:
+        assert table[(name, kv, bs, wq)] == (False, True)
+        jcfg, _, mode, group = served_configs(name, wq)
+        assert jax_envelope(jcfg, mode, group) == WEIGHT_ENVELOPE[(name, wq)], (name, wq)
+    # the slice's two models take every weight tier and pane kind at B = 1, 8
+    for name in ("gpt2", "llama-3-1b"):
+        for key in (k for k in table if k[0] == name):
+            assert table[key] == (True, True), key

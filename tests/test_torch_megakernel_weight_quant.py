@@ -39,8 +39,7 @@ from torch_port_helpers import (
     jax_rope_rows,
     np_gpt2_params,
     np_llama_params,
-    to_jax,
-    to_numpy,
+    quantized_pair,
 )
 
 GPT2_KW = dict(vocab_size=300, n_positions=256, n_embd=128, n_layer=2, n_head=2)
@@ -56,26 +55,13 @@ GPT2_WQ = {"int8": ("int8", 128), "int4": ("int4", 64)}
 LLAMA_WQ = {"int8": ("int8", 128), "int4": ("int4", 64), "int4w8": ("int4", 128)}
 
 
-def _quantized(np_p, cfg, family: str, mode: str, group: int):
-    """(JAX tree, port tree) of the same quantized weights: the port's
-    quantizers on the port's params, handed to JAX as arrays. mode "fp"
-    keeps full precision."""
-    mod = tgpt2 if family == "gpt2" else tllama
-    tp = mod.params_from_jax(np_p, cfg, torch.float32, "cpu")
-    if mode != "fp":
-        quantize = (tgpt2.quantize_gpt2_weights if family == "gpt2"
-                    else tllama.quantize_llama_weights)
-        tp = quantize(tp, mode=mode, group=group)
-    return to_jax(to_numpy(tp)), tp
-
-
 @pytest.fixture(scope="module")
 def gpt2_models():
     jcfg, tcfg = jgpt2.GPT2Config(**GPT2_KW), tgpt2.GPT2Config(**GPT2_KW)
     np_p = np_gpt2_params(tcfg, seed=11, std=0.1)
     out = {}
     for wq, (mode, group) in GPT2_WQ.items():
-        jq, tq = _quantized(np_p, tcfg, "gpt2", mode, group)
+        jq, tq = quantized_pair(np_p, tcfg, "gpt2", mode, group)
         out[wq] = (jmk.pack_gpt2_mega(jq, jcfg), tmk.pack_gpt2_mega(tq, tcfg))
     return jcfg, tcfg, out
 
@@ -86,7 +72,7 @@ def llama_models():
     np_p = np_llama_params(tcfg, seed=11, std=0.15)
     out = {}
     for wq, (mode, group) in LLAMA_WQ.items():
-        jq, tq = _quantized(np_p, tcfg, "llama", mode, group)
+        jq, tq = quantized_pair(np_p, tcfg, "llama", mode, group)
         out[wq] = (jml.pack_llama_mega(jq, jcfg), tml.pack_llama_mega(tq, tcfg))
     return jcfg, tcfg, out
 
@@ -221,7 +207,7 @@ PORT_ONLY = "G % 32 != 0: a 16-byte load of 32 int4 codes would straddle two gro
 def _gpt2_tree(E: int, wq: str, group: int):
     """(cfg, JAX tree, port tree) of a one-layer GPT-2 of width E."""
     cfg = tgpt2.GPT2Config(vocab_size=64, n_positions=64, n_embd=E, n_layer=1, n_head=2)
-    return (cfg, *_quantized(np_gpt2_params(cfg, seed=E + group), cfg, "gpt2", wq, group))
+    return (cfg, *quantized_pair(np_gpt2_params(cfg, seed=E + group), cfg, "gpt2", wq, group))
 
 
 def _gpt2_cells():
@@ -285,7 +271,7 @@ def test_llama_eligibility_table_matches_jax():
         TR = tml._tile_geometry(tcfg)[0]
         for wq, group in [("fp", 0), ("int8", 0)] + [("int4", g) for g in
                                                      (16, 64, 128, TR // 2)]:
-            jq, tq = _quantized(np_p, tcfg, "llama", wq, group)
+            jq, tq = quantized_pair(np_p, tcfg, "llama", wq, group)
             for kv in ("fp", "int4"):
                 if kv == "fp":
                     want = jml.mega_supported(jcfg, C, jq)

@@ -14,7 +14,10 @@ engine's, on the CPU in fp32.
   call, over 10 calls.
 * The routes (verify kernel or forward pass; draft burst, whole-step draft
   or eager draft) over the registry names and the two draft geometries,
-  against the JAX engine's; the differences are named.
+  over full-precision and quantized weights (a quantized target verifies
+  on its tier; its self-draft takes the whole-step tier steps, since JAX
+  packs a burst only for a full-precision draft), against the JAX
+  engine's; the differences are named.
 """
 
 import dataclasses
@@ -37,7 +40,13 @@ from efficient_llm_inference_tpu_torch.engine import speculative as tspec
 from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
 from efficient_llm_inference_tpu_torch.models import llama as tllama
 from efficient_llm_inference_tpu_torch.models import registry as treg
-from torch_port_helpers import np_gpt2_params, np_llama_params, to_jax
+from torch_port_helpers import (
+    fake_params,
+    np_gpt2_params,
+    np_llama_params,
+    served_configs,
+    to_jax,
+)
 
 PROMPT = "the cat sat on the mat; the cat sat on the hat; the dog sat on the"
 N, K = 12, 4
@@ -152,6 +161,13 @@ TARGET_ROUTES = {
     ("gpt2-tiny", 256): (F, F), ("llama-tiny", 256): (F, F), ("qwen-tiny", 256): (F, F),
     ("llama-3-1b", 256): (V, V), ("llama-3-1b", 1024): (V, V),
     ("qwen2.5-0.5b", 256): (F, V), ("qwen2.5-0.5b", 1024): (F, V),
+    # quantized targets (weight_quant at the engine's group): the verify's
+    # weight tier; the JAX step's VMEM budget at capacity 1552 (GPT-2
+    # medium) and Qwen2.5-0.5B's 2048-tile DMA gate as above
+    ("gpt2", 256, "int8"): (V, V), ("gpt2", 1024, "int4"): (V, V),
+    ("gpt2-medium", 1024, "int4w8"): (F, V), ("llama-3-1b", 256, "int8"): (V, V),
+    ("llama-3-1b", 1024, "int4w8"): (V, V), ("llama-3-1b", 256, "int4"): (V, V),
+    ("qwen2.5-0.5b", 256, "int8"): (F, V), ("qwen2.5-0.5b", 256, "int4w8"): (F, V),
 }
 # (target, draft, dtype, n) at bucket 128, k = 4: ((JAX target, JAX draft),
 # (port target, port draft)). Past the 6 MB burst budget a draft takes its
@@ -170,29 +186,39 @@ DRAFT_ROUTES = {
     ("scale_llama_big", "draft_llama", "float32", 64): ((V, B), (V, B)),
     ("scale_llama_big", "draft_llama", "float32", 4500): ((V, S), (V, S)),
     ("scale_llama_big", "draft_llama", "bfloat16", 6000): ((V, B), (V, B)),
+    # a quantized target (int8; int4 at G = 128) with a full-precision draft:
+    # the draft keeps its burst
+    ("scale_gpt2_big", "draft_gpt2", "bfloat16", 1024, "int8"): ((V, B), (V, B)),
+    ("scale_llama_big", "draft_llama", "float32", 64, "int4"): ((V, B), (V, B)),
+    # the 1-layer self-draft of a quantized registry target: no burst for a
+    # quantized draft, its whole-step tier steps
+    ("gpt2", "self", "bfloat16", 64, "int8"): ((V, S), (V, S)),
+    ("gpt2", "self", "bfloat16", 64, "int4w8"): ((V, S), (V, S)),
+    ("llama-3-1b", "self", "bfloat16", 64, "int4"): ((V, S), (V, S)),
+    ("llama-3-1b", "self", "float32", 64, "int4w8"): ((V, S), (V, S)),
 }
 
 
-def _shape_params(spec, dtype, lib):
+def _shape_params(spec, dtype, lib, quant=("fp", 0)):
     """Parameter stand-ins with the types the eligibility checks read (one
-    full-precision tensor per leaf; shapes do not enter them)."""
-    one = jnp.zeros((1,), dtype) if lib == "jax" else torch.zeros(1, dtype=dtype)
-    names = (("attn_w", "attn_proj_w", "fc_w", "fc_proj_w") if spec.name == "gpt2" else
+    tensor per leaf; shapes do not enter them, but an int4 leaf's group);
+    `quant` = (mode, group): full precision, or int8 / int4 block weights
+    with the LM head's quantized copy (torch_port_helpers.fake_params)."""
+    gpt2 = spec.name == "gpt2"
+    names = (("attn_w", "attn_proj_w", "fc_w", "fc_proj_w") if gpt2 else
              ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
-    p = {"wte" if spec.name == "gpt2" else "embed": one, "blocks": {n: one for n in names}}
-    if spec.name == "llama" and not spec.config.tie_embeddings:
-        p["lm_head"] = one
-    return p
+    return fake_params(names, lib == "jax", "wte" if gpt2 else "embed",
+                       gpt2 or spec.config.tie_embeddings, *quant, dtype=dtype)
 
 
-def _jax_routes(spec, dtype, bucket, n, k, draft=None):
+def _jax_routes(spec, dtype, bucket, n, k, draft=None, quant=("fp", 0), dquant=("fp", 0)):
     """(target route, draft route) as the JAX engine decides them: its
     `_mega_spec` at bucket + n + k + 1, `_draft_mega_spec`, and
     make_speculative_generate's burst gate at roundup8(...) + 8."""
     from efficient_llm_inference_tpu.ops.pallas import megakernel as jmk
     from efficient_llm_inference_tpu.ops.pallas import megakernel_llama as jml
 
-    eng = JaxEngine(spec, _shape_params(spec, dtype, "jax"), config=JaxConfig(
+    eng = JaxEngine(spec, _shape_params(spec, dtype, "jax", quant), config=JaxConfig(
         model_name="t", device="tpu", dtype=dtype, megakernel=True))
     eng._mega_packed = {}  # packing is not a routing question
     mega = eng._mega_spec(bucket + n + k + 1, None)
@@ -202,25 +228,25 @@ def _jax_routes(spec, dtype, bucket, n, k, draft=None):
     if mega is None:
         return target, E
     sup = jmk.mega_supported if draft.name == "gpt2" else jml.mega_supported
-    if not sup(draft.config, mega["capacity"], _shape_params(draft, dtype, "jax")):
+    if not sup(draft.config, mega["capacity"], _shape_params(draft, dtype, "jax", dquant)):
         return target, E
     gate = (jmd.gpt2_draft_burst_supported if draft.name == "gpt2"
             else jmd.llama_draft_burst_supported)
-    tied = draft.name == "gpt2" or draft.config.tie_embeddings
-    return target, B if tied and gate(draft.config, mega["capacity"] + 8, dtype) else S
+    burst = dquant[0] == "fp" and (draft.name == "gpt2" or draft.config.tie_embeddings)
+    return target, B if burst and gate(draft.config, mega["capacity"] + 8, dtype) else S
 
 
-def _port_routes(spec, dtype, bucket, n, k, draft=None):
+def _port_routes(spec, dtype, bucket, n, k, draft=None, quant=("fp", 0), dquant=("fp", 0)):
     """The same through the port engine's `_spec_mega`, `_draft_kernels` and
     engine/speculative.py `draft_route`."""
-    eng = InferenceEngine(spec, _shape_params(spec, dtype, "torch"), config=Config(
+    eng = InferenceEngine(spec, _shape_params(spec, dtype, "torch", quant), config=Config(
         model_name="t", device="cpu", dtype=dtype, megakernel=True))
     eng._mega_packed = {}
     mega = eng._spec_mega(bucket, n, k)
     target = V if mega is not None else F
     if draft is None:
         return target
-    kernels = eng._draft_kernels(draft, _shape_params(draft, dtype, "torch"), mega)
+    kernels = eng._draft_kernels(draft, _shape_params(draft, dtype, "torch", dquant), mega)
     if kernels is None:
         return target, E
     dmega = {"cfg": draft.config, "kind": draft.name,
@@ -236,21 +262,49 @@ def _spec_pair(kw):
             tllama.llama_spec(tllama.LlamaConfig(**kw)))
 
 
+def _served(name: str, wq):
+    """(JAX spec, port spec, (mode, group)) of registry `name` at
+    weight_quant `wq` (None: full precision), as the engines serve it."""
+    if wq is None:
+        return jreg.spec_by_name(name), treg.spec_by_name(name), ("fp", 0)
+    jcfg, tcfg, mode, group = served_configs(name, wq)
+    if name.startswith("gpt2"):
+        return jreg.gpt2_spec(jcfg), treg.gpt2_spec(tcfg), (mode, group)
+    return jllama.llama_spec(jcfg), tllama.llama_spec(tcfg), (mode, group)
+
+
+def _quant_of(wq):
+    """(mode, group) of a weight_quant for a byte-vocab target (int4 at the
+    engine's group 128)."""
+    return ("fp", 0) if wq is None else (("int8", 0) if wq == "int8" else ("int4", 128))
+
+
 def test_routes_match_the_table():
     """The routing table over registry names and the two draft geometries
-    (draft_gpt2's head_dim 32 included): JAX's and the port's routes, each
-    difference named above."""
-    for (name, bucket), want in TARGET_ROUTES.items():
+    (draft_gpt2's head_dim 32 included), full-precision and quantized
+    targets: JAX's and the port's routes, each difference named above."""
+    for key, want in TARGET_ROUTES.items():
+        name, bucket, wq = (*key, None)[:3]
         n = 64 if bucket == 256 else 512
-        got = (_jax_routes(jreg.spec_by_name(name), jnp.bfloat16, bucket, n, 8),
-               _port_routes(treg.spec_by_name(name), torch.bfloat16, bucket, n, 8))
-        assert got == want, (name, bucket, got)
-    for (target, draft, dt, n), want in DRAFT_ROUTES.items():
-        jt, tt = _spec_pair(TARGET_KW[target])
-        jd, td = _spec_pair(DRAFT_KW[draft])
-        got = (_jax_routes(jt, getattr(jnp, dt), 128, n, 4, draft=jd),
-               _port_routes(tt, getattr(torch, dt), 128, n, 4, draft=td))
-        assert got == want, (target, draft, dt, n, got)
+        js, ts, quant = _served(name, wq)
+        got = (_jax_routes(js, jnp.bfloat16, bucket, n, 8, quant=quant),
+               _port_routes(ts, torch.bfloat16, bucket, n, 8, quant=quant))
+        assert got == want, (key, got)
+    for key, want in DRAFT_ROUTES.items():
+        target, draft, dt, n, wq = (*key, None)[:5]
+        if draft == "self":  # the 1-layer self-draft of a registry target
+            jt, tt, quant = _served(target, wq)
+            jd, _ = jspec.make_self_draft(jt, {"blocks": {}}, 1)
+            td, _ = tspec.make_self_draft(tt, {"blocks": {}}, 1)
+            dquant = quant
+        else:
+            (jt, tt), quant = _spec_pair(TARGET_KW[target]), _quant_of(wq)
+            (jd, td), dquant = _spec_pair(DRAFT_KW[draft]), ("fp", 0)
+        got = (_jax_routes(jt, getattr(jnp, dt), 128, n, 4, draft=jd, quant=quant,
+                           dquant=dquant),
+               _port_routes(tt, getattr(torch, dt), 128, n, 4, draft=td, quant=quant,
+                            dquant=dquant))
+        assert got == want, (key, got)
 
 
 def test_self_draft_shares_the_target():

@@ -14,8 +14,10 @@ serving mode) against the JAX package's, on the CPU in fp32.
   greedy tokens on it (megakernel off, XLA) for full_cache and a quant_*
   method, GPT-2 and Llama, and a Qwen-shaped model served at the int4w8
   padded FFN.
-* The routes without weight tiers yet raise NotImplementedError naming
-  ROADMAP.md Queue 1 item 14; the `ops` / `ops.pallas` namespaces hold
+* Speculation, generate_batch, MegaBatchServer and the verify and batched
+  launchers serve quantized weights (the four tests that pinned their
+  raises, rewritten in place; tests/test_torch_weight_quant_serving.py
+  holds them to the JAX engine); the `ops` / `ops.pallas` namespaces hold
   JAX's names.
 """
 
@@ -39,7 +41,13 @@ from efficient_llm_inference_tpu.data.tokenizer import ByteTokenizer as JaxByteT
 from efficient_llm_inference_tpu.models import gpt2 as jgpt2
 from efficient_llm_inference_tpu.models import llama as jllama
 from efficient_llm_inference_tpu.models import registry as jregistry
-from efficient_llm_inference_tpu_torch import Config, InferenceEngine, MegaBatchServer
+from efficient_llm_inference_tpu_torch import (
+    Config,
+    InferenceEngine,
+    MegaBatchServer,
+    MegaPoolConfig,
+    Request,
+)
 from efficient_llm_inference_tpu_torch.cache import kvcache as tkv
 from efficient_llm_inference_tpu_torch.data.tokenizer import ByteTokenizer
 from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
@@ -58,7 +66,6 @@ LLAMA_KW = dict(vocab_size=300, hidden_size=256, intermediate_size=512, n_layer=
 # A Qwen shape whose FFN the int4w8 group does not divide: tile geometry
 # (TR, TC, Ip) = (256, 128, 768), group TR/2 = 128, I 704 -> 768.
 QWEN_KW = dict(LLAMA_KW, intermediate_size=704, qkv_bias=True, rms_eps=1e-6)
-TODO = "ROADMAP.md Queue 1 item 14"
 
 
 def _np(tree):
@@ -342,26 +349,52 @@ def quantized_engine():
         device="cpu", dtype=torch.float32, megakernel=True))
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_speculation_on_quantized_weights_raises(quantized_engine):
-    with pytest.raises(NotImplementedError, match=TODO):
-        quantized_engine.generate_speculative(PROMPT, 8, mode="ngram", k=4)
-    with pytest.raises(NotImplementedError, match=TODO):
-        quantized_engine.generate_speculative_auto(PROMPT, 8)
+    """Formerly the raise of speculation on quantized weights: the route now
+    serves, through the verify's weight tier (the engine's int4 pack), with
+    the tokens of plain greedy (the JAX engine's, tests/
+    test_torch_weight_quant_serving.py)."""
+    eng = quantized_engine
+    want = eng.generate_ids(PROMPT, "full_cache", 8)
+    eng.generate_speculative(PROMPT, 8, mode="ngram", k=4)
+    assert eng.last_generation_ids == want
+    key = next(k for k in eng._fns if k[:2] == ("speculative", "ngram"))
+    assert tmk.weight_kind(eng._fns[key][-1]["packed"]) == "int4"
+    eng.generate_speculative_auto(PROMPT, 8)
+    assert eng.last_generation_ids == want
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_generate_batch_on_quantized_weights_raises(quantized_engine):
-    with pytest.raises(NotImplementedError, match=TODO):
-        quantized_engine.generate_batch([PROMPT, "a"], 8, kv_mode="int8")
+    """Formerly the raise of generate_batch on quantized weights: the batched
+    tier steps now serve it, each row its prompt's greedy decode."""
+    eng = quantized_engine
+    prompts = [PROMPT, "a"]
+    eng.generate_batch(prompts, 8, kv_mode="int8")
+    assert any(k[0] == "batch" and k[-1] == "int8" for k in eng._fns)
+    assert eng.last_batch_ids == [eng.generate_ids(p, "quant_int8", 8) for p in prompts]
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_server_on_quantized_weights_raises(quantized_engine):
-    with pytest.raises(NotImplementedError, match=TODO):
-        MegaBatchServer(quantized_engine.model, quantized_engine.params)
+    """Formerly the raise of MegaBatchServer on quantized weights: the server
+    now packs the tiers and serves its requests' greedy decodes."""
+    eng = quantized_engine
+    srv = MegaBatchServer(eng.model, eng.params,
+                          pool=MegaPoolConfig(n_slots=2, capacity=64, max_chunk=8))
+    assert tmk.weight_kind(srv.packed) == "int4"
+    reqs = [Request(0, list(PROMPT.encode()), 8), Request(1, [97], 8)]
+    srv.run(reqs)
+    for r in reqs:
+        assert r.prompt_ids + r.out_ids == eng.generate_ids(
+            bytes(r.prompt_ids).decode(), "full_cache", 8)
 
 
 def test_verify_and_batched_launchers_refuse_weight_tiers(quantized_engine):
-    """The kernels without a weight tier refuse a packed dict that has one
-    (before they look at the device), and the batched eligibility is off."""
+    """Formerly the launchers' refusal of a weight tier: they now take a
+    packed dict that has one (and stop only at the device, before any
+    kernel), and the batched gates take the weights."""
     from efficient_llm_inference_tpu_torch.ops import megakernel_batch as tmb
     from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as tbv
 
@@ -374,8 +407,10 @@ def test_verify_and_batched_launchers_refuse_weight_tiers(quantized_engine):
             (tmk.GPT2VerifyLauncher, k1, n1, dict(rows=4, tok_in=torch.zeros(4))),
             (tmb.GPT2BatchLauncher, k2, n2, dict(tok_in=n2)),
             (tbv.GPT2BatchVerifyLauncher, k2, n2, dict(rows=2, tok_in=torch.zeros(4)))):
-        with pytest.raises(NotImplementedError, match=TODO):
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
             launcher(packed, cfg, k, k, n, n, **kw)
     assert tmk.mega_supported(cfg, 64, quantized_engine.params)
-    assert not tmb.mega_batch_supported(cfg, 64, quantized_engine.params, 2)
-    assert not tbv.mega_batch_verify_supported(cfg, 64, quantized_engine.params, 2, 4)
+    assert tmb.mega_batch_supported(cfg, 64, quantized_engine.params, 2)
+    assert tbv.mega_batch_verify_supported(cfg, 64, quantized_engine.params, 2, 4)
+    for wrapper in (tmk.gpt2_megaverify, tmb.gpt2_megabatch, tbv.gpt2_megabatch_verify):
+        assert tmk.launch_counter(wrapper, packed) is wrapper.tiers["int4"]

@@ -77,6 +77,101 @@ def to_numpy(tree):
     return tree.numpy()
 
 
+def quantized_pair(np_p, cfg, family: str, mode: str, group: int):
+    """(JAX tree, port tree) of the same quantized weights: the port's
+    quantizers (bit-exact with JAX's) on the port's params of the numpy
+    draw, handed to JAX as arrays. mode "fp" keeps full precision."""
+    import torch
+
+    from efficient_llm_inference_tpu_torch.models import gpt2 as tgpt2
+    from efficient_llm_inference_tpu_torch.models import llama as tllama
+
+    mod = tgpt2 if family == "gpt2" else tllama
+    tp = mod.params_from_jax(np_p, cfg, torch.float32, "cpu")
+    if mode != "fp":
+        quantize = (tgpt2.quantize_gpt2_weights if family == "gpt2"
+                    else tllama.quantize_llama_weights)
+        tp = quantize(tp, mode=mode, group=group)
+    return to_jax(to_numpy(tp)), tp
+
+
+def fake_params(names, jax_side: bool, embed: str, tied: bool = True,
+                mode: str = "fp", group: int = 0, dtype=None) -> dict:
+    """Params in name only (the eligibility gates read the weight kinds,
+    dtypes and int4 groups, not the values), as the JAX tests fake them, in
+    `dtype` (default bf16): full-precision leaves, or int8 / grouped-int4
+    weights with the LM head's quantized copy (a {"q4"} leaf of shape
+    [1, G/2, 1], the shape the int4 group is read from)."""
+    if jax_side:
+        import jax.numpy as jnp
+
+        z, q8, q4 = (jnp.zeros((1,), dtype or jnp.bfloat16), jnp.zeros((1,), jnp.int8),
+                     jnp.zeros((1, group // 2, 1), jnp.uint8))
+    else:
+        import torch
+
+        z, q8, q4 = (torch.zeros(1, dtype=dtype or torch.bfloat16),
+                     torch.zeros(1, dtype=torch.int8),
+                     torch.zeros(1, group // 2, 1, dtype=torch.uint8))
+    if mode == "fp":
+        p = {embed: z, "blocks": {n: z for n in names}}
+        if not tied:
+            p["lm_head"] = z
+    elif mode == "int8":
+        p = {embed: z, "blocks": {n: {"q": q8, "s": z} for n in names}, "lm_q": q8,
+             "lm_s": z}
+    else:
+        p = {embed: z, "blocks": {n: {"q4": q4, "s": z} for n in names}, "lm_q4": q4,
+             "lm_s4": z}
+    return p
+
+
+# The JAX package's TPU memory envelopes, which the port's gates leave out:
+# the reason a JAX gate refuses a cell whose structure both accept.
+VMEM = "VMEM budget of the kernel's rings"
+STREAM_CAP = "packed tile stream over the 4 GiB (int4: 5 GiB) cap"
+DMA_GATE = "more than 2048 tiles of under 256 KB"
+
+
+def jax_envelope(jcfg, mode: str, group: int) -> str:
+    """Which JAX envelope a cell of bf16 weights of `mode` ("f", "int8",
+    "int4") at `group` meets first: for Llama/Qwen the batched step's
+    tile-stream gates (ops/pallas/megakernel_batch.py
+    `llama_mega_batch_supported`, which the verify gates call too), else
+    the VMEM budget (GPT-2 has only that)."""
+    from efficient_llm_inference_tpu.ops.pallas import megakernel_llama as jml
+
+    if not hasattr(jcfg, "hidden_size"):
+        return VMEM
+    TR, TC, Ip = jml._tile_geometry(jcfg)
+    n_tiles = jcfg.n_layer * jml._tiles_per_layer(jcfg, TR, TC, Ip) + (
+        jml._num_lm_tiles(jcfg.vocab_size, TC) * (jcfg.hidden_size // TR))
+    slot = jml._w_slot_bytes(mode, TR, TC, group, 2,
+                             2 * jml._s4_half_rows(TR, group) if mode == "int4" else None)
+    if n_tiles > 2048 and slot < 256 * 1024:
+        return DMA_GATE
+    if n_tiles * slot > (5 if mode == "int4" else 4) * 1024**3:
+        return STREAM_CAP
+    return VMEM
+
+
+def served_configs(name: str, wq: str):
+    """(JAX cfg, port cfg, mode, group) of registry model `name` served at
+    weight_quant `wq`: the port engine's plan (`weight_quant_plan`: int4 at
+    group 128, int4w8 at the half-tile group, an FFN padded to it) and JAX's
+    (`_int4w8_llama_spec` with padding)."""
+    import efficient_llm_inference_tpu.engine.engine as jengine
+    from efficient_llm_inference_tpu.models import registry as jreg
+    from efficient_llm_inference_tpu_torch.engine.engine import weight_quant_plan
+    from efficient_llm_inference_tpu_torch.models import registry as treg
+
+    tspec, mode, group = weight_quant_plan(treg.spec_by_name(name), wq)
+    jspec = jreg.spec_by_name(name)
+    if wq == "int4w8" and jspec.name == "llama":
+        jspec = jengine._int4w8_llama_spec(jspec, True)[0]
+    return jspec.config, tspec.config, mode, group
+
+
 def jax_rope_rows(jcfg, length: int):
     """cos_q/sin_q [1, Hq*D] of the JAX Llama step at `length`, as the JAX
     engine builds them (position min(length, P - 1), under jit)."""
