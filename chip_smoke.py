@@ -188,6 +188,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1116,6 +1117,49 @@ def _teacher_forced_rows(mode, dtype, packed, cfg, family, state, got, toks, ids
     return err, short
 
 
+def _verify_gemv_case(label: str, packed: dict, key: str, R: int) -> None:
+    """One GEMV of the bf16 batched verify chain alone (`verify_gemv`: the
+    tensor-core route, stored, no prologue or bias) on layer 0 of packed
+    weight `key` at R input rows: held against `verify_gemv_plain` (one
+    bf16 ulp plus 1e-5 of the largest output: the fp32 sums' order), timed
+    with inputs rotated past L2 beside its byte bound and torch.matmul's
+    bf16 product of the same shape (the yardstick, never called by the
+    port; a tier's codes widened to bf16 once, outside the timing)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as mbv
+
+    w = packed[key][0]
+    s = packed.get(mk.scale_key(key))
+    s = None if s is None else s[0]
+    N, K = w.shape[0], w.shape[1] * (2 if w.dtype == torch.uint8 else 1)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    x = torch.randn((R, K), generator=g, device="cuda").to(torch.bfloat16)
+    got = mbv.verify_gemv(x, w, s)
+    want = mbv.verify_gemv_plain(x, w, s)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    tol = _bf16_ulp(want) + 1e-5 * max(1.0, float(want.float().abs().max()))
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{label}: verify_gemv off its plain version by {diff.max():.3e}")
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    args = (x, w) if s is None else (x, w, s)
+    n_bytes = sum(size(t) for t in args) + size(got)
+    copies = _copies(args, n_bytes)
+    ms = device_ms_rotating([lambda a=a: mbv.verify_gemv(*a) for a in copies])
+    if w.dtype == torch.uint8:
+        dense = torch.stack(mk._unpack_nibbles(w), dim=-1).reshape(N, K).to(torch.bfloat16)
+    else:
+        dense = w.to(torch.bfloat16)
+    lib_copies = _copies((x, dense), size(x) + size(dense))
+    lib_ms = device_ms_rotating([lambda a=a: torch.matmul(a[0], a[1].t()) for a in lib_copies])
+    bnd, by = bound_ms(n_bytes, 2 * R * N * K, H100_BF16_FLOP_PER_S)
+    tier = {torch.bfloat16: "bf16", torch.int8: "int8", torch.uint8: "int4"}[w.dtype]
+    log(f"  {label}: one GEMV [{R}, {K}] x [{N}, {K}]^T ({tier} weights) alone: device ms "
+        f"{ms:.5f}, torch.matmul bf16 yardstick {lib_ms:.5f}, bound {bnd:.5f} ({by}); "
+        f"max|kernel-plain| {float(diff.max()):.2e}")
+    del copies, lib_copies, dense
+
+
 def check_megabatch_verify(family: str, cfg, params_for, n_slots: int) -> dict:
     """#18/#19 (GPT-2) or #20/#21 (Llama) against their plain versions (R
     sequential plain steps a slot): n_slots slots at VERIFY_LENGTHS
@@ -1127,17 +1171,21 @@ def check_megabatch_verify(family: str, cfg, params_for, n_slots: int) -> dict:
     quantized panes each row against the plain step on the kernel's own
     earlier rows (`_teacher_forced_rows`). Device ms in bf16 at R = 8, the
     server protocol's shape."""
-    reports = _verify_batch_cases(family, cfg, params_for, n_slots)
+    reports = _verify_batch_cases(family, cfg, params_for, n_slots,
+                                  gemv_key="gu_w" if family == "llama" else "fc_w")
     return _mega_reports(reports, f"{family}_megabatch_verify",
                          f"{family}_megabatch_verify_quant")
 
 
 def _verify_batch_cases(family: str, cfg, params_for, n_slots: int, modes=MODES,
                         dtypes=(torch.float32, torch.bfloat16), rows=(2, 8),
-                        suffix: str = "", time_plain: bool = True) -> dict:
+                        suffix: str = "", time_plain: bool = True,
+                        gemv_key: Optional[str] = None) -> dict:
     """check_megabatch_verify's cases over `modes` x `dtypes` x `rows`:
     {(mode, dtype): report}; `suffix` ends the kernels' names in the log;
-    without `time_plain` the plain pass is checked but not timed."""
+    without `time_plain` the plain pass is checked but not timed. With
+    `gemv_key`, the bf16 pack's weight of that key also runs alone at the
+    pass's n_slots x 8 rows (`_verify_gemv_case`)."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as mbv
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
@@ -1226,6 +1274,8 @@ def _verify_batch_cases(family: str, cfg, params_for, n_slots: int, modes=MODES,
                              f"{entry['ms'] / (n_slots * R):.5f}")
                 log(line)
             reports[(mode, dtype)] = entry
+        if gemv_key is not None and dtype == torch.bfloat16:
+            _verify_gemv_case(f"{names[0]} {gemv_key}", packed, gemv_key, n_slots * 8)
         del params, packed
     return reports
 
@@ -2722,13 +2772,14 @@ def check_batch_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
             if full:
                 got.update(_mega_reports(
                     _verify_batch_cases(family, cfg, q_for, 8, modes=("fp", "int8"), rows=(8,),
-                                        suffix=sfx, time_plain=timed),
+                                        suffix=sfx, time_plain=timed,
+                                        gemv_key="gu_w" if family == "llama" else None),
                     f"{family}_megabatch_verify{sfx}", f"{family}_megabatch_verify_quant{sfx}"))
             if family == "gpt2":  # 16 x 8 rows, bf16 fp panes: its error counts, its time logged
                 name = f"{family}_megabatch_verify{sfx}"
                 wide = _verify_batch_cases(family, cfg, q_for, 16, modes=("fp",),
                                            dtypes=(torch.bfloat16,), rows=(8,), suffix=sfx,
-                                           time_plain=False)
+                                           time_plain=False, gemv_key="fc_w")
                 got[name]["max_abs_err"] = max(got[name]["max_abs_err"],
                                                wide[("fp", torch.bfloat16)]["max_abs_err"])
             for name, r in got.items():

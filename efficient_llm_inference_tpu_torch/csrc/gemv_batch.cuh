@@ -1,8 +1,9 @@
 // The batched GEMV shared by the chains that apply every weight row to
 // several input rows at once: the static-batch steps of megabatch.cu (B
 // slots), the speculative verify passes of megaverify.cu (R verify rows of
-// one sequence) and the batched verify passes of megabatch_verify.cu (R rows
-// of each of B slots). Included after megastep_common.cuh, whose prologues
+// one sequence) and, in fp32, the batched verify passes of megabatch_verify.cu
+// (R rows of each of B slots; in bf16 those take gemm_rows_tc.cuh's tensor
+// cores). Included after megastep_common.cuh, whose prologues
 // and epilogues it reuses; like it, each including source gets its own copy
 // (anonymous namespace).
 

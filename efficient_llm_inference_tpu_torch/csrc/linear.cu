@@ -8,12 +8,27 @@
 // to bf16, the codes exact, an fp32 sum, times the column's scale in fp32,
 // then cast to x's type).
 //
+// Two routes, chosen by the dtype pair alone:
+//
+// * bf16 x and bf16 w (elit_linear_bf16): the tensor cores, through
+//   gemm_rows_tc.cuh's skinny GEMM on the [E, F] weight as it lies (N = F
+//   contiguous: ldmatrix.trans), every weight read once for up to 256 rows,
+//   K split by (F, E) alone, so a row's result does not depend on B. The
+//   JAX kernel is dot_general with preferred fp32 and a cast: bf16 x bf16
+//   products are exact in fp32, so only the order of the sum differs.
+//   Ragged edges (E = 96, 100; F = 77, 50257) are zero-filled; rows that
+//   are not 16-byte aligned (F or E not a multiple of 8) are loaded element
+//   by element, the weights a stage ahead in registers.
+// * a pair with an fp32 operand, and the int8 codes (elit_linear,
+//   elit_linear_int8): the CUDA cores in fp32, which keeps the fp32 oracle
+//   exact (TF32 would not) and int8's 16-byte code loads.
+//
 // Bound: bytes. At B <= 8 every weight element is used for at most 8
 // multiply-adds, far below the ~20 operations per byte at which the H100's
 // fp32 CUDA cores would limit, so the floor is the weight bytes
-// (E F itemsize, plus F scales) / 3.35 TB/s. The design streams w exactly
-// once per group of 8 rows with enough loads in flight to fill the card:
-//
+// (E F itemsize, plus F scales) / 3.35 TB/s. The CUDA-core design streams w
+// exactly once per group of 8 rows with enough loads in flight to fill the
+// card:
 // * a block of 8 warps owns a strip of 256 output columns and 8 x ec rows
 //   of E (ec in {8, 16, 32, 64}, chosen by the host so that the grid has at
 //   least two blocks an SM); each warp walks its own ec rows, 4 rows at a
@@ -35,12 +50,17 @@
 //
 // C interface (loaded with ctypes): returns cudaGetLastError() after the
 // launches; elit_cuda_error_string names a code. dtypes: 0 = float32,
-// 1 = bfloat16 (x and, for elit_linear, w). x, w, out contiguous; part is
-// fp32 scratch of ceil(E / (8 ec)) x B x F.
+// 1 = bfloat16 (x and, for elit_linear, w; elit_linear takes no bf16 pair).
+// x, w, out contiguous; part is fp32 scratch of ceil(E / (8 ec)) x B x F.
+// elit_linear_bf16: part holds tcg::part_floats(F, E, min(B, 256)) floats,
+// counters tcg::kCounters zeroed ints (left zeroed); above 256 rows the
+// groups of 256 run in turn.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_rows_tc.cuh"
 
 namespace {
 
@@ -230,10 +250,35 @@ extern "C" int elit_linear(int x_dtype, int w_dtype, const void* x, int B, int E
     return launch<float, __nv_bfloat16, false>(x, B, E, w, F, nullptr, ec, vec, part, out, st);
   if (x_dtype == 1 && w_dtype == 0)
     return launch<__nv_bfloat16, float, false>(x, B, E, w, F, nullptr, ec, vec, part, out, st);
-  if (x_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(x, B, E, w, F, nullptr, ec, vec, part,
-                                                       out, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // bf16 x bf16: elit_linear_bf16
+}
+
+namespace {
+
+// The tensor-core route's epilogue: out[r, n] = bf16(y).
+struct StoreEpi {
+  __nv_bfloat16* out;
+  __device__ void apply(const float* ys, int ldy, int n0, int N, int R) {
+    for (int i = threadIdx.x; i < R * tcg::BM; i += tcg::kThreads) {
+      const int r = i / tcg::BM, m = i - r * tcg::BM;
+      if (n0 + m < N) out[(size_t)r * N + n0 + m] = __float2bfloat16(ys[r * ldy + m]);
+    }
+  }
+  __device__ void finish(int) {}
+  StoreEpi shifted(int r0, int N, int) const { return {out + (size_t)r0 * N}; }
+};
+
+}  // namespace
+
+extern "C" int elit_linear_bf16(const void* x, int B, int E, const void* w, int F, int x_aligned,
+                                int w_aligned, float* part, long long part_len, int* counters,
+                                void* out, void* stream) {
+  if (B < 1 || E < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  const tcg::Gemm g{w, nullptr, 0, F, E, B, static_cast<const __nv_bfloat16*>(x), w_aligned,
+                    x_aligned, 1, part, counters};
+  return tcg::gemm_rows<tcg::LAYOUT_KN, W_T>(g, part_len, 0, nullptr,
+                                             StoreEpi{static_cast<__nv_bfloat16*>(out)},
+                                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int elit_linear_int8(int x_dtype, const void* x, int B, int E, const int8_t* w,

@@ -639,7 +639,7 @@ class InferenceEngine:
     def benchmark_method(
         self,
         prompts: List[str],
-        method: str = "full_cache",
+        method: str = "no_cache",
         max_new_tokens: int = 32,
         window_size: int = 256,
         block_size: int = 64,
@@ -653,6 +653,8 @@ class InferenceEngine:
         warmup: bool = True,
     ) -> dict:
         """Run one method over a list of prompts; the JAX package's
+        signature (its defaults too: `method` "no_cache", which raises
+        NotImplementedError until ROADMAP Queue 1 item 5 ports it) and
         metric-dict schema. `warmup=True` runs each prompt bucket once
         before timing, so first-use costs (kernel build and load, allocator
         growth) stay out of the throughput."""

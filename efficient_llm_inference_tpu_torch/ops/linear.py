@@ -2,11 +2,14 @@
 
 Port of efficient_llm_inference_tpu/ops/pallas/linear.py (`pallas_linear`,
 `pallas_linear_int8`, `quantize_weight_int8`). On a CUDA tensor each linear
-wrapper launches its kernel of `csrc/linear.cu` (a partial pass over column
-strips and slices of E, then an ordered sum of the partials); on a CPU
-tensor it runs the plain PyTorch version beside it. Launches are counted in
-`<wrapper>.launches`. The layout is JAX's: x [B, E], w [E, F] (the port's
-own [L, E, F] parameters, one layer sliced, are in it too).
+wrapper launches its kernel of `csrc/linear.cu`: two bf16 operands go to
+the tensor cores (`csrc/gemm_rows_tc.cuh`: every weight read once for up to
+256 rows, the K split fixed by (E, F)); a pair with an fp32 operand and the
+int8 codes to the CUDA cores (a partial pass over column strips and slices
+of E, then an ordered sum of the partials). `launch_plan` says which. On a
+CPU tensor each runs the plain PyTorch version beside it. Launches are
+counted in `<wrapper>.launches`. The layout is JAX's: x [B, E], w [E, F]
+(the port's own [L, E, F] parameters, one layer sliced, are in it too).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from . import _gemm_rows
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WARPS, _STRIP = 8, 256  # csrc/linear.cu: warps a block, columns a block
@@ -34,6 +38,9 @@ def _kernels() -> ctypes.CDLL:
         lib.elit_linear_int8.restype = i
         # x_dtype, x, B, E, w_q, F, scale, ec, vec, part, out, stream
         lib.elit_linear_int8.argtypes = [i, p, i, i, p, i, p, i, i, p, p, p]
+        lib.elit_linear_bf16.restype = i
+        # x, B, E, w, F, x_aligned, w_aligned, part, part_len, counters, out, stream
+        lib.elit_linear_bf16.argtypes = [p, i, i, p, i, i, i, p, ctypes.c_longlong, p, p, p]
         _lib = lib
     return _lib
 
@@ -78,6 +85,37 @@ def _launch(fn, x, w, scale, B, E, F, elem, extra):
     return out
 
 
+def launch_plan(B: int, E: int, F: int, x_dtype: torch.dtype,
+                w_dtype: torch.dtype) -> dict:
+    """How `pallas_linear` computes [B, E] x [E, F] on the card: the route
+    ("tensor_cores" for two bf16 operands, else "cuda_cores"), and for the
+    tensor cores the K-split count (a function of (E, F) alone) and the fp32
+    scratch floats of its partials (rows in groups of 256)."""
+    if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
+        return {"route": "tensor_cores", "splits": _gemm_rows.split_count(F, E),
+                "part_floats": _gemm_rows.part_floats(F, E, B)}
+    return {"route": "cuda_cores"}
+
+
+def _launch_bf16(x, w, B, E, F):
+    """The tensor-core route: bf16 out, the split partials' scratch, and
+    whether the rows of x and w are 16-byte aligned (cp.async) or not
+    (element loads)."""
+    out = torch.empty((B, F), dtype=x.dtype, device=x.device)
+    if B == 0 or F == 0:
+        return out
+    n = _gemm_rows.part_floats(F, E, B)
+    part = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
+    x_al = int(E % 8 == 0 and x.data_ptr() % 16 == 0)
+    w_al = int(F % 8 == 0 and w.data_ptr() % 16 == 0)
+    lib = _kernels()
+    rc = lib.elit_linear_bf16(x.data_ptr(), B, E, w.data_ptr(), F, x_al, w_al, part.data_ptr(),
+                              n, _gemm_rows.tile_counters(x.device).data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "pallas_linear")
+    return out
+
+
 def pallas_linear_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: x @ w with both promoted to fp32 and the sum
     in fp32 (JAX's dot_general with preferred fp32), cast to x.dtype."""
@@ -87,16 +125,19 @@ def pallas_linear_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def pallas_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [B, E]; w: [E, F] -> [B, F] in x.dtype, fp32 accumulation. x and w
     may each be fp32 or bf16 (a mixed pair computes in fp32). On a CUDA
-    tensor it launches `csrc/linear.cu` and counts one launch in
+    tensor it launches `csrc/linear.cu` (two bf16 operands on the tensor
+    cores, else the CUDA cores: `launch_plan`) and counts one launch in
     `pallas_linear.launches`; on a CPU tensor it runs `pallas_linear_plain`."""
     if x.device.type == "cpu":
         return pallas_linear_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     B, E, F = _check(x, w, _DTYPE_CODE)
-    lib = _kernels()
-    out = _launch(lib.elit_linear, x, w, None, B, E, F, "pallas_linear",
-                  (_DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype]))
+    if launch_plan(B, E, F, x.dtype, w.dtype)["route"] == "tensor_cores":
+        out = _launch_bf16(x, w, B, E, F)
+    else:
+        out = _launch(_kernels().elit_linear, x, w, None, B, E, F, "pallas_linear",
+                      (_DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype]))
     pallas_linear.launches += 1
     return out
 

@@ -8,10 +8,13 @@ Port of efficient_llm_inference_tpu/ops/pallas/megakernel_batch_verify.py
 weights and the int8 / grouped-int4 weight tiers). The TPU program
 verifies every slot's R-row block on one weight pass; on the H100 the pass
 is the verify chain of ops/megakernel.py's `gpt2_megaverify` with the slot
-dimension of ops/megakernel_batch.py, `csrc/megabatch_verify.cu`: every
-weight row is read once for all B x R rows, a writer stores each slot's R
-new K/V rows at lengths[b] .. lengths[b] + R - 1 before attention, and
-attention runs one block per (query head, row, slot).
+dimension of ops/megakernel_batch.py, `csrc/megabatch_verify.cu`: in bf16
+every weight is read once for all B x R rows by the tensor cores
+(`csrc/gemm_rows_tc.cuh`, the K split fixed by the weight's shape, so a
+row's tokens do not depend on the slots beside it; `verify_gemv` runs one
+such GEMV alone), in fp32 once per group of 8 rows on the CUDA cores; a
+writer stores each slot's R new K/V rows at lengths[b] .. lengths[b] + R - 1
+before attention, and attention runs one block per (query head, row, slot).
 The continuous-batching server's speculative chunks
 (engine/megaserver.py) launch it once a round.
 
@@ -42,6 +45,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import _gemm_rows
 from . import megakernel as mk
 from . import megakernel_llama as ml
 from . import megakernel_quant as mq
@@ -201,18 +205,26 @@ def llama_megabatch_verify_quant_plain(packed: dict, k, v, ks, vs, lengths, x, *
 # The kernels: the single-stream launchers with a slot and a row dimension.
 
 
+# The bf16 chain's tensor-core scratch, after the weight tier: the
+# normalised rows, the split GEMVs' fp32 partials and their tile counters.
+TC_FIELDS = [("xn", ctypes.c_void_p), ("tc_part", ctypes.c_void_p),
+             ("tc_part_len", ctypes.c_longlong), ("tc_count", ctypes.c_void_p)]
+
+
 class GPT2BatchVerifyArgs(ctypes.Structure):
     """Mirror of `struct Gpt2BatchVerifyArgs` in csrc/megabatch_verify.cu: B,
-    R, then ops/megakernel.py's `MegaStepArgs`."""
+    R, then ops/megakernel.py's `MegaStepArgs`, then `TC_FIELDS`."""
 
-    _fields_ = [("batch", ctypes.c_int), ("rows", ctypes.c_int)] + mk.MegaStepArgs._fields_
+    _fields_ = ([("batch", ctypes.c_int), ("rows", ctypes.c_int)] + mk.MegaStepArgs._fields_
+                + TC_FIELDS)
 
 
 class LlamaBatchVerifyArgs(ctypes.Structure):
     """Mirror of `struct LlamaBatchVerifyArgs` in csrc/megabatch_verify.cu:
-    B, R, then ops/megakernel_llama.py's `LlamaStepArgs`."""
+    B, R, then ops/megakernel_llama.py's `LlamaStepArgs`, then `TC_FIELDS`."""
 
-    _fields_ = [("batch", ctypes.c_int), ("rows", ctypes.c_int)] + ml.LlamaStepArgs._fields_
+    _fields_ = ([("batch", ctypes.c_int), ("rows", ctypes.c_int)] + ml.LlamaStepArgs._fields_
+                + TC_FIELDS)
 
 
 _lib = None
@@ -228,13 +240,39 @@ def kernels() -> ctypes.CDLL:
                          (lib.elit_llama_megabatch_verify_quant, LlamaBatchVerifyArgs)):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.elit_verify_gemv.restype = i
+        # w, ws, w_kind, group, N, K, R, x, part, part_len, counters, out, stream
+        lib.elit_verify_gemv.argtypes = [p, p, i, i, i, i, i, p, p, ctypes.c_longlong, p, p, p]
         _lib = lib
     return _lib
 
 
+def tc_scratch_floats(gemvs, rows: int) -> int:
+    """fp32 partials the bf16 chain's split GEMVs take: the largest of
+    `_gemm_rows.part_floats` over its [N, K] weights `gemvs` at `rows`."""
+    return max(_gemm_rows.part_floats(N, K, rows) for N, K in gemvs)
+
+
 class BatchVerifyLayout:
     """The batched verify launchers' layout: [L, B, C, W] panes, R rows a
-    slot (B x R token rows), B lengths, (B, R) first in the args struct."""
+    slot (B x R token rows), B lengths, (B, R) first in the args struct;
+    in bf16 the tensor-core GEMVs' scratch (`TC_FIELDS`) last."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        a = self.args
+        if a.dtype != mk._DTYPE_CODE[torch.bfloat16]:
+            return
+        rows = a.batch * a.rows
+        dev = self.device
+        n = tc_scratch_floats(self.gemvs(a), rows)
+        xn = torch.empty(rows * a.n_embd, dtype=torch.bfloat16, device=dev)
+        part = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+        count = torch.zeros(_gemm_rows.COUNTERS, dtype=torch.int32, device=dev)
+        self._refs = self._refs + (xn, part, count)
+        a.xn, a.tc_part, a.tc_part_len, a.tc_count = (xn.data_ptr(), part.data_ptr(), n,
+                                                      count.data_ptr())
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         if k.dim() != 4:
@@ -256,12 +294,26 @@ class GPT2BatchVerifyLauncher(BatchVerifyLayout, mk.StepLauncher):
     entry = {False: "elit_gpt2_megabatch_verify", True: "elit_gpt2_megabatch_verify_quant"}
     args_type = GPT2BatchVerifyArgs
 
+    @staticmethod
+    def gemvs(a) -> list:
+        """The chain's GEMV weights as [N, K]: qkv, out-proj, fc, fc-proj,
+        the LM head."""
+        E = a.n_embd
+        return [(3 * E, E), (E, E), (4 * E, E), (E, 4 * E), (a.vocab, E)]
+
 
 class LlamaBatchVerifyLauncher(BatchVerifyLayout, ml.LlamaStepLauncher):
     """The prepared arguments of one batched Llama/Qwen verify pass."""
 
     entry = {False: "elit_llama_megabatch_verify", True: "elit_llama_megabatch_verify_quant"}
     args_type = LlamaBatchVerifyArgs
+
+    @staticmethod
+    def gemvs(a) -> list:
+        """The chain's GEMV weights as [N, K]: q|k|v, o, gate|up, down, the
+        LM head."""
+        E, QW, KW = a.n_embd, a.n_head * a.head_dim, a.n_kv_head * a.head_dim
+        return [(QW + 2 * KW, E), (E, QW), (2 * a.inter, E), (E, a.inter), (a.vocab, E)]
 
 
 def launch_batch_verify(launcher, counter, packed, cfg, k, v, lengths, x, **kw):
@@ -375,3 +427,69 @@ def llama_megabatch_verify_quant(packed: dict, k, v, ks, vs, lengths, x, *, cfg,
 
 llama_megabatch_verify_quant.launches = 0
 llama_megabatch_verify_quant.tiers = mk.tier_counts()
+
+
+# ---------------------------------------------------------------------------
+# One GEMV of the bf16 chain alone (measurement and the card's tests).
+
+
+def _tier_of(w: torch.Tensor, scales) -> str:
+    if w.dtype == torch.bfloat16:
+        return "fp"
+    if scales is None:
+        raise ValueError("quantized rows need their scales")
+    return "int8" if w.dtype == torch.int8 else "int4"
+
+
+def verify_gemv_plain(x: torch.Tensor, w: torch.Tensor,
+                      scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of `verify_gemv`: bf16(x @ W^T) with fp32 sums,
+    W in its tier's arithmetic (ops/megakernel.py `wmv` for every row of x:
+    int8 the row's fp32 sum times its scale, int4 each group's fp32 sum
+    times its scale, summed)."""
+    tier = _tier_of(w, scales)
+    if tier == "fp":
+        return (x.float() @ w.float().t()).to(torch.bfloat16)
+    if tier == "int8":
+        return ((x.float() @ w.float().t()) * scales.float()).to(torch.bfloat16)
+    N, K = w.shape[0], 2 * w.shape[1]
+    ng = scales.shape[-1]
+    v = torch.stack(mk._unpack_nibbles(w), dim=-1).reshape(N, ng, K // ng).float()
+    sums = torch.einsum("rgk,ngk->rng", x.float().reshape(-1, ng, K // ng), v)
+    return (sums * scales.float()).sum(-1).to(torch.bfloat16)
+
+
+def verify_gemv(x: torch.Tensor, w: torch.Tensor,
+                scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One GEMV of the bf16 batched verify chain alone, on its tensor-core
+    route: x [R, K] bf16 (1 <= R <= 256) times weight rows W [N, K] ->
+    bf16 [R, N], no prologue or bias. W: bf16 [N, K], int8 codes [N, K] with
+    fp32 row scales [N], or packed int4 rows uint8 [N, K/2] with bf16 scales
+    [N, K/G]. On a CUDA tensor it launches `elit_verify_gemv` of
+    `csrc/megabatch_verify.cu` and counts one launch in
+    `verify_gemv.launches`; on a CPU tensor it runs `verify_gemv_plain`."""
+    if x.device.type == "cpu":
+        return verify_gemv_plain(x, w, scales)
+    tier = _tier_of(w, scales)
+    R, K = x.shape
+    N = w.shape[0]
+    group = K // scales.shape[-1] if tier == "int4" else 0
+    if x.dtype != torch.bfloat16 or not 1 <= R <= MAX_ROWS or not x.is_contiguous() \
+            or not w.is_contiguous() or (scales is not None and not scales.is_contiguous()):
+        raise ValueError(f"verify_gemv: x {x.dtype} {tuple(x.shape)}: expected contiguous "
+                         f"bf16 [1..{MAX_ROWS}, K] and contiguous weights")
+    n = _gemm_rows.part_floats(N, K, R)
+    part = torch.empty(max(n, 1), dtype=torch.float32, device=x.device)
+    out = torch.empty((R, N), dtype=torch.bfloat16, device=x.device)
+    lib = kernels()
+    rc = lib.elit_verify_gemv(w.data_ptr(), None if scales is None else scales.data_ptr(),
+                              mk.WEIGHT_CODE[tier], group, N, K, R, x.data_ptr(),
+                              part.data_ptr(), n, _gemm_rows.tile_counters(x.device).data_ptr(),
+                              out.data_ptr(),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "verify_gemv")
+    verify_gemv.launches += 1
+    return out
+
+
+verify_gemv.launches = 0

@@ -420,8 +420,8 @@ def _batch_case(family, mode, dtype, B, device, wq=None):
     """(packed, cfg, panes and scales [L, B, C, W], x [B, E]) of a model of
     `family`: "gpt2" E = 256, head_dim 128; "gpt2-full" GPT-2 small at full
     width (a 48 KB staged input at B = 8 in bf16: the shared-memory opt-in);
-    "llama" G = 2, KW = 256. With `wq`, the weights of that weight_quant
-    (`_tier_packed`)."""
+    "llama" G = 2, KW = 256; "llama-3-1b-L2" Llama-3.2-1B's widths at 2
+    layers. With `wq`, the weights of that weight_quant (`_tier_packed`)."""
     C = 128
     if wq is not None:
         kind, cfg, packed = _tier_packed(TIER_OF[family], wq, dtype, device)
@@ -433,7 +433,8 @@ def _batch_case(family, mode, dtype, B, device, wq=None):
                                         torch.float32, device)
         packed, W, E = tmk.pack_gpt2_mega(params, cfg), cfg.n_embd, cfg.n_embd
     else:
-        cfg = _llama_cfg("g2")
+        cfg = (dataclasses.replace(tllama.LlamaConfig.llama3_1b(), n_layer=2)
+               if family == "llama-3-1b-L2" else _llama_cfg("g2"))
         packed = tml.pack_llama_mega(_llama_params(cfg, device), cfg)
         W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
     if wq is None:
@@ -1313,3 +1314,132 @@ def test_tier_megabatch_verify_matches_plain(cuda, family, wq, mode, dtype):
     """#18-#21 over quantized weights, 3 slots x 5 rows, with
     test_megabatch_verify_matches_plain's checks and tolerances."""
     _check_megabatch_verify(cuda, family, mode, dtype, 3, 5, wq)
+
+
+# ------------------- the bf16 tensor-core route (#7, the batched verify GEMVs)
+
+TC_LINEAR_SHAPES = [(2048, 8192), (768, 50257), (96, 77), (100, 200)]
+
+
+@pytest.mark.parametrize("E,F", TC_LINEAR_SHAPES)
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 16, 64, 256])
+def test_pallas_linear_bf16_tensor_cores_match_plain(cuda, B, E, F):
+    """#7 on two bf16 operands runs the tensor-core route at every B (ragged
+    E and F, unaligned rows) and agrees with `pallas_linear_plain` within
+    one bf16 ulp plus 1e-5 of the largest output (the fp32 sums' order);
+    fp32 pairs stay on the CUDA-core kernel."""
+    assert tlin.launch_plan(B, E, F, BF16, BF16)["route"] == "tensor_cores"
+    for pair in ((F32, F32), (F32, BF16), (BF16, F32)):
+        assert tlin.launch_plan(B, E, F, *pair)["route"] == "cuda_cores"
+    g = torch.Generator(device="cpu").manual_seed(B + E + F)
+    x = torch.randn((B, E), generator=g).to(BF16).to(cuda)
+    w = (torch.randn((E, F), generator=g) / E ** 0.5).to(BF16).to(cuda)
+    before = tlin.pallas_linear.launches
+    got = tlin.pallas_linear(x, w)
+    torch.cuda.synchronize()
+    assert tlin.pallas_linear.launches == before + 1 and got.dtype == BF16
+    assert _linear_close(got, tlin.pallas_linear_plain(x, w), BF16)
+
+
+@pytest.mark.parametrize("E,F", TC_LINEAR_SHAPES)
+def test_pallas_linear_bf16_rows_independent(cuda, E, F):
+    """A row's bf16 result is bitwise the same launched alone, among 8 and
+    among 256 rows (the K split depends on (E, F) alone)."""
+    g = torch.Generator(device="cpu").manual_seed(E + F)
+    x = torch.randn((256, E), generator=g).to(BF16).to(cuda)
+    w = (torch.randn((E, F), generator=g) / E ** 0.5).to(BF16).to(cuda)
+    full = tlin.pallas_linear(x, w)
+    eight = tlin.pallas_linear(x[:8].clone(), w)
+    for r in (0, 5):
+        one = tlin.pallas_linear(x[r:r + 1].clone(), w)
+        assert torch.equal(one[0], full[r]) and torch.equal(one[0], eight[r])
+
+
+def _gemv_weight(N, K, tier, g, device):
+    """Weight rows [N, K] of a tier: bf16, int8 codes with fp32 row scales,
+    or packed int4 (group 128) with bf16 scales, as the packers lay them."""
+    w = torch.randn((N, K), generator=g) / K ** 0.5
+    if tier == "fp":
+        return w.to(BF16).to(device), None
+    if tier == "int8":
+        q, s = tlin.quantize_weight_int8(w, axis=1)
+        return q.to(device), s.reshape(N).to(device)
+    q = tgpt2.quantize_int4_weights(w.t().contiguous(), 128)  # [K/G, G/2, N] codes
+    codes = q["q4"].permute(2, 0, 1).reshape(N, K // 2).contiguous()
+    return codes.to(device), q["s"][:, 0, :].t().contiguous().to(BF16).to(device)
+
+
+@pytest.mark.parametrize("tier", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("R,N,K", [(64, 16384, 2048), (128, 3072, 768), (8, 50257, 768),
+                                   (1, 2048, 8192), (256, 768, 3072), (37, 3072, 2048)])
+def test_verify_gemv_matches_plain(cuda, R, N, K, tier):
+    """One GEMV of the bf16 batched verify chain (Llama-3.2-1B gate/up and
+    down, GPT-2 small fc, fc-proj and LM head shapes) against its plain
+    version: within one bf16 ulp plus 1e-5 of the largest output."""
+    g = torch.Generator(device="cpu").manual_seed(R + N + K)
+    w, s = _gemv_weight(N, K, tier, g, cuda)
+    x = torch.randn((R, K), generator=g).to(BF16).to(cuda)
+    before = tbv.verify_gemv.launches
+    got = tbv.verify_gemv(x, w, s)
+    torch.cuda.synchronize()
+    assert tbv.verify_gemv.launches == before + 1
+    assert _linear_close(got, tbv.verify_gemv_plain(x, w, s), BF16)
+
+
+@pytest.mark.parametrize("tier", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("N,K", [(3072, 768), (2048, 8192)])
+def test_verify_gemv_rows_independent(cuda, N, K, tier):
+    """A row's GEMV output is bitwise the same among 1, 8 and 256 rows."""
+    g = torch.Generator(device="cpu").manual_seed(N + K)
+    w, s = _gemv_weight(N, K, tier, g, cuda)
+    x = torch.randn((256, K), generator=g).to(BF16).to(cuda)
+    full = tbv.verify_gemv(x, w, s)
+    eight = tbv.verify_gemv(x[8:16].clone(), w, s)
+    one = tbv.verify_gemv(x[11:12].clone(), w, s)
+    assert torch.equal(one[0], full[11]) and torch.equal(eight[3], full[11])
+
+
+@pytest.mark.parametrize("wq", [None, "int8", "int4", "int4w8"])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("B", [1, 8, 16, 32])
+@pytest.mark.parametrize("family", ["gpt2-full", "llama-3-1b-L2"])
+def test_tc_megabatch_verify_matches_plain(cuda, family, B, mode, wq):
+    """#18-#21 in bf16 on the tensor-core GEMVs at B x 8 rows (8 to 256), at
+    GPT-2 small's and Llama-3.2-1B's widths (2 layers), every pane kind and
+    weight tier, with test_megabatch_verify_matches_plain's checks and bf16
+    limits."""
+    _check_megabatch_verify(cuda, family, mode, BF16, B, 8, wq)
+
+
+@pytest.mark.parametrize("wq", [None, "int8", "int4"])
+@pytest.mark.parametrize("mode", ["fp", "int8"])
+@pytest.mark.parametrize("family", ["gpt2-full", "llama-3-1b-L2"])
+def test_tc_megabatch_verify_rows_independent(cuda, family, mode, wq):
+    """A slot's verify rows are bitwise independent of the slots launched
+    beside it: slot 0 (and slot 3) of a 1 x 8, an 8 x 8 and a 32 x 8 bf16
+    launch over the same panes write the same K/V rows bit for bit and
+    propose the same tokens."""
+    packed, cfg, state, _ = _batch_case(family, mode, BF16, 32, cuda, wq)
+    lengths = torch.tensor([VERIFY_BATCH_LENGTHS[b % 8] for b in range(32)],
+                           dtype=torch.int32, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (32 * 8,), generator=g).to(torch.int32).to(cuda)
+    gpt2 = family.startswith("gpt2")
+    kern = {(True, False): tbv.gpt2_megabatch_verify,
+            (True, True): tbv.gpt2_megabatch_verify_quant,
+            (False, False): tbv.llama_megabatch_verify,
+            (False, True): tbv.llama_megabatch_verify_quant}[(gpt2, mode != "fp")]
+    kw = {"kv_mode": mode} if mode != "fp" else {}
+    runs = {}
+    for B in (1, 8, 32):
+        panes = [t[:, :B].clone() for t in state]
+        toks = kern(packed, *panes, lengths[:B].clone(), ids[:B * 8].clone(), cfg=cfg,
+                    **kw)[0]
+        runs[B] = (toks, panes)
+    torch.cuda.synchronize()
+    for B, b in ((1, 0), (8, 0), (8, 3)):
+        toks, panes = runs[B]
+        assert torch.equal(toks[b], runs[32][0][b]), (B, b)
+        for p_, q_ in zip(panes, runs[32][1]):
+            assert torch.equal(p_[:, b], q_[:, b]), (B, b)
+

@@ -117,3 +117,24 @@ def test_generate_logits_rejects_wrong_forced_length(engines):
     _, teng = engines
     with pytest.raises(ValueError, match="forced tokens"):
         teng.generate_logits(PROMPTS[0], "full_cache", 4, forced=[1, 2])
+
+
+def test_benchmark_method_defaults_are_jax():
+    """Every default of the port's benchmark_method signature is the JAX
+    engine's, `method` ("no_cache") included."""
+    import inspect
+
+    want = inspect.signature(JaxEngine.benchmark_method).parameters
+    got = inspect.signature(InferenceEngine.benchmark_method).parameters
+    assert list(got) == list(want)
+    for name, p in want.items():
+        assert got[name].default == p.default, name
+
+
+def test_benchmark_method_bare_call_selects_no_cache(engines):
+    """Without `method` the port selects JAX's default, no_cache, which is
+    not ported yet: it raises naming its ROADMAP item instead of measuring
+    another method."""
+    _, teng = engines
+    with pytest.raises(NotImplementedError, match="'no_cache'.*Queue 1 item 5"):
+        teng.benchmark_method(PROMPTS, max_new_tokens=2)

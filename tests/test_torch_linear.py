@@ -11,7 +11,10 @@ fp32: both sum fp32 products of the same values, in another order (the
 int8 form's products bf16(x) * code are exact in fp32). Shapes: the JAX
 tests' ([1, 64] x [64, 256], [4, 128] x [128, 512], int8 [2, 64] x
 [64, 256]), a ragged F (the JAX kernel takes it as one tile), B past 8 rows,
-and the mixed fp32/bf16 pairs, which JAX computes in fp32.
+and the mixed fp32/bf16 pairs, which JAX computes in fp32. The card route's
+host plan (`launch_plan`: the tensor cores for two bf16 operands, their
+K-split count and scratch) is held to a table: the split count depends on
+(E, F) alone, never on B.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from efficient_llm_inference_tpu.ops.pallas import linear as jlin
+from efficient_llm_inference_tpu_torch.ops import _gemm_rows
 from efficient_llm_inference_tpu_torch.ops import linear as tlin
 
 SHAPES = [(1, 64, 256), (4, 128, 512), (3, 96, 77), (9, 64, 200)]
@@ -65,6 +69,48 @@ def test_pallas_linear_dtypes_match_jax(x_dt, w_dt):
     got = tlin.pallas_linear(tx, tw)
     assert got.dtype == getattr(torch, x_dt) and str(want.dtype) == x_dt
     _close(got, want, tol=2e-5 if x_dt == "float32" else 2 ** -8)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,E,F", [(16, 96, 77), (64, 100, 200), (16, 200, 136),
+                                   (64, 48, 50)])
+def test_pallas_linear_rows_and_ragged_edges_match_jax(B, E, F, dt):
+    """B past the tensor-core route's n8 tiles (16, 64 rows), a ragged F and
+    an E that is not a multiple of 16, for the pairs of each route (bf16 x
+    bf16: tensor cores; fp32: CUDA cores), against JAX's kernel in
+    interpret mode."""
+    x, w = _inputs(B, E, F, seed=B + E + F)
+    jx, jw = (jnp.asarray(a).astype(getattr(jnp, dt)) for a in (x, w))
+    want = jlin.pallas_linear(jx, jw, interpret=True)
+    tx, tw = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dt))
+              for a in (jx, jw))
+    got = tlin.pallas_linear(tx, tw)
+    assert got.dtype == getattr(torch, dt)
+    _close(got, want, tol=2e-5 if dt == "float32" else 2 ** -8)
+
+
+# (E, F) -> the tensor-core route's K splits: about 132 blocks over tiles of
+# 128 outputs (1 from 67 tiles: GPT-2's LM head, Llama's gate/up), at most 4
+# splits of at least 4 stages of 64 inputs
+SPLITS = {(2048, 8192): 2, (768, 50257): 1, (96, 77): 1, (100, 200): 1, (8192, 2048): 4,
+          (3072, 768): 4, (768, 3072): 3, (2048, 16384): 1, (2048, 3072): 4}
+
+
+@pytest.mark.parametrize("E,F", list(SPLITS))
+def test_launch_plan_table(E, F):
+    """The route per dtype pair, and the tensor cores' split count and
+    scratch floats: the same split count at every B (a row's sums do not
+    depend on the rows beside it), scratch for at most 256 rows a launch."""
+    for B in (1, 2, 8, 9, 64, 256, 300):
+        plan = tlin.launch_plan(B, E, F, torch.bfloat16, torch.bfloat16)
+        S = SPLITS[(E, F)]
+        tiles = -(-F // 128)
+        assert plan == {"route": "tensor_cores", "splits": S,
+                        "part_floats": S * min(B, 256) * tiles * 128 if S > 1 else 0}
+        assert _gemm_rows.split_count(F, E) == S
+        for pair in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                     (torch.bfloat16, torch.float32)):
+            assert tlin.launch_plan(B, E, F, *pair) == {"route": "cuda_cores"}
 
 
 @pytest.mark.parametrize("B,E,F", SHAPES)

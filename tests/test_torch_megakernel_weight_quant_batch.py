@@ -210,19 +210,23 @@ def test_tier_kernels_plain_match_jax(case):
 
 
 def test_launcher_structs_carry_the_weight_tier():
-    """Every verify and batched args struct ends with the single-stream
-    struct's weight-tier fields (the C structs' trailing fields), after its
-    leading rows / batch fields."""
-    for struct, lead, base in (
-            (tmk.GPT2VerifyArgs, ["rows"], tmk.MegaStepArgs),
-            (tml.LlamaVerifyArgs, ["rows"], tml.LlamaStepArgs),
-            (tmb.GPT2BatchArgs, ["batch"], tmk.MegaStepArgs),
-            (tmb.LlamaBatchArgs, ["batch"], tml.LlamaStepArgs),
-            (tbv.GPT2BatchVerifyArgs, ["batch", "rows"], tmk.MegaStepArgs),
-            (tbv.LlamaBatchVerifyArgs, ["batch", "rows"], tml.LlamaStepArgs)):
+    """Every verify and batched args struct carries the single-stream
+    struct's fields, ending with its weight-tier fields, after its leading
+    rows / batch fields; the batched verify's then end with the bf16
+    chain's tensor-core scratch (the C structs' trailing fields)."""
+    tc = [f[0] for f in tbv.TC_FIELDS]
+    assert tc == ["xn", "tc_part", "tc_part_len", "tc_count"]
+    for struct, lead, base, tail in (
+            (tmk.GPT2VerifyArgs, ["rows"], tmk.MegaStepArgs, []),
+            (tml.LlamaVerifyArgs, ["rows"], tml.LlamaStepArgs, []),
+            (tmb.GPT2BatchArgs, ["batch"], tmk.MegaStepArgs, []),
+            (tmb.LlamaBatchArgs, ["batch"], tml.LlamaStepArgs, []),
+            (tbv.GPT2BatchVerifyArgs, ["batch", "rows"], tmk.MegaStepArgs, tc),
+            (tbv.LlamaBatchVerifyArgs, ["batch", "rows"], tml.LlamaStepArgs, tc)):
         names = [f[0] for f in struct._fields_]
-        assert names == lead + [f[0] for f in base._fields_], struct
+        assert names == lead + [f[0] for f in base._fields_] + tail, struct
         assert {"w_kind", "w_group", "head_s"} <= set(names)
+        assert names[-len(tail) - 1] == "head_s"
 
 
 @pytest.mark.parametrize("family", ["gpt2", "llama"])
