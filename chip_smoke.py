@@ -26,9 +26,14 @@ Phases (each prints one line with its seconds):
    the host, bf16 on the card);
 4. llama kernels: the Llama whole-step kernels (#13 fp panes, #12 int8/int4/
    mixed panes) against their plain steps with the tolerances of phase 2, at
-   the main path's weights in bf16 and widened to fp32, C=320, lengths 0 and
-   319 (timed at 319), and at a Qwen2.5-0.5B-width model cut to 2 layers
-   (q/k/v biases, 14 query heads on 2, E=896);
+   the main path's weights in bf16 and widened to fp32, C=320 at lengths 0,
+   1, the last row of the split-KV attention's first split and the first of
+   its second (visible last) and 319 (timed at 319), and C=8192 (the
+   capacity limit) at length 8191 (timed), and at a Qwen2.5-0.5B-width
+   model cut to 2 layers (q/k/v biases, 14 query heads on 2, E=896) at
+   C=320; the bf16 new rows at the lengths other than 0 and 319 are held on
+   Llama-3.2-1B's widths cut to 2 layers (over 16 bf16 layers rounding
+   flips compound past phase 2's fp-row limit, whatever the kernel);
 5. main path, for GPT-2 small and for Llama-3.2-1B: InferenceEngine on CUDA
    in bf16, benchmark_method over 2 prompts of 256 tokens with 64 new tokens
    for full_cache, quant_int8, quant_int4 and quant_mixed, first with the
@@ -426,26 +431,26 @@ MEGA_C, MEGA_LEN = PROMPT_TOKENS + NEW_TOKENS, PROMPT_TOKENS + NEW_TOKENS - 1
 MODES = ("fp", "int8", "int4", "mixed")
 
 
-def _mega_state(mode, dtype, seed, L, W, E):
-    """A decode state of C=320 rows (the main path's last step): random
-    [L, C, W] panes (codes and per-token scales for quantized modes) and an
-    embedding [1, E]."""
+def _mega_state(mode, dtype, seed, L, W, E, C=MEGA_C):
+    """A decode state of C rows (by default 320, the main path's last
+    step): random [L, C, W] panes (codes and per-token scales for quantized
+    modes) and an embedding [1, E]."""
     from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
 
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn((1, E), generator=g) * 0.3).to(dtype).cuda()
     if mode == "fp":
-        return [(torch.randn((L, MEGA_C, W), generator=g) * 0.5).to(dtype).cuda()
+        return [(torch.randn((L, C, W), generator=g) * 0.5).to(dtype).cuda()
                 for _ in range(2)], x
 
     def pane(kind):
         lo = -127 if kind == "int8" else -128
         width = W if kind == "int8" else W // 2
-        return torch.randint(lo, 128, (L, MEGA_C, width), generator=g,
+        return torch.randint(lo, 128, (L, C, width), generator=g,
                              dtype=torch.int32).to(torch.int8).cuda()
 
     def scales():
-        return (torch.rand((L, MEGA_C), generator=g) * 0.02 + 1e-3).cuda()
+        return (torch.rand((L, C), generator=g) * 0.02 + 1e-3).cuda()
 
     k_kind, v_kind = mq._kv_kinds(mode)
     return [pane(k_kind), pane(v_kind), scales(), scales()], x
@@ -639,12 +644,68 @@ def _llama_bound(mode, dtype, cfg, rows) -> tuple:
     return bound_ms(n_bytes, flops, rate)
 
 
+LLAMA_LONG_C = 8192  # the kernels' capacity limit
+
+
+def _llama_lengths(cfg, C) -> tuple:
+    """The lengths the Llama steps are held at on C rows: 0 and 1, the last
+    row of the split-KV attention's first split and the first of its second
+    (the launcher's plan on this card) visible last, and C - 1."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    _, rows = ml.attention_plan(C, cfg.n_head, cfg.n_kv_head,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+    return tuple(sorted({0, 1, min(rows, C - 1), min(rows + 1, C - 1), C - 1}))
+
+
+def _llama_case(mode, dtype, cfg, packed, params, C, length, i, name, deep_bf16,
+                check_rows=True):
+    """One Llama step over pane kind MODES[i] at `length` of C rows against
+    its plain step: the token (phase 2's gate) and, with `check_rows`, the
+    new rows (phase 2's limits, `deep_bf16` for quantized rows). Returns
+    (kernel, plain, row error or None, log line)."""
+    KW = cfg.n_kv_head * cfg.head_dim
+    state, _ = _mega_state(mode, dtype, 200 + i + length, cfg.n_layer, KW, cfg.hidden_size, C)
+    x = params["embed"][(length * 7919 + i) % cfg.vocab_size][None]
+    dev_len = torch.tensor([length], dtype=torch.int32, device="cuda")
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+
+    def kernel():
+        return _mega_step(mode, packed, cfg, got, dev_len, x, family="llama")
+
+    def plain():
+        return _mega_step(mode, packed, cfg, want, length, x, plain=True, family="llama")
+
+    tok = int(kernel()[0])
+    logits = plain()[-1]
+    torch.cuda.synchronize()
+    if not _token_ok(tok, logits, dtype):
+        raise AssertionError(f"llama megastep {name} {mode} {dtype} C={C} len={length}: "
+                             f"token {tok}, plain argmax {int(logits.argmax())}")
+    err = (_new_row_err(mode, dtype, got, want, state, row=length, deep_bf16=deep_bf16)
+           if check_rows else None)
+    line = (f"  llama megastep {mode} {str(dtype)[6:]} {name} C={C} len={length}: token "
+            f"{tok} (plain {int(logits.argmax())})"
+            + (f", new rows max|kernel-plain| {err:.2e}" if check_rows else ""))
+    return kernel, plain, err, line
+
+
 def check_llama_megasteps(params_bf16: dict) -> dict:
     """#13 and #12 against their plain steps at Llama-3.2-1B's full width
     (the main path's weights), bf16 and fp32 (the same weights widened), fp,
-    int8, int4 and mixed panes, C=320, lengths 0 and 319 (timed at 319);
-    then a Qwen2.5-0.5B-width model cut to 2 layers (q/k/v biases, 14 query
-    heads on 2 K/V heads, E=896, random weights) the same way, untimed."""
+    int8, int4 and mixed panes, C=320 at lengths 0, 1, the edges of the
+    split-KV attention's first split and 319 (timed at 319), and C=8192
+    (the capacity limit) at length 8191, timed; then a Qwen2.5-0.5B-width
+    model cut to 2 layers (q/k/v biases, 14 query heads on 2 K/V heads,
+    E=896, random weights) the same way at C=320, untimed. Every case holds
+    the token; the new rows are held at 16 layers in fp32 at every length
+    and in bf16 at lengths 0 and 319, and in bf16 at the other lengths and
+    C=8192 on Llama-3.2-1B's widths cut to 2 layers: over 16 bf16 layers
+    the kernel's and the plain step's rounding flips compound past phase
+    2's fp-row limit at some lengths whatever the kernel: the chain before
+    this design drifts there too (scripts/torch_step_drift.py compares two
+    checkouts)."""
     import dataclasses
 
     from efficient_llm_inference_tpu_torch.models import llama as llama_mod
@@ -652,58 +713,41 @@ def check_llama_megasteps(params_bf16: dict) -> dict:
 
     llama = llama_mod.LlamaConfig.llama3_1b()
     qwen = dataclasses.replace(llama_mod.LlamaConfig.qwen25_05b(), n_layer=2)
+    cut = dataclasses.replace(llama, n_layer=2)
     qwen_params = llama_mod.init_llama_params(torch.Generator().manual_seed(7), qwen,
                                               torch.float32, "cuda")
     timing, errs = {}, {}
     for cfg, base, name in ((llama, params_bf16, "Llama-3.2-1B"),
+                            (cut, _first_layers(params_bf16, 2), "Llama-3.2-1B width, L=2"),
                             (qwen, qwen_params, "Qwen2.5-0.5B width, L=2")):
-        KW = cfg.n_kv_head * cfg.head_dim
-        for dtype in (torch.float32, torch.bfloat16):
+        cases = [(MEGA_C, n) for n in _llama_lengths(cfg, MEGA_C)]
+        if cfg is not qwen:
+            cases.append((LLAMA_LONG_C, LLAMA_LONG_C - 1))
+        for dtype in ((torch.bfloat16,) if cfg is cut else (torch.float32, torch.bfloat16)):
             params = _cast_params(base, dtype)
             packed = ml.pack_llama_mega(params, cfg)
             for i, mode in enumerate(MODES):
-                for length in (0, MEGA_LEN):
-                    state, _ = _mega_state(mode, dtype, 200 + i + length,
-                                           cfg.n_layer, KW, cfg.hidden_size)
-                    x = params["embed"][(length * 7919 + i) % cfg.vocab_size][None]
-                    dev_len = torch.tensor([length], dtype=torch.int32, device="cuda")
-                    got = [t.clone() for t in state]
-                    want = [t.clone() for t in state]
-
-                    def kernel():
-                        return _mega_step(mode, packed, cfg, got, dev_len, x,
-                                          family="llama")
-
-                    def plain():
-                        return _mega_step(mode, packed, cfg, want, length, x,
-                                          plain=True, family="llama")
-
-                    tok = int(kernel()[0])
-                    logits = plain()[-1]
-                    torch.cuda.synchronize()
-                    if not _token_ok(tok, logits, dtype):
-                        raise AssertionError(
-                            f"llama megastep {name} {mode} {dtype} len={length}: "
-                            f"token {tok}, plain argmax {int(logits.argmax())}")
-                    err = _new_row_err(mode, dtype, got, want, state, row=length,
-                                       deep_bf16=cfg is llama)
-                    errs[(mode, dtype)] = max(err, errs.get((mode, dtype), 0.0))
-                    line = (f"  llama megastep {mode} {str(dtype)[6:]} {name} C=320 "
-                            f"len={length}: token {tok} (plain {int(logits.argmax())}), "
-                            f"new rows max|kernel-plain| {err:.2e}")
-                    if cfg is llama and length == MEGA_LEN:
+                for C, length in cases:
+                    deep = cfg is llama and dtype == torch.bfloat16
+                    if cfg is cut and length in (0, MEGA_LEN):
+                        continue  # held at 16 layers
+                    kernel, plain, err, line = _llama_case(
+                        mode, dtype, cfg, packed, params, C, length, i, name,
+                        deep_bf16=deep, check_rows=not deep or length in (0, MEGA_LEN))
+                    if err is not None:
+                        errs[(mode, dtype)] = max(err, errs.get((mode, dtype), 0.0))
+                    if cfg is llama and length in (MEGA_LEN, LLAMA_LONG_C - 1):
                         b, by = _llama_bound(mode, dtype, cfg, length)
-                        timing[(mode, dtype)] = {
-                            "ms": device_ms(kernel, calls=10),
-                            "plain_ms": device_ms(plain, calls=2, replays=3),
-                            "bound_ms": b, "bound_by": by, "library_ms": None,
-                        }
-                        t = timing[(mode, dtype)]
+                        t = {"ms": device_ms(kernel, calls=10),
+                             "plain_ms": device_ms(plain, calls=2, replays=3),
+                             "bound_ms": b, "bound_by": by, "library_ms": None}
+                        if C == MEGA_C:
+                            timing[(mode, dtype)] = t
                         line += (f"; device ms kernel {t['ms']:.5f}, plain "
                                  f"{t['plain_ms']:.5f}, bound {b:.5f} ({by})")
                     log(line)
             del params, packed
-    # errors: the worst over both models, both lengths
+    # errors: the worst over the models and every length
     reports = {key: dict(t, max_abs_err=errs[key]) for key, t in timing.items()}
     return _mega_reports(reports, "llama_megastep", "llama_megastep_quant")
 

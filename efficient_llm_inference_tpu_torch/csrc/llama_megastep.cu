@@ -6,19 +6,22 @@
 // decode programs for the Llama family. Entry points: elit_llama_megastep (KV
 // panes in the model dtype) and elit_llama_megastep_quant (int8, half-split
 // int4 or mixed panes with per-token fp32 scales). Each launches, on the
-// stream it is given:
+// stream it is given, every kernel with programmatic dependent launch
+// (gemv_stream.cuh launch_pdl):
 //
-//   embed                  x = embed[tok] (or x_emb)
+//   embed                  x = embed[tok] (or x_emb); the step's RoPE rows
+//                          (position min(length, P-1)) copied for the layers
 //   per layer l:
 //     gemv  RMS1 -> qkv    RMSNorm in the prologue, q|k|v out (+ the Qwen
 //                          bias on the fp32 sum), rounded to the model dtype
-//     attention            one block per query head over rows t < length of
-//                          its K/V head (grouped-query attention), q and the
-//                          current k rotated by RoPE at min(length, P-1) as
-//                          they are read, the current token merged into the
-//                          softmax; one more block writes row `length` of the
-//                          layer's panes (the rotated k; quantize-on-write
-//                          for quantized panes)
+//     attention            split-KV grouped-query attention: one block per
+//                          K/V head and split of the rows t < length, serving
+//                          the head's whole query group, q rotated by RoPE
+//                          (the step's rows) as it is read; the last block of
+//                          each K/V head combines the splits' partials with
+//                          the current token (its k rotated); one more block
+//                          writes row `length` of the layer's panes (the
+//                          rotated k; quantize-on-write for quantized panes)
 //     gemv  o-proj + x     residual add in place
 //     gemv  RMS2 -> gate|up   SwiGLU epilogue: silu in fp32 on the fp32 gate
 //     gemv  down + x       residual add in place
@@ -32,14 +35,20 @@
 // 128256 x 2048 x 2 B of LM head = 2.47 GB, plus the visible KV rows
 // (~10.5 MB at 320 rows), so it cannot take less than ~0.74 ms at
 // 3.35 TB/s; at ~2 operations per weight byte it is far below the ~295 per
-// byte where compute would bind. The GEMVs are megastep_common.cuh's (16-byte
-// streaming loads, prefetch before the prologue, fp32 sums); gate and up are
-// packed as interleaved rows (2j = gate j, 2j + 1 = up j) so one pass of a
-// block yields whole SwiGLU outputs. The chain is 5 L + 3 kernels, captured
-// per generation into one CUDA graph by the engine. Left for later: one
-// block per K/V head serving its whole query group (the K/V rows are read
-// `group` times, from L2), overlapping kernels, a persistent kernel,
-// wgmma/TMA.
+// byte where compute would bind. The design against that bound:
+//   - the GEMVs are gemv_stream.cuh's persistent streaming GEMV: about one
+//     block an SM over a contiguous range of rows, the prologue once a
+//     block, the rows through a 64 KB shared-memory ring filled by 1-D bulk
+//     asynchronous copies; gate and up are packed as interleaved rows
+//     (2j = gate j, 2j + 1 = up j) so a block yields whole SwiGLU outputs;
+//   - the chain is 5 L + 3 kernels, captured per generation into one CUDA
+//     graph by the engine; programmatic dependent launch lets each start
+//     while the one before it ends, and a GEMV requests its first weight
+//     stages before griddepcontrol.wait (no weight depends on a kernel), so
+//     the stream does not drain at the 83 boundaries;
+//   - attention reads each K/V row once for its whole query group, on
+//     n_kv_head x splits blocks (the split plan, from the capacity and the
+//     card's SM count, is ops/megakernel_llama.py `attention_plan`).
 //
 // Weight tiers (the JAX kernel's "wscale" / "w4scale" modes,
 // ops/pallas/megakernel_llama.py:763-790 and megakernel_quant.py:744-745):
@@ -47,28 +56,38 @@
 // int8 rows with fp32 per-row scales (gate and up scales interleaved like
 // their rows), with w_kind 4 grouped-int4 rows with per-(row, group) scales
 // in the model dtype, the int4w8 group TR/2 (Llama-3.2-1B: 1024) included;
-// every GEMV of the chain streams its weight in that tier (megastep_common.cuh
-// gemv_kernel W_I8 / W_I4), and the LM head is the quantized copy `head`.
-// Bound: bytes, of the codes and scales: for Llama-3.2-1B ~1.24 GB in int8
-// (~0.37 ms at 3.35 TB/s) and ~0.64 GB in int4 at G = 128 (~0.19 ms);
-// chip_smoke.py computes each from the run's tensors.
+// every GEMV of the chain streams its weight in that tier (gemv_stream W_I8 /
+// W_I4, weight_tier.cuh's chunk decode), and the LM head is the quantized
+// copy `head`. Bound: bytes, of the codes and scales: for Llama-3.2-1B
+// ~1.24 GB in int8 (~0.37 ms at 3.35 TB/s) and ~0.64 GB in int4 at G = 128
+// (~0.19 ms); chip_smoke.py computes each from the run's tensors.
 //
 // Numerics (the JAX kernels' rounding points, megastep_common.cuh): RMSNorm
 // with fp32 statistics, the normalised value rounded to the model dtype
 // before the gain; q and k rounded to the model dtype, then RoPE in fp32 and
 // rounded again; silu on the fp32 gate (the JAX kernel's point; the model
 // applies it to the rounded gate), its output and the up projection rounded
-// before their product.
+// before their product. Attention in fp32: a split's scores, its max m_s,
+// exp(s - m_s), their sum l_s and the PV sums acc_s; the combine takes
+// M = max(m_s, s_cur) and out = (sum_s acc_s e^(m_s - M) + e^(s_cur - M)
+// v_cur) / (sum_s l_s e^(m_s - M) + e^(s_cur - M)), the same softmax as one
+// pass in another order of fp32 rounding. Quantized panes: the probabilities
+// times the V scales are rounded to the model dtype relative to the split's
+// max m_s, then rescaled in fp32 at the combine; this moves the JAX rounding
+// point's reference max (the JAX kernel rounds p * v_scale with p relative
+// to the row's global max) by the factor e^(m_s - M), a bf16 rounding of a
+// different value, held to the same limits (chip_smoke.py, the card tests).
 //
-// C interface (ctypes): both entry points take a LlamaArgs (mirrored by
-// ops/megakernel_llama.py) and a stream, check the first error of each launch
-// with cudaGetLastError() and return it (0 = success); elit_cuda_error_string
+// C interface (ctypes): both entry points take a LlamaSingleArgs (mirrored by
+// ops/megakernel_llama.py `LlamaSingleArgs`) and a stream, check the first
+// error of each launch and return it (0 = success); elit_cuda_error_string
 // names a code. dtype: 0 = float32, 1 = bfloat16. k_kind/v_kind: 0 = model
 // dtype, 8 = int8, 4 = half-split int4. w_kind: 0 = model dtype, 8 = int8
 // (E, QW, I multiples of 16), 4 = grouped int4 (w_group % 32 == 0, dividing
-// E, QW and I). head_dim in {64, 128}; capacity up to 8192.
+// E, QW and I). head_dim in {64, 128}; capacity up to 8192. Programmatic
+// dependent launch needs CUDA 12.3 or later (its capture into a CUDA graph).
 
-#include "megastep_common.cuh"
+#include "gemv_stream.cuh"
 
 // Mirrored field by field by ops/megakernel_llama.py's LlamaStepArgs
 // (ctypes): its LlamaArgs, which the batched and verify structs repeat, then
@@ -110,19 +129,360 @@ struct LlamaArgs {
   const void* head_s;  // [V] / [V, E/G]
 };
 
+// The single-stream step's arguments: LlamaArgs (which the batched and
+// verify structs repeat), then the split-KV attention's plan and scratch
+// (ops/megakernel_llama.py `attention_plan`, allocated by its launcher).
+struct LlamaSingleArgs {
+  LlamaArgs a;
+  int attn_splits, attn_rows;  // splits of the capacity, rows a split
+  float* attn_part;            // [n_head, splits, D + 2]: (m, l, acc[D]) a head and split
+  int* attn_count;             // [n_kv_head] finished splits, zero between launches
+  float* rope;                 // [2, D]: the step's RoPE rows, cos and sin at min(length, P-1)
+};
+
 namespace {
 
+// x = embed[tok] (or x_emb), and the step's RoPE rows: every layer's
+// attention reads them from `rope` in the one round trip that brings q.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 embed_kernel(const T* __restrict__ embed, const int* __restrict__ tok_in,
-             const T* __restrict__ x_emb, int E, int V, T* __restrict__ x) {
+             const T* __restrict__ x_emb, int E, int V, T* __restrict__ x,
+             const int* __restrict__ length, const float* __restrict__ cos,
+             const float* __restrict__ sin, int n_pos, int D, float* __restrict__ rope) {
+  pdl_wait();
+  pdl_launch_dependents();  // the first GEMV may request its weights
+  if (threadIdx.x < 2 * D) {
+    const int pos = min(max(*length, 0), n_pos - 1), d = threadIdx.x % D;
+    rope[threadIdx.x] = (threadIdx.x < D ? cos : sin)[(size_t)pos * D + d];
+  }
   const T* src = x_emb;
   if (tok_in != nullptr) src = embed + (size_t)min(max(*tok_in, 0), V - 1) * E;
   for (int e = threadIdx.x; e < E; e += kThreads) x[e] = src[e];
 }
 
+__global__ void __launch_bounds__(kThreads)
+argmax_step_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx, int n,
+                   int V, int advance, int* __restrict__ tok_out, int* __restrict__ length) {
+  pdl_wait();
+  pdl_launch_dependents();
+  argmax_block(part_val, part_idx, n, V, advance, tok_out, length);
+}
+
+// ------------------------------------------------------ split-KV attention
+//
+// Block b < n_kv * splits: K/V head hk = b / splits over rows
+// [s * rows, min((s + 1) * rows, length)) of the layer's panes (s = b %
+// splits), for the `group` query heads hk * group .. (hk + 1) * group - 1.
+// Each K and V row is read once for the whole group (kHeadChunk heads a pass
+// hold their q in registers; a group of more reads the rows again from L2).
+// Phase 1: the group's scores of the split's rows into shared memory (D/8
+// lanes a row, 8 dims each, one shuffle tree a head). Phase 2: a warp a
+// head: the split's max m_s, exp(s - m_s) (times the V scale and rounded
+// to T for quantized panes) and their sum l_s. Phase 3: PV, summed over a
+// warp's row slots by shuffles and over the warps in shared memory, to the
+// partial (m_s, l_s, acc_s[D]) of each head. A split past the length writes
+// the neutral partial (-inf, 0, 0). The last block of a K/V head to finish
+// (a counter the combiner resets to zero, so a graph's replay finds it
+// clean) merges the splits and the current token: the combine stays in the
+// attention kernel, not in the o-projection's prologue, because it reads
+// only its head's splits x (D + 2) floats where every o-projection block
+// would read all of them, and it keeps the GEMV's prologue the same for
+// every weight. Block n_kv * splits writes row `length` of the layer's
+// panes (never read by this step; with RoPE it first rotates the whole k
+// row into shared memory).
+
+constexpr int kHeadChunk = 4;  // query heads a pass of phases 1 and 3 holds in registers
+constexpr int kCombine = 16;   // splits the combine reads in one round trip
+
+struct SplitAttn {
+  AttnParams p;  // cos / sin: the step's RoPE rows (LlamaSingleArgs::rope), not the tables
+  int n_kv, splits, rows;
+  float* part;  // LlamaSingleArgs::attn_part
+  int* count;   // LlamaSingleArgs::attn_count
+};
+
+template <typename T, int KK, int VK, int D>
+__global__ void __launch_bounds__(kThreads) split_attention_kernel(const SplitAttn a) {
+  constexpr int LPR = D / 8;     // lanes a row in phases 1 and 3
+  constexpr int RPW = 32 / LPR;  // rows a warp and pass
+  constexpr int DPT = D / 32;    // dims a lane of the current token's score
+  constexpr int HC = kHeadChunk;
+  constexpr bool QUANT = KK != 0;
+  extern __shared__ float sm[];  // the split blocks: q, the current token, scores, combine
+  __shared__ float red[kWarps];
+  __shared__ float pv[kWarps][HC][D];
+  __shared__ int last;
+  const AttnParams& p = a.p;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = p.capacity, KW = p.kv_width, G = p.group;
+  const int hk = blockIdx.x / a.splits, s = blockIdx.x - hk * a.splits;
+  const int rows = a.rows, r0 = s * rows;
+  const int gi = lane / LPR, d0 = (lane % LPR) * 8;
+  const Pane<T, KK> kpane{p.k, KW};
+  const Pane<T, VK> vpane{p.v, KW};
+  // Before the wait: this lane's row of the warp's first pass (K, V and
+  // their scales). No kernel of the step writes a row t < length, which is
+  // all that is used of them; a row past it (the writer's included) is
+  // read and never used.
+  float k0[8], v0[8], ks0 = 0.0f, vs0 = 0.0f;  // vs0: the V scale of row r0 + lane
+  if (blockIdx.x < a.n_kv * a.splits) {
+    const int row = min(r0 + min(warp * RPW + gi, rows - 1), C - 1);
+    kpane.template load<8>(row, hk, D, d0, k0);
+    vpane.template load<8>(row, hk, D, d0, v0);
+    if (QUANT) {
+      ks0 = p.ks[row];
+      vs0 = p.vs[min(r0 + min(lane, rows - 1), C - 1)];
+    }
+  }
+  pdl_wait();
+  pdl_launch_dependents();  // the o-projection may request its weights
+  const int raw_len = *p.length;
+  const int len = min(max(raw_len, 0), C);
+  const T* q = static_cast<const T*>(p.qkv);
+  const T* kc = q + p.q_width;
+  const T* vc = kc + KW;
+  const float* cs = p.cos;  // the step's rows
+  const float* sn = p.sin;
+
+  if (blockIdx.x == a.n_kv * a.splits) {  // the new row of this layer
+    if (raw_len >= 0 && raw_len < C) {
+      if (cs != nullptr) {
+        for (int e = tid; e < KW; e += kThreads)
+          sm[e] = head_value<T>(kc + (e / D) * D, e % D, D, cs, sn);
+        __syncthreads();
+        write_row<T, KK>(sm, p.k, p.ks, raw_len, KW, p.quant_eps, red);
+      } else {
+        write_row<T, KK>(kc, p.k, p.ks, raw_len, KW, p.quant_eps, red);
+      }
+      write_row<T, VK>(vc, p.v, p.vs, raw_len, KW, p.quant_eps, red);
+    }
+    return;
+  }
+  const int n = min(r0 + rows, len) - r0;  // visible rows of this split
+  float* qs = sm;                // [G, D] the group's rotated q
+  float* cur = qs + G * D;       // [2, D] the current token's rotated k and its v
+  float* scur = cur + 2 * D;     // [G] the current token's scores
+  float* sc = scur + G;          // [G, rows] scores, then weights
+  auto part = [&](int j, int split) {
+    return a.part + ((size_t)(hk * G + j) * a.splits + split) * (D + 2);
+  };
+  for (int e = tid; e < (G + 2) * D; e += kThreads) {
+    const int j = e / D, d = e - j * D;
+    if (j < G)
+      qs[e] = head_value<T>(q + (hk * G + j) * D, d, D, cs, sn);
+    else
+      cur[e - G * D] = j == G ? head_value<T>(kc + hk * D, d, D, cs, sn) : to_f32(vc[hk * D + d]);
+  }
+  __syncthreads();
+  // the current token's score for each head (full precision), for the
+  // combine of whichever block of this K/V head ends last
+  for (int j = warp; j < G; j += kWarps) {
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      const int d = lane * DPT + i;
+      dot = fmaf(qs[j * D + d], cur[d], dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) scur[j] = dot * p.sm_scale;
+  }
+
+  if (n > 0) {
+    if (warp * RPW + gi >= n) {  // a row past the length: never read, kept finite
+#pragma unroll
+      for (int i = 0; i < 8; ++i) k0[i] = v0[i] = 0.0f;
+    }
+    // phase 1: scores
+    for (int h0 = 0; h0 < G; h0 += HC) {
+      float u[HC][8];
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) u[jj][i] = h0 + jj < G ? qs[(h0 + jj) * D + d0 + i] : 0.0f;
+      for (int cb = warp * RPW; cb < n; cb += kWarps * RPW) {
+        const int cl = min(cb + gi, n - 1);
+        const bool first = cb == warp * RPW;  // the rows loaded before the wait
+        float kv[8];
+        if (first) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kv[i] = k0[i];
+        } else {
+          kpane.template load<8>(r0 + cl, hk, D, d0, kv);
+        }
+        const float ksc = QUANT ? (first ? ks0 : p.ks[r0 + cl]) : 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) dot = fmaf(u[jj][i], kv[i], dot);
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (lane % LPR == 0 && cb + gi < n && h0 + jj < G)
+            sc[(h0 + jj) * rows + cl] = QUANT ? dot * ksc * p.sm_scale : dot * p.sm_scale;
+        }
+      }
+    }
+    __syncthreads();
+    // phase 2: a warp a head
+    for (int j = warp; j < G; j += kWarps) {
+      float* sj = sc + j * rows;
+      float m = -INFINITY;
+      for (int c = lane; c < n; c += 32) m = fmaxf(m, sj[c]);
+      m = warp_max(m);
+      float l = 0.0f;
+      for (int c = lane; c < n; c += 32) {
+        const float pr = expf(sj[c] - m);
+        l += pr;
+        sj[c] = QUANT ? round_to<T>(pr * (c < 32 ? vs0 : p.vs[r0 + c])) : pr;
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        part(j, s)[0] = m;
+        part(j, s)[1] = l;
+      }
+    }
+    __syncthreads();
+    // phase 3: PV
+    for (int h0 = 0; h0 < G; h0 += HC) {
+      float acc[HC][8];
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[jj][i] = 0.0f;
+#pragma unroll 2
+      for (int cb = warp * RPW; cb < n; cb += kWarps * RPW) {
+        const int cl = min(cb + gi, n - 1);
+        float vv[8];
+        if (cb == warp * RPW) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) vv[i] = v0[i];
+        } else {
+          vpane.template load<8>(r0 + cl, hk, D, d0, vv);
+        }
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj) {
+          const float w = cb + gi < n && h0 + jj < G ? sc[(h0 + jj) * rows + cl] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[jj][i] = fmaf(w, vv[i], acc[jj][i]);
+        }
+      }
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[jj][i] += __shfl_xor_sync(0xffffffffu, acc[jj][i], o);
+      if (gi == 0) {
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) pv[warp][jj][d0 + i] = acc[jj][i];
+      }
+      __syncthreads();
+      for (int e = tid; e < HC * D; e += kThreads) {
+        const int jj = e / D, d = e - jj * D;
+        if (h0 + jj < G) {
+          float num = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) num += pv[w][jj][d];
+          part(h0 + jj, s)[2 + d] = num;
+        }
+      }
+      __syncthreads();  // pv is the next chunk's
+    }
+  } else {  // no visible row in this split
+    for (int e = tid; e < G * (D + 2); e += kThreads) {
+      const int j = e / (D + 2), i = e - j * (D + 2);
+      part(j, s)[i] = i == 0 ? -INFINITY : 0.0f;
+    }
+  }
+
+  // The last block of this K/V head to finish combines its splits: the
+  // count's add is an acquire-release atomic after the block's barrier (its
+  // partials are visible before it; the last block's reads come after it).
+  // Each output value takes kCombine splits' (m, l, acc[d]) in one round
+  // trip: M over them and the current token, e^(m_s - M) weights (a split
+  // past the length weighs 0), running sums rescaled when a later chunk
+  // raises M (more than kCombine splits only).
+  __syncthreads();
+  if (tid == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(a.count + hk) : "memory");
+    last = prev == (unsigned)a.splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int j = e / D, d = e - j * D;
+    float M = scur[j], L = 0.0f, num = 0.0f;
+    for (int t0 = 0; t0 < a.splits; t0 += kCombine) {
+      float mv[kCombine], lv[kCombine], av[kCombine];
+#pragma unroll
+      for (int i = 0; i < kCombine; ++i) {
+        const bool in = t0 + i < a.splits;
+        const float* pt = part(j, in ? t0 + i : 0);
+        mv[i] = in ? __ldcg(pt) : -INFINITY;
+        lv[i] = in ? __ldcg(pt + 1) : 0.0f;
+        av[i] = in ? __ldcg(pt + 2 + d) : 0.0f;
+      }
+      float Mc = M;
+#pragma unroll
+      for (int i = 0; i < kCombine; ++i) Mc = fmaxf(Mc, mv[i]);
+      const float rescale = expf(M - Mc);
+      L *= rescale;
+      num *= rescale;
+#pragma unroll
+      for (int i = 0; i < kCombine; ++i) {
+        const float w = expf(mv[i] - Mc);
+        L = fmaf(lv[i], w, L);
+        num = fmaf(av[i], w, num);
+      }
+      M = Mc;
+    }
+    const float p_cur = expf(scur[j] - M);
+    L += p_cur;
+    num += p_cur * cur[D + d];
+    static_cast<T*>(p.out)[(hk * G + j) * D + d] = from_f32<T>(num / L);
+  }
+  if (tid == 0) a.count[hk] = 0;  // clean for the next launch
+}
+
+template <typename T, int KK, int VK, int D>
+int launch_split_attention_d(const SplitAttn& a, cudaStream_t st) {
+  const size_t G = a.p.group;
+  const size_t split_floats = G * D + 2 * D + G + G * a.rows;
+  const size_t writer_floats = a.p.cos != nullptr ? (size_t)a.p.kv_width : 0;
+  const size_t smem = sizeof(float) * std::max(split_floats, writer_floats);
+  auto kernel = split_attention_kernel<T, KK, VK, D>;
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  return launch_pdl(kernel, a.n_kv * a.splits + 1, smem, st, a);
+}
+
+template <typename T, int KK, int VK>
+int launch_split_attention(const SplitAttn& a, int head_dim, cudaStream_t st) {
+  if (head_dim == 64) return launch_split_attention_d<T, KK, VK, 64>(a, st);
+  if (head_dim == 128) return launch_split_attention_d<T, KK, VK, 128>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split attention of the panes' storage kinds (0 = T, 8 = int8,
+// 4 = half-split int4; K and V both T, or both quantized).
 template <typename T>
-int run_step(const LlamaArgs& a, cudaStream_t st) {
+int split_attention(const SplitAttn& a, int k_kind, int v_kind, int head_dim, cudaStream_t st) {
+  if (k_kind == 0 && v_kind == 0) return launch_split_attention<T, 0, 0>(a, head_dim, st);
+  if (k_kind == 8 && v_kind == 8) return launch_split_attention<T, 8, 8>(a, head_dim, st);
+  if (k_kind == 4 && v_kind == 4) return launch_split_attention<T, 4, 4>(a, head_dim, st);
+  if (k_kind == 8 && v_kind == 4) return launch_split_attention<T, 8, 4>(a, head_dim, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------- host
+
+template <typename T>
+int run_step(const LlamaSingleArgs& sa, cudaStream_t st) {
+  const LlamaArgs& a = sa.a;
   const int L = a.n_layer, E = a.n_embd, I = a.inter, V = a.vocab, D = a.head_dim;
   const int QW = a.n_head * D, KW = a.n_kv_head * D, NQKV = QW + 2 * KW;
   const int wk = a.w_kind, G = a.w_group;
@@ -134,24 +494,26 @@ int run_step(const LlamaArgs& a, cudaStream_t st) {
     return weight_at<T>(w, s, wk, G, (size_t)l * N, K);
   };
 
-  embed_kernel<T><<<1, kThreads, 0, st>>>(static_cast<const T*>(a.embed), a.tok_in,
-                                          static_cast<const T*>(a.x_emb), E, V, x);
-  LAUNCH_CHECK();
+  if (int rc = launch_pdl(embed_kernel<T>, 1, 0, st, static_cast<const T*>(a.embed), a.tok_in,
+                          static_cast<const T*>(a.x_emb), E, V, x,
+                          static_cast<const int*>(a.length), a.cos, a.sin, a.n_pos, D, sa.rope))
+    return rc;
   for (int l = 0; l < L; ++l) {
     const float* nm = a.norms + (size_t)l * 2 * E;
-    if (int rc = gemv<T, PRO_RMS, EPI_STORE, 1>(
-            weight(a.qkv_w, a.qkv_s, l, NQKV, E), NQKV, E, cdiv(NQKV, kWarps), st, x, nm,
-            nullptr, a.rms_eps, a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv))
+    if (int rc = gemv_stream<T, PRO_RMS, EPI_STORE>(
+            weight(a.qkv_w, a.qkv_s, l, NQKV, E), NQKV, E, st, x, nm, a.rms_eps,
+            a.qkvb ? a.qkvb + (size_t)l * NQKV : nullptr, qkv))
       return rc;
-    AttnParams ap{};
+    SplitAttn at{};
+    AttnParams& ap = at.p;
     ap.qkv = qkv;
     ap.k = static_cast<char*>(a.k) + pane_offset(a.k_kind, sizeof(T), l, a.capacity, KW);
     ap.v = static_cast<char*>(a.v) + pane_offset(a.v_kind, sizeof(T), l, a.capacity, KW);
     ap.ks = a.ks ? a.ks + (size_t)l * a.capacity : nullptr;
     ap.vs = a.vs ? a.vs + (size_t)l * a.capacity : nullptr;
     ap.length = a.length;
-    ap.cos = a.cos;
-    ap.sin = a.sin;
+    ap.cos = sa.rope;
+    ap.sin = sa.rope + D;
     ap.n_pos = a.n_pos;
     ap.capacity = a.capacity;
     ap.n_head = a.n_head;
@@ -161,32 +523,35 @@ int run_step(const LlamaArgs& a, cudaStream_t st) {
     ap.sm_scale = 1.0f / sqrtf((float)D);
     ap.quant_eps = a.quant_eps;
     ap.out = attn;
-    if (int rc = attention<T>(ap, a.k_kind, a.v_kind, D, st)) return rc;
-    if (int rc = gemv<T, PRO_VEC, EPI_RESIDUAL, 2>(
-            weight(a.o_w, a.o_s, l, E, QW), E, QW, cdiv(E, kWarps / 2), st, attn, nullptr,
-            nullptr, 0.0f, nullptr, x))
+    at.n_kv = a.n_kv_head;
+    at.splits = sa.attn_splits;
+    at.rows = sa.attn_rows;
+    at.part = sa.attn_part;
+    at.count = sa.attn_count;
+    if (int rc = split_attention<T>(at, a.k_kind, a.v_kind, D, st)) return rc;
+    if (int rc = gemv_stream<T, PRO_VEC, EPI_RESIDUAL>(weight(a.o_w, a.o_s, l, E, QW), E, QW, st,
+                                                       attn, nullptr, 0.0f, nullptr, x))
       return rc;
-    if (int rc = gemv<T, PRO_RMS, EPI_SWIGLU, 1>(
-            weight(a.gu_w, a.gu_s, l, 2 * I, E), 2 * I, E, cdiv(2 * I, kWarps), st, x, nm + E,
-            nullptr, a.rms_eps, nullptr, ffn))
+    if (int rc = gemv_stream<T, PRO_RMS, EPI_SWIGLU>(weight(a.gu_w, a.gu_s, l, 2 * I, E), 2 * I,
+                                                     E, st, x, nm + E, a.rms_eps, nullptr, ffn))
       return rc;
-    if (int rc = gemv<T, PRO_VEC, EPI_RESIDUAL, 4>(
-            weight(a.down_w, a.down_s, l, E, I), E, I, cdiv(E, kWarps / 4), st, ffn, nullptr,
-            nullptr, 0.0f, nullptr, x))
+    if (int rc = gemv_stream<T, PRO_VEC, EPI_RESIDUAL>(weight(a.down_w, a.down_s, l, E, I), E, I,
+                                                       st, ffn, nullptr, 0.0f, nullptr, x))
       return rc;
   }
-  if (int rc = gemv<T, PRO_RMS, EPI_ARGMAX, 1>(weight(a.head, a.head_s, 0, V, E), V, E,
-                                               a.lm_blocks, st, x, a.lnf, nullptr, a.rms_eps,
-                                               nullptr, nullptr, a.lm_val, a.lm_idx))
+  int lm_grid = 0;
+  if (int rc = gemv_stream<T, PRO_RMS, EPI_ARGMAX>(weight(a.head, a.head_s, 0, V, E), V, E, st, x,
+                                                   a.lnf, a.rms_eps, nullptr, nullptr,
+                                                   a.lm_blocks, a.lm_val, a.lm_idx, &lm_grid))
     return rc;
-  argmax_kernel<<<1, kThreads, 0, st>>>(a.lm_val, a.lm_idx, a.lm_blocks, V, a.advance,
-                                        a.tok_out, a.length);
-  LAUNCH_CHECK();
-  return 0;
+  return launch_pdl(argmax_step_kernel, 1, 0, st, static_cast<const float*>(a.lm_val),
+                    static_cast<const int*>(a.lm_idx), lm_grid, V, a.advance, a.tok_out,
+                    a.length);
 }
 
-int run(const LlamaArgs* a, void* stream, bool quant) {
-  if (a == nullptr) return (int)cudaErrorInvalidValue;
+int run(const LlamaSingleArgs* sa, void* stream, bool quant) {
+  if (sa == nullptr) return (int)cudaErrorInvalidValue;
+  const LlamaArgs* a = &sa->a;
   const bool q = a->k_kind != 0 || a->v_kind != 0;
   const int D = a->head_dim, Hq = a->n_head, Hkv = a->n_kv_head;
   const bool int4 = a->k_kind == 4 || a->v_kind == 4;
@@ -196,24 +561,27 @@ int run(const LlamaArgs* a, void* stream, bool quant) {
   const bool tier_ok =
       wk == W_T || (a->qkv_s && a->o_s && a->gu_s && a->down_s && a->head_s &&
                     (wk == W_I8 || (wk == W_I4 && G > 0 && G % 32 == 0)));
-  if (q != quant || (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || !tier_ok ||
+  const bool plan_ok = sa->attn_splits >= 1 && sa->attn_rows >= 1 &&
+                       (long long)sa->attn_splits * sa->attn_rows >= a->capacity &&
+                       sa->attn_part && sa->attn_count && sa->rope;
+  if (q != quant || (D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv || !tier_ok || !plan_ok ||
       a->n_embd % chunk || (Hq * D) % chunk || a->inter % chunk || a->capacity <= 0 ||
       a->capacity > 8192 || a->lm_blocks <= 0 || a->n_pos <= 0 || !a->cos || !a->sin ||
       (q && (!a->ks || !a->vs)) || (int4 && (Hkv * D / 2) % D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 0) return run_step<float>(*a, st);
-  if (a->dtype == 1) return run_step<__nv_bfloat16>(*a, st);
+  if (a->dtype == 0) return run_step<float>(*sa, st);
+  if (a->dtype == 1) return run_step<__nv_bfloat16>(*sa, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int elit_llama_megastep(const LlamaArgs* a, void* stream) {
+extern "C" int elit_llama_megastep(const LlamaSingleArgs* a, void* stream) {
   return run(a, stream, false);
 }
 
-extern "C" int elit_llama_megastep_quant(const LlamaArgs* a, void* stream) {
+extern "C" int elit_llama_megastep_quant(const LlamaSingleArgs* a, void* stream) {
   return run(a, stream, true);
 }
 

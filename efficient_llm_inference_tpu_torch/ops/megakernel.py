@@ -558,11 +558,21 @@ class Workspace:
     nothing: the residual stream x, q|k|v, the attention and MLP activations
     (model dtype, of the given widths) and the LM head's per-block (max,
     argmax) partials, one per block of the LM-head kernel; each once per
-    row (slot) of the step."""
+    row (slot) of the step. The single-stream Llama step adds its split
+    attention's scratch (ops/megakernel_llama.py `attention_scratch`): the
+    partials (`attn_part`, `part` fp32), per-K/V-head counters
+    (`attn_count`, `count` int32, zeroed: each launch leaves them zero) and
+    the step's RoPE rows (`rope`, `rope` fp32)."""
 
     def __init__(self, dtype: torch.dtype, device, vocab: int, *, x: int,
-                 qkv: int, attn: int, ffn: int, rows: int = 1):
+                 qkv: int, attn: int, ffn: int, rows: int = 1,
+                 part: int = 0, count: int = 0, rope: int = 0):
         self.n_lm = min(-(-vocab // _THREADS_WARPS), _LM_MAX_BLOCKS)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.attn_part = torch.empty(part, **f32) if part else None
+        self.attn_count = (torch.zeros(count, dtype=torch.int32, device=device)
+                           if count else None)
+        self.rope = torch.empty(rope, **f32) if rope else None
         self.x = torch.empty(rows * x, dtype=dtype, device=device)
         self.qkv = torch.empty(rows * qkv, dtype=dtype, device=device)
         self.attn = torch.empty(rows * attn, dtype=dtype, device=device)

@@ -10,10 +10,15 @@ weight through VMEM; on the H100 the step is a fixed chain of hand-written
 kernels from `csrc/llama_megastep.cu`, launched by one host call
 (`llama_megastep`) and, in the engine's decode loop, captured once into a
 CUDA graph (ops/megakernel.py `MegaDecodeGraph`) that replays all N steps
-of a generation. The quantized-KV variant (ops/megakernel_quant.py
-`llama_megastep_quant`) shares this module's packing and launcher, and so
-does the verify pass (`llama_megaverify`, the chain of `csrc/megaverify.cu`;
-row t takes its RoPE row at min(length + t, n_positions - 1)).
+of a generation. The chain's GEMVs are `csrc/gemv_stream.cuh`'s persistent
+streaming GEMV, its attention a split-KV kernel (one block per K/V head and
+split of the capacity, `attention_plan`, the splits combined by the last
+block of each head; `split_attention_plain` is its arithmetic), and every
+kernel is launched with programmatic dependent launch. The quantized-KV
+variant (ops/megakernel_quant.py `llama_megastep_quant`) shares this
+module's packing and launcher, and so does the verify pass
+(`llama_megaverify`, the chain of `csrc/megaverify.cu`; row t takes its
+RoPE row at min(length + t, n_positions - 1)).
 
 Layouts:
 
@@ -323,6 +328,92 @@ def llama_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Split-KV attention (csrc/llama_megastep.cu split_attention_kernel): the
+# plan of its grid and scratch, and a plain model of its arithmetic.
+
+# A split covers 32-512 rows, and a group's scores of a split (group x rows
+# fp32) at most ATTN_SCORES floats of shared memory.
+ATTN_MIN_ROWS, ATTN_MAX_ROWS, ATTN_SCORES = 32, 512, 8192
+
+
+def attention_plan(capacity: int, n_head: int, n_kv_head: int, n_sm: int):
+    """(splits, rows) of the single-stream step's split-KV attention: the
+    capacity cut into `splits` runs of `rows` rows (a multiple of 8), one
+    block a K/V head and split, about one wave of `n_sm` SMs (the writer
+    block is one more), each split at least ATTN_MIN_ROWS rows and at most
+    ATTN_MAX_ROWS or ATTN_SCORES / group. The grid depends on the capacity,
+    not the length, so a captured graph serves every length."""
+    group = n_head // n_kv_head
+    want = max(1, n_sm // n_kv_head)
+    rows = max(ATTN_MIN_ROWS, -(-capacity // want))
+    cap = max(8, min(ATTN_MAX_ROWS, ATTN_SCORES // group // 8 * 8))
+    rows = min(-(-rows // 8) * 8, cap)
+    return -(-capacity // rows), rows
+
+
+def attention_scratch(cfg, capacity: int, n_sm: int) -> dict:
+    """The split attention's plan and scratch sizes (`Workspace`'s
+    attn_part floats, attn_count ints and rope floats: the step's RoPE rows,
+    which the chain's first kernel copies for every layer's attention) for a
+    Llama/Qwen config."""
+    splits, rows = attention_plan(capacity, cfg.n_head, cfg.n_kv_head, n_sm)
+    return {"splits": splits, "rows": rows,
+            "part": cfg.n_head * splits * (cfg.head_dim + 2), "count": cfg.n_kv_head,
+            "rope": 2 * cfg.head_dim}
+
+
+def split_attention_plain(q, kc, vc, k_vals, v_vals, length: int, n_kv_head: int,
+                          splits: int, rows: int, ks=None, vs=None):
+    """The split-KV attention kernel's arithmetic in plain PyTorch (no main
+    path calls it; the CPU tests hold it against `attend_plain` /
+    `attend_quant_plain` and the JAX step): query heads q [Hq*D] grouped
+    onto n_kv_head K/V heads, over the rows t < length of the pane values
+    k_vals/v_vals [C, Hkv*D] (fp32; codes unscaled for quantized panes,
+    whose per-token scales ks/vs [C] are then given), cut into `splits` runs
+    of `rows` rows. Each split gives per query head its max m_s, the sum l_s
+    of exp(score - m_s) and acc_s = sum of those weights times V: for
+    quantized panes the weights times the V scales are rounded to q's dtype
+    relative to the split's max m_s (the JAX kernel rounds relative to the
+    row's global max: the kernel moves that reference, see
+    csrc/llama_megastep.cu). The combine merges the splits and the current
+    token kc/vc [Hkv*D]: M = max(m_s, s_cur), out = (sum_s acc_s e^(m_s - M)
+    + e^(s_cur - M) vc) / (sum_s l_s e^(m_s - M) + e^(s_cur - M)) (the
+    kernel takes 16 splits a round trip, rescaling its running sums when a
+    later 16 raise M: the same value in another fp32 rounding). Returns
+    [Hq*D] fp32."""
+    C = k_vals.shape[0]
+    G, D = q.numel() // kc.numel(), kc.numel() // n_kv_head
+    scale = 1.0 / math.sqrt(D)
+    u = q.float().reshape(n_kv_head, G, D)
+    length = min(max(int(length), 0), C)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        r0, r1 = s * rows, min((s + 1) * rows, length)
+        if r1 <= r0:  # the neutral partial
+            ms.append(torch.full((n_kv_head, G, 1), -math.inf))
+            ls.append(torch.zeros(n_kv_head, G, 1))
+            accs.append(torch.zeros(n_kv_head, G, D))
+            continue
+        kv = k_vals[r0:r1].float().reshape(r1 - r0, n_kv_head, D)
+        raw = torch.einsum("kgd,ckd->kgc", u, kv)
+        sc = raw * ks[r0:r1] * scale if ks is not None else raw * scale
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - m)
+        w = (p * vs[r0:r1]).to(q.dtype).float() if vs is not None else p
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("kgc,ckd->kgd", w,
+                                 v_vals[r0:r1].float().reshape(r1 - r0, n_kv_head, D)))
+    s_cur = (u * kc.float().reshape(n_kv_head, 1, D)).sum(-1, keepdim=True) * scale
+    M = torch.maximum(torch.stack(ms).amax(0), s_cur)
+    wts = [torch.exp(m - M) for m in ms]
+    p_cur = torch.exp(s_cur - M)
+    denom = sum(l * w for l, w in zip(ls, wts)) + p_cur
+    num = sum(a * w for a, w in zip(accs, wts)) + p_cur * vc.float().reshape(n_kv_head, 1, D)
+    return (num / denom).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
 # The kernels: arguments and launcher (the CUDA graph is ops/megakernel.py's).
 
 
@@ -344,6 +435,16 @@ class LlamaStepArgs(ctypes.Structure):
         ("qkv_s", "o_s", "gu_s", "down_s", "head_s"))
 
 
+class LlamaSingleArgs(LlamaStepArgs):
+    """Mirror of `struct LlamaSingleArgs` in csrc/llama_megastep.cu: the
+    single-stream step's `LlamaStepArgs`, then its split-KV attention's
+    plan and scratch (`attention_scratch`)."""
+
+    _fields_ = [("attn_splits", ctypes.c_int), ("attn_rows", ctypes.c_int),
+                ("attn_part", ctypes.c_void_p), ("attn_count", ctypes.c_void_p),
+                ("rope", ctypes.c_void_p)]
+
+
 _lib = None
 
 
@@ -353,18 +454,21 @@ def kernels() -> ctypes.CDLL:
         lib = _build.load("llama_megastep")
         for fn in (lib.elit_llama_megastep, lib.elit_llama_megastep_quant):
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(LlamaStepArgs), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(LlamaSingleArgs), ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
 class LlamaStepLauncher(StepLauncher):
     """The prepared arguments of one configuration's Llama step (the
-    LlamaArgs of csrc/llama_megastep.cu, `LlamaStepArgs`); `set_tokens` and
-    `launch` are ops.megakernel.StepLauncher's."""
+    LlamaSingleArgs of csrc/llama_megastep.cu, with the
+    split attention's scratch in its `Workspace`); `set_tokens` and
+    `launch` are ops.megakernel.StepLauncher's. The batched and verify
+    launchers derive from it with their own structs (LlamaArgs after their
+    leading fields, no split attention)."""
 
     entry = {False: "elit_llama_megastep", True: "elit_llama_megastep_quant"}
-    args_type = LlamaStepArgs
+    args_type = LlamaSingleArgs
 
     def __init__(self, packed: dict, cfg, k, v, length, tok_out, *,
                  x_emb=None, tok_in=None, ks=None, vs=None,
@@ -412,7 +516,12 @@ class LlamaStepLauncher(StepLauncher):
             _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
         else:
             _check("tok_in", tok_in, torch.int32, (B,), dev)
-        ws = Workspace(dtype, dev, V, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I, rows=B)
+        single = issubclass(self.args_type, LlamaSingleArgs)
+        plan = (attention_scratch(
+            cfg, C, torch.cuda.get_device_properties(dev).multi_processor_count)
+            if single else None)
+        ws = Workspace(dtype, dev, V, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I, rows=B,
+                       **({k: plan[k] for k in ("part", "count", "rope")} if single else {}))
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
         self.quant = k_kind != "fp"
@@ -429,6 +538,11 @@ class LlamaStepLauncher(StepLauncher):
             ptr(ws.ffn), ptr(ws.lm_val), ptr(ws.lm_idx))
         if wkind != "fp":
             set_tier(self.args, packed, weights, wkind, group)
+        if single:
+            self.args.attn_splits, self.args.attn_rows = plan["splits"], plan["rows"]
+            self.args.attn_part = ws.attn_part.data_ptr()
+            self.args.attn_count = ws.attn_count.data_ptr()
+            self.args.rope = ws.rope.data_ptr()
         self.device = dev
 
     def library(self) -> ctypes.CDLL:

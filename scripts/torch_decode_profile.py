@@ -3,6 +3,7 @@
 
     python3 scripts/torch_decode_profile.py [--model gpt2|llama-3-1b|...]
         [--weight-quant int8|int4|int4w8] [--batch B | --spec | --server [--spec]]
+        [--megakernel-only] [--tree PATH]
 
 A model of the registry at full width (GPT-2 small by default; random
 weights, seed 42, drawn once and shared by both paths), bf16, batch 1, one
@@ -25,6 +26,11 @@ prints one JSON line with:
 - wall_1_ms: the median wall of the same generation with one new token
   (the prefill and the host around it);
 - kernels_per_generation, and the six kernels with the most device time.
+
+With `--megakernel-only` the single stream runs the megakernel path alone;
+with `--tree PATH` the profile imports the package of another checkout
+(the parent unpacked into the gitignored _checkout/, say), so two trees
+are compared in one call by running the script once for each.
 
 With `--weight-quant` the profile runs on weights quantized by
 `Config(weight_quant=...)` (the chains' weight tiers), the single stream
@@ -75,7 +81,11 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+# --tree: profile another checkout's package (e.g. the parent unpacked into
+# _checkout/parent) with this script, for a comparison in one call
+_TREE = (pathlib.Path(sys.argv[sys.argv.index("--tree") + 1]).resolve() if "--tree" in sys.argv
+         else pathlib.Path(__file__).resolve().parents[1])
+sys.path.insert(0, str(_TREE))
 
 from efficient_llm_inference_tpu_torch import Config, InferenceEngine  # noqa: E402
 
@@ -256,6 +266,10 @@ def main() -> int:
                         help="profile MegaBatchServer.run on the server protocol")
     parser.add_argument("--weight-quant", choices=("int8", "int4", "int4w8"),
                         help="weights quantized by Config.weight_quant (any profile)")
+    parser.add_argument("--megakernel-only", action="store_true",
+                        help="single stream: the megakernel path only (no op-by-op run)")
+    parser.add_argument("--tree", help="the checkout whose package is profiled "
+                                       "(default: this one)")
     args = parser.parse_args()
     model = args.model
     if not torch.cuda.is_available():
@@ -279,9 +293,10 @@ def main() -> int:
     t0 = time.perf_counter()
     base = InferenceEngine.from_model_name(
         model, config=Config(model_name=model, megakernel=False, weight_quant=wq))
-    print(json.dumps({"model": model, "weight_quant": wq,
+    print(json.dumps({"model": model, "weight_quant": wq, "tree": str(_TREE),
                       "init_s": time.perf_counter() - t0}), flush=True)
-    for mega in ((None,) if wq else (False, None)):  # quantized params serve as they are
+    # quantized params serve as they are
+    for mega in ((None,) if wq or args.megakernel_only else (False, None)):
         eng = base if mega is False else InferenceEngine(
             base.model, base.params, base.tokenizer, Config(model_name=model))
         for method in METHODS:
@@ -295,6 +310,7 @@ def main() -> int:
             top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
             print(json.dumps({
                 "model": model,
+                "tree": str(_TREE),
                 "weight_quant": wq,
                 "megakernel": mega is None,
                 "method": method,

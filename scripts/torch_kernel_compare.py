@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the batched whole-step and batched verify kernels of two checkouts on
-one GPU, in turns.
+"""Time the whole-step, batched and verify kernels of two checkouts on one
+GPU, in turns.
 
-    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [--profile]
+    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [--profile] [--single]
 
 Runs this checkout's and OTHER_CHECKOUT's efficient_llm_inference_tpu_torch
 (each built from its own sources into its own build/cuda/) in four worker
@@ -24,6 +24,21 @@ copy of the weight, the copies together past L2. One JSON line per worker
 and case; the card's name and power limit first. With --profile, each
 verify case also prints its device time by kernel name from a
 torch.profiler trace of one call.
+
+The single-stream steps (#9 gpt2_megastep and #11 gpt2_megastep_quant at
+GPT-2 small's full width, the control; #13 llama_megastep and #12
+llama_megastep_quant at Llama-3.2-1B's) are timed the same way at C = 320,
+length 319: GPT-2 in bf16 over fp / int8 / int4 / mixed panes; Llama-3.2-1B
+in bf16 and fp32 (the bf16 weights widened), each pane kind, over the
+model-dtype weights and over the int8 / int4 / int4w8 tiers (as
+from_model_name(weight_quant=...) quantizes them). With --profile, the
+Llama bf16 step over fp and int8 panes and over each weight tier also
+prints its device time by kernel name and its launches in order from a
+torch.profiler trace of one replay of a CUDA graph of 4 steps, with the
+overlap of each launch with the one before it (start before the previous
+end; programmatic dependent launch lets a kernel start before its
+predecessor ends). With --single, only the single-stream steps run. The
+CUDA runtime of torch, nvidia-smi's version and nvcc --version come first.
 """
 
 from __future__ import annotations
@@ -102,8 +117,152 @@ def kernel_breakdown(fn) -> tuple:
             seq[:16])
 
 
+SINGLE_LEN = 319  # the single-stream steps: the last row of C = 320
+PANES = ("fp", "int8", "int4", "mixed")
+
+
+def launches_in_order(fn, n_steps: int = 4) -> tuple:
+    """(by name, in order) of one replay of a CUDA graph of n_steps calls of
+    fn, from a torch.profiler trace: [[name, launches, device ms], ...] by
+    device time, and [[name, start us, duration us, overlap us], ...] of the
+    launches in order, overlap being how long a launch ran before the one
+    before it ended (0 if it started after)."""
+    from collections import defaultdict
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = torch.cuda.CUDAGraph()
+    fn()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for _ in range(n_steps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    by_name = defaultdict(lambda: [0, 0.0])
+    seq, prev_end = [], None
+    t0 = evs[0].time_range.start if evs else 0
+    for e in evs:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3 / n_steps
+        start, end = e.time_range.start, e.time_range.end
+        overlap = 0.0 if prev_end is None else max(0.0, prev_end - start)
+        seq.append([e.name[:70], start - t0, end - start, overlap])
+        prev_end = end if prev_end is None else max(prev_end, end)
+    return (sorted(([n[:140], c / n_steps, ms] for n, (c, ms) in by_name.items()),
+                   key=lambda r: -r[2]), seq)
+
+
+def single_stream(tree: str, profile: bool) -> None:
+    """The single-stream steps of this tree: GPT-2 small (#9 / #11, bf16) and
+    Llama-3.2-1B (#13 / #12) in bf16 and fp32 over every pane kind and
+    weight tier, one JSON line each."""
+    import torch
+
+    from efficient_llm_inference_tpu_torch.engine.engine import (
+        quantize_weights,
+        weight_quant_plan,
+    )
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.models import llama as llama_mod
+    from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    g = torch.Generator().manual_seed(0)
+    length = torch.tensor([SINGLE_LEN], dtype=torch.int32, device="cuda")
+
+    def state(mode, dtype, L, W):
+        if mode == "fp":
+            return [(torch.randn((L, C, W), generator=g) * 0.5).to(dtype).cuda()
+                    for _ in range(2)]
+        panes = []
+        for kind in mq._kv_kinds(mode):
+            width = W if kind == "int8" else W // 2
+            panes.append(torch.randint(-127, 128, (L, C, width), generator=g,
+                                       dtype=torch.int32).to(torch.int8).cuda())
+        return panes + [(torch.rand((L, C), generator=g) * 0.02 + 1e-3).cuda()
+                        for _ in range(2)]
+
+    def stepper(family, mode, packed, cfg, st, x):
+        fp = mk.gpt2_megastep if family == "gpt2" else ml.llama_megastep
+        quant = mq.gpt2_megastep_quant if family == "gpt2" else mq.llama_megastep_quant
+        if mode == "fp":
+            return lambda: fp(packed, *st, length, x, cfg=cfg)
+        return lambda: quant(packed, *st, length, x, cfg=cfg, kv_mode=mode)
+
+    cfg = gpt2_mod.GPT2Config.small()
+    params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
+                                       torch.bfloat16, "cuda")
+    packed = mk.pack_gpt2_mega(params, cfg)
+    x = (torch.randn((1, cfg.n_embd), generator=g) * 0.3).to(torch.bfloat16).cuda()
+    for mode in PANES:
+        st = state(mode, torch.bfloat16, cfg.n_layer, cfg.n_embd)
+        ms = device_ms(stepper("gpt2", mode, packed, cfg, st, x), calls=20)
+        print(json.dumps({"tree": tree, "single": "gpt2", "dtype": "bf16", "panes": mode,
+                          "weights": "bf16", "ms": ms}), flush=True)
+    del params, packed
+
+    cfg = llama_mod.LlamaConfig.llama3_1b()
+    spec = spec_by_name("llama-3-1b")
+    KW = cfg.n_kv_head * cfg.head_dim
+    base = llama_mod.init_llama_params(torch.Generator().manual_seed(42), cfg,
+                                       torch.bfloat16, "cuda")
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        params = base if dtype == torch.bfloat16 else _cast(base, dtype)
+        for weights in ("model", "int8", "int4", "int4w8"):
+            if weights == "model":
+                packed = ml.pack_llama_mega(params, cfg)
+            else:
+                _, mode_w, group = weight_quant_plan(spec, weights)
+                packed = ml.pack_llama_mega(
+                    quantize_weights(spec, params, mode_w, group), cfg)
+            x = params["embed"][1234 % cfg.vocab_size][None].contiguous()
+            for mode in PANES:
+                st = state(mode, dtype, cfg.n_layer, KW)
+                fn = stepper("llama", mode, packed, cfg, st, x)
+                row = {"tree": tree, "single": "llama-3-1b", "dtype": dname, "panes": mode,
+                       "weights": dname if weights == "model" else weights,
+                       "ms": device_ms(fn)}
+                if profile and dtype == torch.bfloat16 and (
+                        mode in ("fp", "int8") if weights == "model" else mode == "fp"):
+                    row["kernels"], row["launches"] = launches_in_order(fn)
+                print(json.dumps(row), flush=True)
+                del st
+            del packed
+            torch.cuda.empty_cache()
+        del params
+
+
+def _cast(params, dtype):
+    if isinstance(params, dict):
+        return {k: _cast(v, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.is_floating_point() else params
+
+
+def versions() -> str:
+    """torch's CUDA runtime, nvidia-smi's version and nvcc's, for the record."""
+    import torch
+
+    drv = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    from efficient_llm_inference_tpu_torch.ops import _build
+
+    nv = subprocess.run([_build.nvcc(), "--version"], capture_output=True, text=True,
+                        timeout=60).stdout.strip().splitlines()[-2:]
+    return (f"torch {torch.__version__} CUDA {torch.version.cuda}; nvidia {drv}; "
+            f"nvcc {' / '.join(nv)}")
+
+
 def worker(tree: str, profile_verify: bool = False) -> None:
-    sys.path.insert(0, tree)
     import torch
 
     from efficient_llm_inference_tpu_torch.engine.engine import (
@@ -201,12 +360,16 @@ def worker(tree: str, profile_verify: bool = False) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) in (3, 4) and sys.argv[1] == "--worker":
-        worker(sys.argv[2], sys.argv[3:] == ["--profile"])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
+        tree, flags = sys.argv[2], sys.argv[3:]
+        sys.path.insert(0, tree)
+        if "--single" not in flags:
+            worker(tree, "--profile" in flags)
+        single_stream(tree, "--profile" in flags)
         return 0
-    args = sys.argv[1:]
-    prof = args[1:] == ["--profile"]
-    if len(args) != 1 + prof:
+    args = [a for a in sys.argv[1:] if a not in ("--profile", "--single")]
+    flags = [a for a in sys.argv[1:] if a in ("--profile", "--single")]
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     other = str(pathlib.Path(args[0]).resolve())
@@ -214,9 +377,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    sys.path.insert(0, str(HERE))
+    print(f"versions: {versions()}", flush=True)
     for tree in (other, str(HERE), str(HERE), other):
-        subprocess.run([sys.executable, __file__, "--worker", tree]
-                       + (["--profile"] if prof else []), check=True)
+        subprocess.run([sys.executable, __file__, "--worker", tree] + flags, check=True)
     return 0
 
 

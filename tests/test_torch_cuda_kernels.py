@@ -24,7 +24,14 @@ against the same server on the CPU, with its launch counts. The weight tiers
 (int8, grouped int4, int4w8) of every chain: the single-stream steps, the
 verifies (#10, #13 at R = 8), the batched steps (B = 9) and the batched
 verifies (3 x 5 rows), each against its plain version with the same
-checks, each launch counted in its wrapper's tier.
+checks, each launch counted in its wrapper's tier. The single-stream
+Llama/Qwen chain (#13 at R = 1, #12: the streaming GEMV and the split-KV
+attention) at Llama-3.2-1B's width cut to 2 layers, a Qwen group of 7 and
+head_dim 128, fp32 and bf16, every pane kind and weight tier, at C = 320
+on the lengths where the attention's splits change (0, 1, the last row of
+a split and the first of the next visible last, C - 1) and at C = 8192,
+length 8191, with the checks above; and two replays of one captured graph
+of 6 steps give identical bits, equal to the same steps launched eagerly.
 """
 
 import dataclasses
@@ -1443,3 +1450,171 @@ def test_tc_megabatch_verify_rows_independent(cuda, family, mode, wq):
         for p_, q_ in zip(panes, runs[32][1]):
             assert torch.equal(p_[:, b], q_[:, b]), (B, b)
 
+
+
+# ---------------- the single-stream Llama chain's split-KV attention (#13, #12)
+
+SPLIT_CFGS = {  # Llama-3.2-1B's width at 2 layers (G = 4), a Qwen group of 7, head_dim 128
+    "llama-3-1b-L2": "llama-3-1b",
+    "g7-qwen": LLAMA_CFGS["g7-qwen"],
+    "d128": LLAMA_CFGS["d128"],
+}
+SPLIT_WHERE = ["zero", "one", "split_last", "split_first", "last"]
+_SPLIT_PARAMS, _SPLIT_PACKED = {}, {}
+
+
+def _split_packed(cfg_name, wq, dtype, device):
+    """(cfg, packed) of a SPLIT_CFGS model in `dtype` over model-dtype
+    weights (wq None) or a weight tier quantized as from_model_name does
+    (int4 at group 128, or 64 where the JAX gates refuse 128)."""
+    if cfg_name not in _SPLIT_PARAMS:
+        kw = SPLIT_CFGS[cfg_name]
+        cfg = (dataclasses.replace(tllama.LlamaConfig.llama3_1b(), n_layer=2)
+               if kw == "llama-3-1b" else _llama_cfg(cfg_name))
+        _SPLIT_PARAMS[cfg_name] = (cfg, _llama_params(cfg, device))
+    cfg, params = _SPLIT_PARAMS[cfg_name]
+    key = (cfg_name, wq, dtype)
+    if key not in _SPLIT_PACKED:
+        tree = _tree_to(params, dtype)
+        if wq is None:
+            packed = tml.pack_llama_mega(tree, cfg)
+        else:
+            spec = tllama.llama_spec(cfg)
+            _, mode, G = weight_quant_plan(spec, wq)
+            packed = None
+            for G in ((G,) if wq == "int4w8" else (G, 64)):
+                packed = tml.pack_llama_mega(quantize_weights(spec, tree, mode, G), cfg)
+                if packed is not None:
+                    break
+        assert packed is not None, key
+        _SPLIT_PACKED[key] = (cfg, packed)
+    return _SPLIT_PACKED[key]
+
+
+def _split_length(cfg, C, where):
+    """A length at an edge of the launcher's split plan: no visible row, one,
+    the last row of split 0 visible last, the first row of split 1 visible
+    last, or the last row of the panes written."""
+    _, rows = tml.attention_plan(C, cfg.n_head, cfg.n_kv_head,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"zero": 0, "one": 1, "split_last": min(rows, C - 1),
+            "split_first": min(rows + 1, C - 1), "last": C - 1}[where]
+
+
+def _check_llama_split_step(device, cfg_name, wq, mode, dtype, C, length):
+    """The single-stream step against its plain step: fp32 tokens equal where
+    the top-2 gap is at least 1e-4, bf16 within 2e-2 of the plain maximum;
+    new rows within 1e-5 (fp32) / 1.6e-2 (bf16) of their largest value,
+    quantized rows within one (fp32) / two (bf16) steps, fp32 scales within
+    1e-5; every other row untouched; one launch counted where it belongs."""
+    cfg, packed = _split_packed(cfg_name, wq, dtype, device)
+    state, x = _llama_inputs(cfg, mode, C, seed=length + 11, device=device)
+    state = [t.to(dtype) if t.is_floating_point() and t.dim() == 3 else t for t in state]
+    x = x.to(dtype)
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    step, plain = ((tml.llama_megastep, tml.llama_megastep_plain) if mode == "fp" else
+                   (tmq.llama_megastep_quant, tmq.llama_megastep_quant_plain))
+    kw = {} if mode == "fp" else {"kv_mode": mode}
+    counter = step if wq is None else step.tiers[wq[:4]]
+    before = counter.launches
+    tok = int(step(packed, *got, length, x, cfg=cfg, **kw)[0])
+    assert counter.launches == before + 1
+    logits = plain(packed, *want, length, x, cfg=cfg, return_logits=True, **kw)[-1]
+    torch.cuda.synchronize()
+    top2 = logits.topk(2).values
+    if dtype == torch.float32:
+        if float(top2[0] - top2[1]) >= 1e-4:
+            assert tok == int(logits.argmax())
+    else:
+        assert float(logits[tok]) >= float(top2[0]) - 2e-2
+    others = torch.arange(C, device=device) != length
+    for g_, w_, b_ in zip(got, want, state):
+        assert torch.equal(g_[:, others], b_[:, others])
+        assert torch.equal(w_[:, others], b_[:, others])
+    if mode == "fp":
+        rel = 1e-5 if dtype == torch.float32 else 1.6e-2
+        for g_, w_ in zip(got, want):
+            atol = rel * max(1.0, w_[:, length].float().abs().max().item())
+            torch.testing.assert_close(g_[:, length].float(), w_[:, length].float(),
+                                       atol=atol, rtol=0)
+        return
+    steps = 1 if dtype == torch.float32 else 2
+    for kind, g_, w_, gs, ws in zip(tmq._kv_kinds(mode), got[:2], want[:2], got[2:],
+                                    want[2:]):
+        gv = tmq.pane_values(g_[:, length], kind) * gs[:, length, None]
+        wv = tmq.pane_values(w_[:, length], kind) * ws[:, length, None]
+        tol = steps * max(gs[:, length].max().item(), ws[:, length].max().item()) * 1.01
+        assert (gv - wv).abs().max() <= tol
+        if dtype == torch.float32:
+            torch.testing.assert_close(gs[:, length], ws[:, length], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("where", SPLIT_WHERE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("wq", [None, "int8", "int4", "int4w8"])
+@pytest.mark.parametrize("cfg_name", list(SPLIT_CFGS))
+def test_llama_split_step_matches_plain(cuda, cfg_name, wq, mode, dtype, where):
+    """#13 at R = 1 and #12 over every pane kind and weight tier, fp32 and
+    bf16, C = 320, at the lengths where the split-KV attention changes: no
+    visible row, one, the last row of a split and the first of the next
+    visible last, and C - 1."""
+    cfg, _ = _split_packed(cfg_name, wq, dtype, cuda)
+    _check_llama_split_step(cuda, cfg_name, wq, mode, dtype, 320, _split_length(cfg, 320, where))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+@pytest.mark.parametrize("wq", [None, "int8", "int4", "int4w8"])
+@pytest.mark.parametrize("cfg_name", list(SPLIT_CFGS))
+def test_llama_split_step_at_the_capacity_limit(cuda, cfg_name, wq, mode, dtype):
+    """The same at C = 8192 (the kernels' capacity limit), length C - 1:
+    every split full."""
+    _check_llama_split_step(cuda, cfg_name, wq, mode, dtype, 8192, 8191)
+
+
+@pytest.mark.parametrize("wq", [None, "int4"])
+@pytest.mark.parametrize("mode", ["fp", "int8"])
+def test_llama_step_graph_replays_bit_identical(cuda, mode, wq):
+    """Two replays of one captured CUDA graph of 6 advancing steps
+    (MegaDecodeGraph, programmatic dependent launch inside) give identical
+    bits (tokens, panes, scales), and equal the same 6 steps launched
+    eagerly; bf16 at Llama-3.2-1B's width, 2 layers, C = 320, length 100."""
+    cfg, packed = _split_packed("llama-3-1b-L2", wq, torch.bfloat16, cuda)
+    C, n, length = 320, 6, 100
+    state, _ = _llama_inputs(cfg, mode, C, seed=3, device=cuda)
+    state = [t.to(torch.bfloat16) if t.is_floating_point() and t.dim() == 3 else t
+             for t in state]
+    names = ["k", "v", "ks", "vs"][:len(state)]
+    kinds = ("fp", "fp") if mode == "fp" else tmq._kv_kinds(mode)
+    kw = dict(k_kind=kinds[0], v_kind=kinds[1], quant_eps=1e-8)
+    counter = tml.llama_megastep if mode == "fp" else tmq.llama_megastep_quant
+    tok0 = torch.tensor([17], dtype=torch.int32, device=cuda)
+    graph = tmk.MegaDecodeGraph(packed, cfg, n, {nm: torch.empty_like(t) for nm, t in
+                                                 zip(names, state)}, counter,
+                                launcher=tml.LlamaStepLauncher, **kw)
+    runs = []
+    for _ in range(2):
+        for nm, t in zip(names, state):
+            graph.panes[nm].copy_(t)
+        toks = graph.run(tok0, length).clone()
+        torch.cuda.synchronize()
+        runs.append([toks] + [graph.panes[nm].clone() for nm in names])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    eager = [t.clone() for t in state]
+    toks = torch.zeros(n + 1, 1, dtype=torch.int32, device=cuda)
+    toks[0] = tok0
+    lengths = torch.tensor([length], dtype=torch.int32, device=cuda)
+    panes = dict(zip(names, eager))
+    step = tml.LlamaStepLauncher(packed, cfg, panes["k"], panes["v"], lengths, toks[1],
+                                 tok_in=toks[0], ks=panes.get("ks"), vs=panes.get("vs"),
+                                 advance=True, **kw)
+    for i in range(n):
+        step.set_tokens(toks[i], toks[i + 1])
+        step.launch()
+    torch.cuda.synchronize()
+    assert torch.equal(toks[:n], runs[0][0])
+    for a, b in zip(eager, runs[0][1:]):
+        assert torch.equal(a, b)
