@@ -94,8 +94,14 @@ Continuous batching (`MegaBatchServer`: the batched chains past 8 slots,
 the batched verify kernels #18-#21 of csrc/megabatch_verify.cu) runs in
 four more phases:
 - in the batch kernels: #14/#16 at B = 16 (and #14 at B = 32) on GPT-2
-  small, #15/#17 at B = 16 on Llama-3.2-1B, the lengths above repeated,
-  with the same tolerances, timed in bf16;
+  small, #15/#17 at B = 16 and 32 on Llama-3.2-1B, the lengths above
+  repeated, with the same tolerances (bf16 rows at B = 32 on the first two
+  layers), timed in bf16; the bf16 Llama
+  chain (one launch a GEMV for all slots, csrc/gemv_stream_tc.cuh) keeps a
+  slot's token and new K/V bytes bit for bit at B = 32, 16, 9, 8 and 1
+  (fp and int8 panes, bf16 weights and their int8 tier) and launches
+  5 L + 3 kernels a step at every B; and #15/#17 over the int8 weight tier
+  at Llama-3.2-1B's full depth (B = 8, 16, fp panes 32), fp32 and bf16;
 - batched verify kernels, after the speculation kernels: #18/#19 at GPT-2
   small's width on 16 slots and #20/#21 at Llama-3.2-1B's on 8, R in
   {2, 8} rows a slot fed as token ids, C = 128, slot lengths 0, 7, 8, 55
@@ -154,15 +160,17 @@ int4 codes) runs in three more places:
 
 The weight tiers of the verify and batched chains (#10, #13 at R > 1,
 #14-#21: the batched GEMV of csrc/gemv_batch.cuh streaming int8 or
-grouped-int4 codes) run in three more places:
+grouped-int4 codes; in bf16 #15 / #17 on csrc/gemv_stream_tc.cuh) run in
+three more places:
 - batched weight-tier kernels, after the batched verify phase: GPT-2 small
   (12 layers) at int8 and int4 (G = 128), Llama-3.2-1B's widths cut to 2
-  layers at int8, int4 and int4w8 (G = 1024; verify and B = 8 only), bf16
-  and fp32: #10 / #13 at R = 8 (cur 0 and C - 16 of C = 344), #14-#17 at
-  B = 8 (lengths 0 .. 319 of C = 320; #16 / #17 also at B = 16), #18-#21
-  at 8 x 8 rows (C = 128; GPT-2's #18 also at 16 x 8 in bf16), fp and int8
-  panes, each against its plain version with its full-precision phase's
-  checks and limits, timed in bf16 beside the pack's byte bound;
+  layers at int8, int4 and int4w8 (G = 1024; no batched verify), bf16 and
+  fp32: #10 / #13 at R = 8 (cur 0 and C - 16 of C = 344), #14-#17 at B = 8
+  (lengths 0 .. 319 of C = 320; #16 also at B = 16, #15 / #17 at 16 and
+  32), #18-#21 at 8 x 8 rows (C = 128; GPT-2's #18 also at 16 x 8 in
+  bf16), fp and int8 panes, each against its plain version with its
+  full-precision phase's checks and limits, timed in bf16 beside the
+  pack's byte bound;
 - weight-quant serving main path, after the server main path:
   from_model_name(weight_quant=...) for Llama-3.2-1B at int8 and GPT-2
   small at int4, bf16: generate_batch (8 prompts, kv_mode None and int8),
@@ -188,6 +196,7 @@ enqueue included, is printed beside them.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -706,7 +715,6 @@ def check_llama_megasteps(params_bf16: dict) -> dict:
     2's fp-row limit at some lengths whatever the kernel: the chain before
     this design drifts there too (scripts/torch_step_drift.py compares two
     checkouts)."""
-    import dataclasses
 
     from efficient_llm_inference_tpu_torch.models import llama as llama_mod
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
@@ -830,17 +838,24 @@ def _batch_bound(mode, dtype, cfg, family, lengths, packed=None) -> tuple:
 
 
 def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
-                      suffix: str = "", time_plain: bool = True) -> dict:
+                      suffix: str = "", time_plain: bool = True, rows_2l: tuple = ()) -> dict:
     """#14/#16 (GPT-2) or #15/#17 (Llama) against their plain batched steps:
     B = 8 slots at BATCH_LENGTHS, C = 320, fp, int8, int4 and mixed panes,
     fp32 and bf16 (`params_for(dtype)` gives the weights); per slot the
     token and the new rows under the megastep tolerances, every other column
-    untouched. Then past 8 slots (each batched GEMV launched once per group
-    of 8 rows): `wide[mode]` slot counts at the same lengths, repeated. Device ms
+    untouched. Then past 8 slots: `wide[mode]` slot counts at the same
+    lengths, repeated. Device ms
     by CUDA-graph replay in bf16 at B = 8, at B = 1 (one slot at length 319)
     and at each wide B, beside the bound and the plain step. `modes` limits
     the pane kinds; `suffix` ends the kernels' names (a weight tier's);
-    without `time_plain` the plain step is checked but not timed."""
+    without `time_plain` the plain step is checked but not timed. At the
+    slot counts of `rows_2l` the bf16 new rows are held, with the same
+    limits, on the same slots run through the model's first two layers (its
+    tokens at full depth): over 16 bf16 layers the kernel's and the plain
+    step's rounding flips compound to the rows' limit at 32 slots, whatever
+    the chain (scripts/torch_step_drift.py --batch: the largest row reaches
+    0.98-1.06 of it on the CUDA-core GEMVs of gemv_batch.cuh and on
+    tensor-core GEMVs, also where their sums round to nearest; PERF.md §6)."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
 
@@ -876,21 +891,33 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
                                      family=family)[-1]
                 torch.cuda.synchronize()
                 err = 0.0
+                two_layers = dtype == torch.bfloat16 and n_slots in rows_2l
+                if two_layers:  # the same slots through the first two layers
+                    cfg2 = dataclasses.replace(cfg, n_layer=2)
+                    pk2 = pack(_first_layers(params, 2), cfg2)
+                    got2 = [t[:2].clone() for t in state]
+                    want2 = [t[:2].clone() for t in state]
+                    _batch_step(mode, pk2, cfg2, got2, dev_len, x, family=family)
+                    _batch_step(mode, pk2, cfg2, want2, lengths, x, plain=True, family=family)
+                    torch.cuda.synchronize()
+                    rows = (got2, want2, [t[:2] for t in state])
+                else:
+                    rows = (got, want, state)
                 for b, length in enumerate(lengths):
                     tok = int(toks[b])
                     if not _token_ok(tok, logits[b], dtype):
                         raise AssertionError(
                             f"{name} {mode} {dtype} B={n_slots} slot {b} (length {length}): "
                             f"token {tok}, plain argmax {int(logits[b].argmax())}")
-                    err = max(err, _new_row_err(mode, dtype, [t[:, b] for t in got],
-                                                [t[:, b] for t in want],
-                                                [t[:, b] for t in state], row=length,
-                                                deep_bf16=llama))
+                    err = max(err, _new_row_err(mode, dtype, *([t[:, b] for t in ts]
+                                                               for ts in rows),
+                                                row=length, deep_bf16=llama))
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 line = (f"  {name} {mode} {str(dtype)[6:]} B={n_slots} C=320 lengths "
                         f"{lengths[:8]}{' (repeated)' if n_slots > B else ''}: tokens "
                         f"{toks.tolist()[:8]} (plain {logits.argmax(-1).tolist()[:8]}), new "
-                        f"rows max|kernel-plain| {err:.2e}")
+                        f"rows max|kernel-plain| {err:.2e}"
+                        f"{' (first 2 layers)' if two_layers else ''}")
                 if dtype == torch.bfloat16:
                     bnd, by = _batch_bound(mode, dtype, cfg, family, lengths, packed)
                     ms = device_ms(lambda: _batch_step(mode, packed, cfg, got, dev_len, x,
@@ -921,6 +948,91 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
             reports[(mode, dtype)] = entry
         del params, packed
     return _mega_reports(reports, *names)
+
+
+ROW_BATCHES = (32, 16, 9, 8)  # the bf16 Llama chain's slot counts held bit for bit
+
+
+def check_llama_batch_rows(llama) -> None:
+    """The bf16 batched Llama chain (#15 / #17, csrc/gemv_stream_tc.cuh: one
+    launch a GEMV for all slots) at Llama-3.2-1B's full width, fp and int8
+    panes, over the main path's bf16 weights and their int8 tier: slot b's
+    token and new K/V row bytes (codes and scales) are bit for bit the same
+    run at B = 32, 16, 9, 8 and alone (B = 1; slots 0, 8, 31); and a step
+    launches 5 L + 3 kernels at B = 8, 16 and 32 (no GEMV a group of 8)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mb
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+
+    cfg = llama.model.config
+    W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
+    packs = {"bf16": ml.pack_llama_mega(llama.params, cfg),
+             "int8": ml.pack_llama_mega(_quantized_params(spec_by_name("llama-3-1b"),
+                                                          llama.params, "int8"), cfg)}
+    B = ROW_BATCHES[0]
+    lengths = [BATCH_LENGTHS[b % len(BATCH_LENGTHS)] for b in range(B)]
+    g = torch.Generator(device="cuda").manual_seed(77)
+    x = (torch.randn((B, E), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    want_kernels = 5 * cfg.n_layer + 3
+    for weights, packed in packs.items():
+        for mode in ("fp", "int8"):
+            state = _verify_state(mode, torch.bfloat16, 900 + len(weights), cfg.n_layer, B, W,
+                                  C=MEGA_C)
+            want, kernels = {}, {}
+            for slots in [list(range(n)) for n in ROW_BATCHES] + [[0], [8], [31]]:
+                st = [t[:, slots].contiguous() for t in state]
+                dev_len = torch.tensor([lengths[b] for b in slots], dtype=torch.int32,
+                                       device="cuda")
+                before = mb.chain_kernels()
+                toks = _batch_step(mode, packed, cfg, st, dev_len, x[slots].contiguous(),
+                                   family="llama")[0]
+                kernels[len(slots)] = mb.chain_kernels() - before
+                torch.cuda.synchronize()
+                for i, b in enumerate(slots):
+                    got = (int(toks[i]), [t[:, i, lengths[b]].clone() for t in st])
+                    if b not in want:
+                        want[b] = got
+                    elif got[0] != want[b][0] or not all(
+                            torch.equal(r, w) for r, w in zip(got[1], want[b][1])):
+                        raise AssertionError(
+                            f"llama_megabatch{'' if mode == 'fp' else '_quant'} {weights} "
+                            f"weights, {mode} panes: slot {b} differs at B = {len(slots)} "
+                            f"from B = {B}")
+            if set(kernels.values()) != {want_kernels}:
+                raise AssertionError(f"bf16 Llama batched step launches {kernels}, "
+                                     f"want {want_kernels} at every B")
+            log(f"  llama_megabatch bf16 rows, {weights} weights, {mode} panes: slots' tokens "
+                f"and new K/V bytes equal at B = {', '.join(map(str, ROW_BATCHES))} and 1; "
+                f"{want_kernels} kernels a step at B = {sorted(kernels)}")
+            del state
+    del packs
+    torch.cuda.empty_cache()
+
+
+def check_llama_batch_int8_full(llama) -> None:
+    """#15 / #17 over the int8 weight tier at Llama-3.2-1B's full width and
+    depth (16 layers; the batched weight-tier phase holds the tiers on a
+    2-layer cut), fp and int8 panes, fp32 and bf16, B = 8 and 16 (fp panes
+    also 32), with check_megabatches' checks and limits, timed in bf16."""
+    from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+
+    spec = spec_by_name("llama-3-1b")
+    quantized = {}
+
+    def q_for(dtype):
+        if dtype not in quantized:
+            quantized.clear()
+            torch.cuda.empty_cache()
+            quantized[dtype] = _quantized_params(spec, _cast_params(llama.params, dtype),
+                                                 "int8")
+        return quantized[dtype]
+
+    check_megabatches("llama", llama.model.config, q_for, modes=("fp", "int8"),
+                      wide={"fp": (16, 32), "quant": (16,)}, suffix="_w8_full",
+                      time_plain=False, rows_2l=(32,))
+    quantized.clear()
+    torch.cuda.empty_cache()
 
 
 SPEC_K, SPEC_SELF_K, DRAFT_K = 8, 4, 4  # verify rows of n-gram, self-draft, draft rounds
@@ -2652,7 +2764,6 @@ def check_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
     padded 4864 -> 5376), fp and int8 panes, untimed. The kernels line
     takes the bf16 times at 319 (fp panes for #9 / #13, int8 panes for
     #11 / #12; int8 weights for _w8, int4 for _w4) and the worst error."""
-    import dataclasses
 
     from efficient_llm_inference_tpu_torch.engine.engine import weight_quant_plan
     from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
@@ -2766,16 +2877,14 @@ def check_batch_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
     checks and limits:
     - #10 / #13 at R = 8 rows, cur 0 and C - 16 of C = SPEC_C (fp panes);
     - #14-#17 at B = 8 (BATCH_LENGTHS of C = 320: lengths 0 .. C - 1), fp
-      and int8 panes, and #16 / #17 at B = 16;
+      and int8 panes, #16 at B = 16, and #15 / #17 at B = 16 and 32;
     - #18-#21 at 8 x 8 rows, VERIFY_LENGTHS of C = SERVER_C (up to C - 16),
       fp and int8 panes; GPT-2's #18 also at 16 x 8 in bf16;
-    int4w8 (which differs from int4 by its group) at #13 and #15 / #17 at
-    B = 8 only.
+    int4w8 (which differs from int4 by its group) at #13 and #15 / #17 only.
     The kernels line takes each tier's bf16 times (int8: _w8; int4 at G =
     128: _w4; at 8 rows or slots, int8 panes for the quantized-pane
     kernels) beside its bound (the pack's codes and scales) and the worst
     error over the tier's cases (int4w8 in _w4)."""
-    import dataclasses
 
     from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
     from efficient_llm_inference_tpu_torch.models.registry import (
@@ -2810,8 +2919,10 @@ def check_batch_weight_tiers(gpt2_cfg, llama_params_bf16: dict) -> dict:
             full = wq != "int4w8"
             got = check_megaverify(family, cfg, q_for, rows=(8,), curs=(0, SPEC_C - 16),
                                    suffix=sfx, time_plain=timed)
-            got.update(check_megabatches(family, cfg, q_for, modes=("fp", "int8"),
-                                         wide={"fp": (), "quant": (16,) if full else ()},
+            # the bf16 Llama chain takes every B in one launch a GEMV: each tier at 8-32
+            wide = ({"fp": (16, 32), "quant": (16, 32)} if family == "llama"
+                    else {"fp": (), "quant": (16,) if full else ()})
+            got.update(check_megabatches(family, cfg, q_for, modes=("fp", "int8"), wide=wide,
                                          suffix=sfx, time_plain=timed))
             if full:
                 got.update(_mega_reports(
@@ -3052,7 +3163,9 @@ def main() -> int:
     t0 = time.perf_counter()
     reports.update(check_megabatches("llama", llama.model.config,
                                      lambda dtype: _cast_params(llama.params, dtype),
-                                     wide={"fp": (16,), "quant": (16,)}))
+                                     wide={"fp": (16, 32), "quant": (16, 32)}, rows_2l=(32,)))
+    check_llama_batch_rows(llama)
+    check_llama_batch_int8_full(llama)
     log(f"phase batch kernels, llama: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

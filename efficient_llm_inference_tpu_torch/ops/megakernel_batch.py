@@ -29,12 +29,14 @@ import ctypes
 import torch
 
 from . import _build
+from . import _gemv_stream_tc
 from . import megakernel as mk
 from . import megakernel_llama as ml
 
 # The kernels' largest batch (csrc/megabatch.cu kMaxSlots): the JAX server's
 # largest admission wave. The batched GEMV takes up to 256 rows
-# (csrc/gemv_batch.cuh kMaxRows), launched in groups of 8.
+# (csrc/gemv_batch.cuh kMaxRows), launched in groups of 8; the bf16 Llama
+# chain's (csrc/gemv_stream_tc.cuh) takes all 32 slots in one launch.
 MAX_BATCH = 32
 
 
@@ -127,11 +129,16 @@ class GPT2BatchArgs(ctypes.Structure):
     _fields_ = [("batch", ctypes.c_int)] + mk.MegaStepArgs._fields_
 
 
+# The bf16 Llama chain's tensor-core GEMV scratch, the tail of LlamaBatchArgs.
+TC_FIELDS = [("tc_part", ctypes.c_void_p), ("tc_part_len", ctypes.c_longlong),
+             ("tc_count", ctypes.c_void_p), ("tc_count_len", ctypes.c_int)]
+
+
 class LlamaBatchArgs(ctypes.Structure):
     """Mirror of `struct LlamaBatchArgs` in csrc/megabatch.cu: B, then
-    ops/megakernel_llama.py's `LlamaStepArgs`."""
+    ops/megakernel_llama.py's `LlamaStepArgs`, then `TC_FIELDS`."""
 
-    _fields_ = [("batch", ctypes.c_int)] + ml.LlamaStepArgs._fields_
+    _fields_ = [("batch", ctypes.c_int)] + ml.LlamaStepArgs._fields_ + TC_FIELDS
 
 
 _lib = None
@@ -147,8 +154,68 @@ def kernels() -> ctypes.CDLL:
                          (lib.elit_llama_megabatch_quant, LlamaBatchArgs)):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        lib.elit_megabatch_kernels.restype = ctypes.c_longlong
+        lib.elit_megabatch_kernels.argtypes = []
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.elit_stream_gemv.restype = i
+        # w, ws, w_kind, group, N, K, B, x, part, part_len, counters, count_len, out, stream
+        lib.elit_stream_gemv.argtypes = [p, p, i, i, i, i, i, p, p, ctypes.c_longlong, p, i, p, p]
         _lib = lib
     return _lib
+
+
+def chain_kernels() -> int:
+    """Kernels the bf16 Llama/Qwen batched chain has launched in this
+    process: a step's launches are the difference across the step."""
+    return int(kernels().elit_megabatch_kernels())
+
+
+def stream_gemv_plain(x: torch.Tensor, w: torch.Tensor, scales=None) -> torch.Tensor:
+    """Plain PyTorch version of `stream_gemv`: bf16(x @ W^T) with fp32 sums,
+    W in its tier's arithmetic (int8: each row's fp32 sum times its scale;
+    int4: each group's fp32 sum times its scale, summed)."""
+    if scales is None:
+        y = x.float() @ w.float().t()
+    elif w.dtype == torch.int8:
+        y = (x.float() @ w.float().t()) * scales.float()
+    else:
+        y = torch.stack([mk.int4_rows_dot(r, w, scales) for r in x])
+    return y.to(torch.bfloat16)
+
+
+def stream_gemv(x: torch.Tensor, w: torch.Tensor, scales=None) -> torch.Tensor:
+    """One GEMV of the bf16 batched Llama/Qwen chain alone, on its
+    tensor-core route (csrc/gemv_stream_tc.cuh): x [B, K] bf16 (1 <= B <=
+    32) times weight rows W [N, K] -> bf16 [B, N], no prologue or bias. W:
+    bf16 [N, K], int8 codes [N, K] with fp32 row scales [N], or packed int4
+    rows uint8 [N, K/2] with bf16 scales [N, K/G]. On a CUDA tensor it
+    launches `elit_stream_gemv` of `csrc/megabatch.cu` and counts one launch
+    in `stream_gemv.launches`; on a CPU tensor it runs `stream_gemv_plain`."""
+    if x.device.type == "cpu":
+        return stream_gemv_plain(x, w, scales)
+    B, K = x.shape
+    N = w.shape[0]
+    tier = "fp" if scales is None else ("int8" if w.dtype == torch.int8 else "int4")
+    if x.dtype != torch.bfloat16 or not 1 <= B <= MAX_BATCH or not x.is_contiguous() \
+            or not w.is_contiguous() or (scales is not None and not scales.is_contiguous()):
+        raise ValueError(f"stream_gemv: x {x.dtype} {tuple(x.shape)}: expected contiguous "
+                         f"bf16 [1..{MAX_BATCH}, K] and contiguous weights")
+    n_part, n_count = _gemv_stream_tc.scratch_sizes_of([(N, K)], B)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
+    count = torch.zeros(n_count, dtype=torch.int32, device=x.device)
+    out = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
+    lib = kernels()
+    rc = lib.elit_stream_gemv(w.data_ptr(), None if scales is None else scales.data_ptr(),
+                              mk.WEIGHT_CODE[tier],
+                              K // scales.shape[-1] if tier == "int4" else 0, N, K, B,
+                              x.data_ptr(), part.data_ptr(), n_part, count.data_ptr(), n_count,
+                              out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "stream_gemv")
+    stream_gemv.launches += 1
+    return out
+
+
+stream_gemv.launches = 0
 
 
 class GPT2BatchLauncher(mk.StepLauncher):
@@ -165,12 +232,28 @@ class GPT2BatchLauncher(mk.StepLauncher):
 
 
 class LlamaBatchLauncher(ml.LlamaStepLauncher):
-    """The prepared arguments of one configuration's batched Llama/Qwen step."""
+    """The prepared arguments of one configuration's batched Llama/Qwen
+    step; in bf16 with the tensor-core GEMVs' scratch (`TC_FIELDS`: the
+    split partials and zeroed tile counters, ops/_gemv_stream_tc.py
+    `scratch_sizes` at this B), allocated once per launcher so a captured
+    step allocates nothing and no two launchers share counters."""
 
     entry = {False: "elit_llama_megabatch", True: "elit_llama_megabatch_quant"}
     args_type = LlamaBatchArgs
     batched = True
     max_rows = MAX_BATCH
+
+    def __init__(self, packed: dict, cfg, k, *args, **kw):
+        super().__init__(packed, cfg, k, *args, **kw)
+        a = self.args
+        if a.dtype != mk._DTYPE_CODE[torch.bfloat16]:
+            return
+        n_part, n_count = _gemv_stream_tc.scratch_sizes(cfg, a.batch)
+        part = torch.empty(n_part, dtype=torch.float32, device=self.device)
+        count = torch.zeros(n_count, dtype=torch.int32, device=self.device)
+        self._refs = self._refs + (part, count)
+        a.tc_part, a.tc_part_len = part.data_ptr(), n_part
+        a.tc_count, a.tc_count_len = count.data_ptr(), n_count
 
     def library(self) -> ctypes.CDLL:
         return kernels()

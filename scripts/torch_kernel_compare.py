@@ -2,7 +2,7 @@
 """Time the whole-step, batched and verify kernels of two checkouts on one
 GPU, in turns.
 
-    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [--profile] [--single]
+    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [--profile] [--single | --batch]
 
 Runs this checkout's and OTHER_CHECKOUT's efficient_llm_inference_tpu_torch
 (each built from its own sources into its own build/cuda/) in four worker
@@ -39,6 +39,20 @@ overlap of each launch with the one before it (start before the previous
 end; programmatic dependent launch lets a kernel start before its
 predecessor ends). With --single, only the single-stream steps run. The
 CUDA runtime of torch, nvidia-smi's version and nvcc --version come first.
+
+With --batch, only the batched Llama steps run: #15 llama_megabatch (fp
+panes) and #17 llama_megabatch_quant (int8, int4 and mixed panes) at
+Llama-3.2-1B's full width in bf16, and #15 over the int8, int4 and int4w8
+weight tiers (as from_model_name(weight_quant=...) quantizes them), each at
+B = 1, 8, 16 and 32 (C = 320, slot lengths LENGTHS repeated), with GPT-2
+small's #14 / #16 (fp and int8 panes) at B = 8 and 16 as the control. With
+--batch --profile, the bf16 steps of #15 and #17 (int8 panes) at B = 8 and
+16, and the int8 tier at B = 8, also print their split by kernel role
+(embed, qkv, attention, o, gate|up, down, LM head, argmax; each launch
+charged its end minus the latest end before it) and the gaps (time in
+which no kernel of the step ran), from a torch.profiler trace of one replay
+of a CUDA graph of 4 steps, with the launches of a step and how many of
+them start before the one before them ends.
 """
 
 from __future__ import annotations
@@ -242,6 +256,141 @@ def single_stream(tree: str, profile: bool) -> None:
         del params
 
 
+ROLES = ("qkv", "attention", "o", "gate|up", "down")
+
+
+def step_split(seq, n_layer: int, n_steps: int = 4) -> dict:
+    """The split of one step by kernel role from `launches_in_order`'s
+    launches of n_steps steps: consecutive launches of one kernel name are
+    one GEMV (gemv_batch.cuh launches a GEMV once per group of 8 slots); a step
+    is embed, per layer qkv, attention, o, gate|up, down, then the LM head
+    and argmax. Each launch is charged its end minus the latest end before
+    it (its start, if later); `gaps` is the time no launch ran. µs a step,
+    plus the step's launches and how many start before the previous end."""
+    groups = []  # [name, [launches]]
+    seq = [launch for launch in seq if "at::native" not in launch[0]]  # torch's own fills
+    for launch in seq:
+        if groups and groups[-1][0] == launch[0] and "embed" not in launch[0] \
+                and "argmax_batch" not in launch[0]:
+            groups[-1][1].append(launch)
+        else:
+            groups.append([launch[0], [launch]])
+    per_step = 5 * n_layer + 3
+    out = {r: 0.0 for r in ("embed",) + ROLES + ("lm_head", "argmax", "gaps")}
+    prev_end, early = None, 0
+    for i, (name, launches) in enumerate(groups):
+        j = i % per_step
+        role = ("embed" if j == 0 else "lm_head" if j == per_step - 2
+                else "argmax" if j == per_step - 1 else ROLES[(j - 1) % 5])
+        if len(groups) != per_step * n_steps:
+            role = name[:40]
+            out.setdefault(role, 0.0)
+        for _, start, dur, overlap in launches:
+            end = start + dur
+            if prev_end is None:
+                out[role] += dur
+                prev_end = end
+                continue
+            early += overlap > 0
+            out["gaps"] += max(0.0, start - prev_end)
+            out[role] += max(0.0, end - max(prev_end, start))
+            prev_end = max(prev_end, end)
+    split = {k: round(v / n_steps, 2) for k, v in out.items()}
+    split["launches"] = len(seq) / n_steps
+    split["start_early"] = early / n_steps
+    return split
+
+
+def batch_steps(tree: str, profile: bool) -> None:
+    """The batched Llama steps of this tree (#15, #17 and the weight tiers
+    at B = 1, 8, 16, 32) and GPT-2's #14 / #16 as the control, one JSON line
+    each; with `profile`, the B = 8 and 16 bf16 steps' split by kernel."""
+    import torch
+
+    from efficient_llm_inference_tpu_torch.engine.engine import (
+        quantize_weights,
+        weight_quant_plan,
+    )
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.models import llama as llama_mod
+    from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mb
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as mbq
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def state(mode, L, B, W):  # drawn on the card
+        if mode == "fp":
+            return [(torch.randn((L, B, C, W), generator=g, device="cuda") * 0.5)
+                    .to(torch.bfloat16) for _ in range(2)]
+        panes = []
+        for kind in mq._kv_kinds(mode):
+            width = W if kind == "int8" else W // 2
+            panes.append(torch.randint(-127, 128, (L, B, C, width), generator=g,
+                                       device="cuda", dtype=torch.int8))
+        return panes + [torch.rand((L, B, C), generator=g, device="cuda") * 0.02 + 1e-3
+                        for _ in range(2)]
+
+    def stepper(family, mode, packed, cfg, st, lengths, x):
+        fp = mb.gpt2_megabatch if family == "gpt2" else mb.llama_megabatch
+        quant = mbq.gpt2_megabatch_quant if family == "gpt2" else mbq.llama_megabatch_quant
+        if mode == "fp":
+            return lambda: fp(packed, *st, lengths, x, cfg=cfg)
+        return lambda: quant(packed, *st, lengths, x, cfg=cfg, kv_mode=mode)
+
+    def lengths_of(B):
+        return torch.tensor([LENGTHS[b % len(LENGTHS)] for b in range(B)] if B > 1 else [319],
+                            dtype=torch.int32, device="cuda")
+
+    cfg = gpt2_mod.GPT2Config.small()
+    params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
+                                       torch.bfloat16, "cuda")
+    packed = mk.pack_gpt2_mega(params, cfg)
+    for mode in ("fp", "int8"):
+        for B in (8, 16):
+            st = state(mode, cfg.n_layer, B, cfg.n_embd)
+            x = (torch.randn((B, cfg.n_embd), generator=g, device="cuda") * 0.3).to(
+                torch.bfloat16)
+            ms = device_ms(stepper("gpt2", mode, packed, cfg, st, lengths_of(B), x))
+            print(json.dumps({"tree": tree, "batch": "gpt2", "panes": mode, "weights": "bf16",
+                              "B": B, "ms": ms}), flush=True)
+            del st
+    del params, packed
+    torch.cuda.empty_cache()
+
+    cfg = llama_mod.LlamaConfig.llama3_1b()
+    spec = spec_by_name("llama-3-1b")
+    KW = cfg.n_kv_head * cfg.head_dim
+    params = llama_mod.init_llama_params(torch.Generator().manual_seed(42), cfg,
+                                         torch.bfloat16, "cuda")
+    for weights in ("bf16", "int8", "int4", "int4w8"):
+        if weights == "bf16":
+            packed = ml.pack_llama_mega(params, cfg)
+        else:
+            _, mode_w, group = weight_quant_plan(spec, weights)
+            packed = ml.pack_llama_mega(quantize_weights(spec, params, mode_w, group), cfg)
+        for mode in (PANES if weights == "bf16" else ("fp",)):
+            for B in (1, 8, 16, 32):
+                st = state(mode, cfg.n_layer, B, KW)
+                x = params["embed"][torch.arange(B, device="cuda") * 977 + 11].contiguous()
+                fn = stepper("llama", mode, packed, cfg, st, lengths_of(B), x)
+                row = {"tree": tree, "batch": "llama-3-1b", "panes": mode, "weights": weights,
+                       "B": B, "ms": device_ms(fn)}
+                if profile and B in (8, 16) and (
+                        mode in ("fp", "int8") if weights == "bf16" else
+                        weights == "int8" and B == 8):
+                    _, seq = launches_in_order(fn)
+                    row["split_us"] = step_split(seq, cfg.n_layer)
+                    row["first_launches"] = [r[0] for r in seq[:8]]
+                print(json.dumps(row), flush=True)
+                del st
+        del packed
+        torch.cuda.empty_cache()
+
+
 def _cast(params, dtype):
     if isinstance(params, dict):
         return {k: _cast(v, dtype) for k, v in params.items()}
@@ -363,12 +512,15 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
         tree, flags = sys.argv[2], sys.argv[3:]
         sys.path.insert(0, tree)
+        if "--batch" in flags:
+            batch_steps(tree, "--profile" in flags)
+            return 0
         if "--single" not in flags:
             worker(tree, "--profile" in flags)
         single_stream(tree, "--profile" in flags)
         return 0
-    args = [a for a in sys.argv[1:] if a not in ("--profile", "--single")]
-    flags = [a for a in sys.argv[1:] if a in ("--profile", "--single")]
+    args = [a for a in sys.argv[1:] if a not in ("--profile", "--single", "--batch")]
+    flags = [a for a in sys.argv[1:] if a in ("--profile", "--single", "--batch")]
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2

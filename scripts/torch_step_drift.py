@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """How far the single-stream Llama step's bf16 new K/V rows drift from its
-plain step over 16 layers, for this checkout and, optionally, another.
+plain step over 16 layers, for this checkout and, optionally, others.
 
-    python3 scripts/torch_step_drift.py [OTHER_CHECKOUT]
+    python3 scripts/torch_step_drift.py [OTHER_CHECKOUT ...] [--batch] [--gemv]
 
 On one GPU, Llama-3.2-1B at full width and depth (from_model_name, random
 weights from seed 42, bf16), chip_smoke.py's Llama cases: fp / int8 / int4
@@ -12,10 +12,27 @@ kind, C, the length, whether the token passes phase 2's gate (within 2e-2
 of the plain maximum logit) and the new rows' largest difference from the
 plain step beside phase 2's limit (fp rows: 1.6e-2 of the rows' largest
 value; quantized rows: two steps plus that, the deep-bf16 allowance).
-OTHER_CHECKOUT (the parent unpacked into the gitignored _checkout/, say) is
-run first, in its own process, with this checkout's chip_smoke.py helpers:
-the drift of two chains on the same cases in one call. The card's name and
-power limit first.
+Each OTHER_CHECKOUT (the parent unpacked into the gitignored _checkout/,
+say) is run first, in its own process, with this checkout's chip_smoke.py
+helpers: the drift of several chains on the same cases in one call. The
+card's name and power limit first.
+
+With --batch, the batched step instead (#15 / #17, chip_smoke.py's batch
+kernels phase: every pane kind, B = 8, 16 and 32 slots at its lengths of
+C = 320, its seeds and inputs; then over the int8 weight tier, fp and int8
+panes, as its full-depth int8 phase): one line a case with the tokens that
+pass the gate, the slots whose new rows pass phase 2's limit, and for fp
+panes the largest row difference as a share of its slot's limit.
+
+With --gemv (this checkout only), where the drift starts: one bf16 GEMV at
+each of Llama-3.2-1B's five weight shapes, 32 rows of N(0, 1) inputs and
+N(0, 0.02) weights from seed 7, bf16 out, held against the fp64 product
+rounded to bf16. For each route (the batched chain's `stream_gemv` and the
+batched verify's `verify_gemv`, whose MMAs carry the running sum in their
+fp32 accumulator; an fp32 matmul, TF32 off, which rounds to nearest): the
+share of outputs that differ from the rounded fp64 product and, of those,
+the share that lie nearer zero than it (an even split is unbiased
+rounding).
 """
 
 from __future__ import annotations
@@ -65,20 +82,124 @@ def worker(tree: str) -> None:
                   f"{row}", flush=True)
 
 
+def batch_worker(tree: str) -> None:
+    sys.path.insert(0, tree)
+    sys.path.insert(1, str(HERE))
+    import torch
+
+    import chip_smoke as cs
+    from efficient_llm_inference_tpu_torch import InferenceEngine
+    from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = InferenceEngine.from_model_name("llama-3-1b")
+    cfg = eng.model.config
+    W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
+    dtype = torch.bfloat16
+    cases = [("bf16", mode) for mode in cs.MODES] + [("int8", mode) for mode in ("fp", "int8")]
+    packs = {}
+    for weights, mode in cases:
+        i = cs.MODES.index(mode)
+        if weights not in packs:
+            packs.clear()
+            params = (eng.params if weights == "bf16" else
+                      cs._quantized_params(spec_by_name("llama-3-1b"), eng.params, weights))
+            packs[weights] = ml.pack_llama_mega(params, cfg)
+            del params
+        packed = packs[weights]
+        for n_slots in (8, 16, 32):
+            lengths = [cs.BATCH_LENGTHS[b % 8] for b in range(n_slots)]
+            if n_slots == 8:  # check_megabatches' states and inputs
+                state, x = cs._batch_state(mode, dtype, 300 + i, cfg.n_layer, W, E, 8)
+            else:
+                state = cs._verify_state(mode, dtype, 300 + i + 100 * n_slots, cfg.n_layer,
+                                         n_slots, W, C=cs.MEGA_C)
+                g = torch.Generator(device="cuda").manual_seed(n_slots)
+                x = (torch.randn((n_slots, E), generator=g, device="cuda") * 0.3).to(dtype)
+            dev_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            got = [t.clone() for t in state]
+            want = [t.clone() for t in state]
+            toks = cs._batch_step(mode, packed, cfg, got, dev_len, x, family="llama")[0]
+            logits = cs._batch_step(mode, packed, cfg, want, lengths, x, plain=True,
+                                    family="llama")[-1]
+            torch.cuda.synchronize()
+            tok_ok, row_ok, share = 0, 0, 0.0
+            for b, length in enumerate(lengths):
+                tok_ok += cs._token_ok(int(toks[b]), logits[b], dtype)
+                slot = [[t[:, b] for t in ts] for ts in (got, want, state)]
+                try:
+                    cs._new_row_err(mode, dtype, *slot, row=length, deep_bf16=True)
+                    row_ok += 1
+                except AssertionError:
+                    pass
+                if mode == "fp":
+                    g_ = torch.stack([t[:, b, length].float() for t in got])
+                    w_ = torch.stack([t[:, b, length].float() for t in want])
+                    tol = 1.6e-2 * max(w_.abs().max().item(), 1.0)
+                    share = max(share, (g_ - w_).abs().max().item() / tol)
+            print(f"{tree} batch {weights} weights {mode} B={n_slots}: tokens ok {tok_ok}/{n_slots}, rows within "
+                  f"the limit {row_ok}/{n_slots}"
+                  + (f", largest fp row difference {share:.3f} of its limit"
+                     if mode == "fp" else ""), flush=True)
+
+
+def gemv_worker() -> None:
+    import json
+
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mb
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch_verify as mbv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for name, N, K in (("qkv", 3072, 2048), ("o", 2048, 2048), ("gate_up", 16384, 2048),
+                       ("down", 2048, 8192), ("head", 128256, 2048)):
+        x = torch.randn((32, K), generator=g, device="cuda").bfloat16()
+        w = (torch.randn((N, K), generator=g, device="cuda") * 0.02).bfloat16()
+        exact = x.double() @ w.double().t()
+        ref = exact.to(torch.bfloat16)
+        routes = {"stream_gemv": lambda: mb.stream_gemv(x, w),
+                  "verify_gemv": lambda: mbv.verify_gemv(x, w),
+                  "fp32_matmul": lambda: (x.float() @ w.float().t()).bfloat16()}
+        for route, fn in routes.items():
+            try:
+                y = fn()
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as e:
+                print(json.dumps({"gemv": name, "route": route, "error": str(e)}), flush=True)
+                continue
+            off = y != ref
+            nearer = off & (y.double().abs() < exact.abs())
+            n_off = int(off.sum())
+            print(json.dumps({"gemv": name, "N": N, "K": K, "route": route,
+                              "off_share": n_off / off.numel(),
+                              "nearer_zero_of_off": int(nearer.sum()) / max(n_off, 1)}),
+                  flush=True)
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        worker(sys.argv[2])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--worker":
+        (batch_worker if "--batch" in sys.argv else worker)(sys.argv[2])
         return 0
-    if len(sys.argv) > 2:
-        print(__doc__, file=sys.stderr)
-        return 2
+    batch = "--batch" in sys.argv
+    args = [a for a in sys.argv[1:] if a not in ("--batch", "--gemv")]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    trees = [str(pathlib.Path(t).resolve()) for t in sys.argv[1:]] + [str(HERE)]
+    if "--gemv" in sys.argv:
+        if args or batch:
+            print(__doc__, file=sys.stderr)
+            return 2
+        gemv_worker()
+        return 0
+    trees = [str(pathlib.Path(t).resolve()) for t in args] + [str(HERE)]
     for tree in trees:
-        subprocess.run([sys.executable, __file__, "--worker", tree], check=True)
+        subprocess.run([sys.executable, __file__, "--worker", tree] + ["--batch"] * batch,
+                       check=True)
     return 0
 
 

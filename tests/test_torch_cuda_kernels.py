@@ -22,7 +22,8 @@ steps). The batched verify kernels (#18-#21) likewise per slot and row, B in
 {1, 3, 16} x R in {2, 5, 8}, and the continuous-batching server on the card
 against the same server on the CPU, with its launch counts. The weight tiers
 (int8, grouped int4, int4w8) of every chain: the single-stream steps, the
-verifies (#10, #13 at R = 8), the batched steps (B = 9) and the batched
+verifies (#10, #13 at R = 8), the batched steps (B = 9; the Llama ones in
+bf16 also at B = 8, 16 and 32) and the batched
 verifies (3 x 5 rows), each against its plain version with the same
 checks, each launch counted in its wrapper's tier. The single-stream
 Llama/Qwen chain (#13 at R = 1, #12: the streaming GEMV and the split-KV
@@ -32,6 +33,12 @@ on the lengths where the attention's splits change (0, 1, the last row of
 a split and the first of the next visible last, C - 1) and at C = 8192,
 length 8191, with the checks above; and two replays of one captured graph
 of 6 steps give identical bits, equal to the same steps launched eagerly.
+The bf16 batched Llama chain (#15 / #17 on csrc/gemv_stream_tc.cuh): a
+slot's token and new K/V row bytes are the same at B = 1, 8, 9, 16 and 32
+for every pane kind and the int8 / int4 weights, a step launches 5 L + 3
+kernels at every B, the chain holds at Qwen2.5-7B's and Llama-3-8B's widths
+(one layer), and one of its GEMVs alone (`stream_gemv`) is within one bf16
+rounding of its plain version in every weight tier.
 """
 
 import dataclasses
@@ -428,7 +435,9 @@ def _batch_case(family, mode, dtype, B, device, wq=None):
     `family`: "gpt2" E = 256, head_dim 128; "gpt2-full" GPT-2 small at full
     width (a 48 KB staged input at B = 8 in bf16: the shared-memory opt-in);
     "llama" G = 2, KW = 256; "llama-3-1b-L2" Llama-3.2-1B's widths at 2
-    layers. With `wq`, the weights of that weight_quant (`_tier_packed`)."""
+    layers; "qwen2.5-7b-L1" / "llama-3-8b-L1" those models' widths at one
+    layer (weights at the registry's std, drawn on the card). With `wq`, the
+    weights of that weight_quant (`_tier_packed`)."""
     C = 128
     if wq is not None:
         kind, cfg, packed = _tier_packed(TIER_OF[family], wq, dtype, device)
@@ -439,6 +448,13 @@ def _batch_case(family, mode, dtype, B, device, wq=None):
         params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(1), cfg,
                                         torch.float32, device)
         packed, W, E = tmk.pack_gpt2_mega(params, cfg), cfg.n_embd, cfg.n_embd
+    elif family.endswith("-L1"):
+        cfg = dataclasses.replace(tllama.LlamaConfig.by_name(family[:-3]), n_layer=1)
+        params = tllama.init_llama_params(torch.Generator(device=device).manual_seed(1), cfg,
+                                          torch.float32, device)
+        packed = tml.pack_llama_mega(params, cfg)
+        del params
+        W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
     else:
         cfg = (dataclasses.replace(tllama.LlamaConfig.llama3_1b(), n_layer=2)
                if family == "llama-3-1b-L2" else _llama_cfg("g2"))
@@ -1311,6 +1327,104 @@ def test_tier_megabatch_matches_plain(cuda, family, wq, mode, dtype):
     """#14-#17 over quantized weights, B = 9 slots (two groups of 8 rows),
     with test_megabatch_matches_plain's checks and tolerances."""
     _check_megabatch(cuda, family, mode, dtype, 9, wq)
+
+
+@pytest.mark.parametrize("B", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["fp", "mixed"])
+@pytest.mark.parametrize("wq", ["int8", "int4", "int4w8"])
+@pytest.mark.parametrize("family", ["llama", "llama-3-1b-L2"])
+def test_tier_llama_megabatch_wide(cuda, family, wq, mode, B):
+    """#15 / #17 over quantized weights in bf16 at B = 8, 16 and 32 (each
+    GEMV one launch for all slots, csrc/gemv_stream_tc.cuh; Llama-3.2-1B's
+    widths at 2 layers included), with test_megabatch_matches_plain's checks
+    and tolerances."""
+    _check_megabatch(cuda, family, mode, torch.bfloat16, B, wq)
+
+
+@pytest.mark.parametrize("wq", [None, "int8", "int4"])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])
+def test_llama_megabatch_rows_independent(cuda, mode, wq):
+    """In bf16 the Llama chain (#15 / #17) gives slot b's token and its new
+    K/V row bytes (codes and scales for quantized panes) bit for bit the same
+    at B = 1, 8, 9, 16 and 32, and with its neighbours in another order: a
+    slot's sums do not depend on B or on the slots beside it."""
+    packed, cfg, state, x = _batch_case("llama", mode, torch.bfloat16, 32, cuda, wq)
+    lengths = [BATCH_LENGTHS[b % len(BATCH_LENGTHS)] for b in range(32)]
+    kern = tmb.llama_megabatch if mode == "fp" else tmbq.llama_megabatch_quant
+    kw = {} if mode == "fp" else {"kv_mode": mode}
+
+    def run(slots):
+        st = [t[:, slots].contiguous() for t in state]
+        dev_len = torch.tensor([lengths[b] for b in slots], dtype=torch.int32, device=cuda)
+        toks = kern(packed, *st, dev_len, x[slots].contiguous(), cfg=cfg, **kw)[0]
+        torch.cuda.synchronize()
+        return {b: (int(toks[i]), [t[:, i, lengths[b]].clone() for t in st])
+                for i, b in enumerate(slots)}
+
+    want = run(list(range(32)))
+    runs = [list(range(B)) for B in (16, 9, 8)] + [[b] for b in (0, 3, 8, 17, 31)]
+    runs.append(list(reversed(range(32))))
+    for slots in runs:
+        for b, (tok, rows) in run(slots).items():
+            assert tok == want[b][0], (slots, b)
+            assert all(torch.equal(r, w) for r, w in zip(rows, want[b][1])), (slots, b)
+
+
+@pytest.mark.parametrize("B", [8, 32])
+@pytest.mark.parametrize("mode", ["fp", "int8"])
+@pytest.mark.parametrize("family", ["qwen2.5-7b-L1", "llama-3-8b-L1"])
+def test_llama_megabatch_wide_geometry(cuda, family, mode, B):
+    """#15 / #17 in bf16 at the widths of the registry's largest Llama/Qwen
+    geometries, one layer: Qwen2.5-7B (LM head 152064 x 3584, 1188 tiles of
+    two K parts, the largest count of tile counters) and Llama-3-8B, with
+    test_megabatch_matches_plain's checks and tolerances."""
+    _check_megabatch(cuda, family, mode, torch.bfloat16, B)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("B", [1, 9, 32])
+@pytest.mark.parametrize("tier", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("N,K", [(3072, 2048), (2048, 8192), (152064, 3584), (130, 96)])
+def test_stream_gemv_matches_plain(cuda, N, K, tier, B):
+    """One GEMV of the bf16 batched Llama chain alone (`stream_gemv`,
+    csrc/gemv_stream_tc.cuh) against its plain version: every output within
+    one bf16 rounding (2^-7 of its value, or 1e-4 of the largest output),
+    at Llama-3.2-1B's qkv and down, Qwen2.5-7B's LM head and an edge shape
+    (int4 at G = 32);
+    one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(N + K + B)
+    x = torch.randn((B, K), generator=g, device=cuda).bfloat16()
+    if tier == "fp":
+        w, s = (torch.randn((N, K), generator=g, device=cuda) / K ** 0.5).bfloat16(), None
+    elif tier == "int8":
+        w = torch.randint(-127, 128, (N, K), generator=g, device=cuda,
+                          dtype=torch.int32).to(torch.int8)
+        s = torch.rand((N,), generator=g, device=cuda) / (64 * K ** 0.5)
+    else:
+        w = torch.randint(0, 256, (N, K // 2), generator=g, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+        s = (torch.rand((N, K // 32), generator=g, device=cuda) / (4 * K ** 0.5)).bfloat16()
+    before = tmb.stream_gemv.launches
+    got = tmb.stream_gemv(x, w, s).float()
+    assert tmb.stream_gemv.launches == before + 1
+    want = tmb.stream_gemv_plain(x, w, s).float()
+    tol = torch.maximum(want.abs() * 2 ** -7, want.abs().max() * 1e-4)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_llama_megabatch_one_launch_a_gemv(cuda):
+    """In bf16 the Llama chain launches 5 L + 3 kernels a step (embed; per
+    layer qkv, attention, o, gate|up, down; LM head, argmax) at every B:
+    no GEMV is launched once per group of 8 slots."""
+    packed, cfg, state, x = _batch_case("llama", "fp", torch.bfloat16, 32, cuda)
+    counts = {}
+    for B in (1, 8, 9, 16, 32):
+        st = [t[:, :B].contiguous() for t in state]
+        dev_len = torch.tensor(BATCH_LENGTHS * 4, dtype=torch.int32, device=cuda)[:B]
+        before = tmb.chain_kernels()
+        tmb.llama_megabatch(packed, *st, dev_len, x[:B].contiguous(), cfg=cfg)
+        counts[B] = tmb.chain_kernels() - before
+    assert set(counts.values()) == {5 * cfg.n_layer + 3}, counts
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -212,15 +212,18 @@ def test_tier_kernels_plain_match_jax(case):
 def test_launcher_structs_carry_the_weight_tier():
     """Every verify and batched args struct carries the single-stream
     struct's fields, ending with its weight-tier fields, after its leading
-    rows / batch fields; the batched verify's then end with the bf16
-    chain's tensor-core scratch (the C structs' trailing fields)."""
+    rows / batch fields; the batched verify's and the batched Llama step's
+    then end with their bf16 chain's tensor-core scratch (the C structs'
+    trailing fields)."""
     tc = [f[0] for f in tbv.TC_FIELDS]
     assert tc == ["xn", "tc_part", "tc_part_len", "tc_count"]
+    tc_step = [f[0] for f in tmb.TC_FIELDS]
+    assert tc_step == ["tc_part", "tc_part_len", "tc_count", "tc_count_len"]
     for struct, lead, base, tail in (
             (tmk.GPT2VerifyArgs, ["rows"], tmk.MegaStepArgs, []),
             (tml.LlamaVerifyArgs, ["rows"], tml.LlamaStepArgs, []),
             (tmb.GPT2BatchArgs, ["batch"], tmk.MegaStepArgs, []),
-            (tmb.LlamaBatchArgs, ["batch"], tml.LlamaStepArgs, []),
+            (tmb.LlamaBatchArgs, ["batch"], tml.LlamaStepArgs, tc_step),
             (tbv.GPT2BatchVerifyArgs, ["batch", "rows"], tmk.MegaStepArgs, tc),
             (tbv.LlamaBatchVerifyArgs, ["batch", "rows"], tml.LlamaStepArgs, tc)):
         names = [f[0] for f in struct._fields_]
