@@ -594,12 +594,17 @@ def check_megasteps() -> dict:
             state, x = _mega_state(mode, dtype, 100 + i, 12, 768, 768)
             got = [t.clone() for t in state]
             want = [t.clone() for t in state]
+            kernels = mk.step_kernels()
             tok = int(_mega_step(mode, packed, cfg, got, dev_len, x)[0])
+            kernels = mk.step_kernels() - kernels
             logits = _mega_step(mode, packed, cfg, want, MEGA_LEN, x, plain=True)[-1]
             torch.cuda.synchronize()
             if not _token_ok(tok, logits, dtype):
                 raise AssertionError(f"megastep {mode} {dtype}: token {tok}, plain "
                                      f"argmax {int(logits.argmax())}")
+            if kernels != 1:
+                raise AssertionError(f"megastep {mode} {dtype}: {kernels} kernels a step, "
+                                     f"not one")
             err = _new_row_err(mode, dtype, got, want, state)
             b, by = _mega_bound(mode, dtype)
             entry = {
@@ -614,7 +619,8 @@ def check_megasteps() -> dict:
             eager = eager_ms(lambda: _mega_step(mode, packed, cfg, got, dev_len, x),
                              iters=20)
             log(f"  megastep {mode} {str(dtype)[6:]} L=12 E=768 V=50257 C=320 "
-                f"len={MEGA_LEN}: token {tok} (plain {int(logits.argmax())}), new rows "
+                f"len={MEGA_LEN}: {kernels} kernel a step, token {tok} (plain "
+                f"{int(logits.argmax())}), new rows "
                 f"max|kernel-plain| {err:.2e}; device ms kernel {entry['ms']:.5f}, "
                 f"plain {entry['plain_ms']:.5f}, bound {b:.5f} ({by}); eager kernel "
                 f"call {eager:.5f} ms")

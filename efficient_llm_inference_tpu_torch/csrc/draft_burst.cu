@@ -104,8 +104,8 @@ __device__ __forceinline__ void cluster_barrier() {
 }
 
 // The block's copy of a GEMV input in shared memory h[K]: the activation in
-// as it is (PRO_VEC), or normalised like layer_norm_to_shared /
-// rms_norm_to_shared. in == nullptr: h already holds the raw values.
+// as it is (PRO_VEC), or normalised as megastep_common.cuh's PRO_LN /
+// PRO_RMS state it. in == nullptr: h already holds the raw values.
 template <typename T, int PRO>
 __device__ void stage(const T* in, const float* g, const float* b, int K, float eps, float* h,
                       float* red) {
@@ -132,7 +132,7 @@ __device__ void stage(const T* in, const float* g, const float* b, int K, float 
 }
 
 // y[row] = h . W[row] for the rows of W [N, K] owned by this warp of the
-// cluster, with gemv_kernel's epilogues (EPI_ARGMAX: the warp's first
+// cluster, with megastep_common.cuh's GEMV epilogues (EPI_ARGMAX: the warp's first
 // (max, argmax) into *best / *best_idx of lane 0).
 template <typename T, int EPI>
 __device__ void cluster_gemv(const T* __restrict__ W, int N, int K, const float* h,

@@ -28,8 +28,8 @@ constexpr int kGroup = 8;      // input rows of one gemv_batch_kernel launch
 // ----------------------------------------------------------- batched GEMV
 //
 // y[b, row] = sum_k in[b, k] * W[row, k] for the B <= kMaxRows rows of
-// in [B, K] over a row-major [N, K] weight, with the single-stream
-// gemv_kernel's prologues, epilogues and weight tiers. One launch of
+// in [B, K] over a row-major [N, K] weight, with megastep_common.cuh's
+// GEMV prologues, epilogues and weight tiers. One launch of
 // gemv_batch_kernel takes up to kGroup = 8 input rows: a block stages them
 // (norm applied, rounded to T) in shared memory, then walks its row groups:
 // KS warps split a row's K, and each warp streams RW rows at once (RW
@@ -44,7 +44,7 @@ constexpr int kGroup = 8;      // input rows of one gemv_batch_kernel launch
 // Outputs are [B, N] ([B, N/2] for SwiGLU); the argmax partials of input
 // row b go to part_val[b * grid + blockIdx.x], one grid for every group.
 //
-// Weight tiers (WK, gemv_kernel's): the inputs are staged in T for every
+// Weight tiers (WK, megastep_common.cuh's): the inputs are staged in T for every
 // tier, so a tier stages as the model dtype does, with 16 bytes more a
 // chunk (fp32 staging would double the shared memory and K-chunk
 // Llama-3.2-1B's 8192-input down-projection at 8 rows). W_T applies each

@@ -2,7 +2,7 @@
 // (llama_megastep.cu), and programmatic dependent launch for its kernels.
 //
 // y[row] = sum_k in[k] * W[row, k] over the rows of a row-major [N, K] weight
-// for one input row, with the prologues of megastep_common.cuh's gemv_kernel
+// for one input row, with megastep_common.cuh's GEMV prologues
 // (PRO_RMS: RMSNorm of x, PRO_VEC: the input vector), its epilogues
 // (EPI_STORE with the Qwen bias, EPI_RESIDUAL in place, EPI_SWIGLU over
 // interleaved (gate, up) rows, EPI_ARGMAX per-block partials) and weight
@@ -10,9 +10,10 @@
 // the same arithmetic.
 //
 // Bound: bytes (a weight is read once a step; ~2 operations a weight
-// element). What held gemv_kernel under it: a block per 2-8 rows, each
-// running the whole prologue (an RMSNorm over E, or all K inputs staged) for
-// 8-32 KB of weights, and 3 chunks of 16 bytes requested a lane before it.
+// element). What held the chains' first GEMV under it: a block per 2-8
+// rows, each running the whole prologue (an RMSNorm over E, or all K inputs
+// staged) for 8-32 KB of weights, and 3 chunks of 16 bytes requested a lane
+// before it.
 // The design here:
 //   - kStreamBlocksPerSm (2) blocks an SM (the grid from the device's SM
 //     count and the kernel's occupancy at launch), persistent: block b takes
@@ -158,7 +159,7 @@ __device__ __forceinline__ void load_inputs(const T* hv, float (&a)[N]) {
 }
 
 // acc + one 16-byte chunk u of a row of tier WK times its inputs a, in
-// gemv_kernel's arithmetic: the model dtype's values by an fmaf chain in
+// the GEMVs' arithmetic: the model dtype's values by an fmaf chain in
 // order (dot16); int8 codes' chunk_dot added; int4 codes' chunk_dot times
 // the chunk's group scale s, fused into acc.
 template <typename T, int WK>

@@ -1,14 +1,12 @@
 // Device code shared by the whole-step decode chains (gpt2_megastep.cu,
 // llama_megastep.cu, and the batched and verify chains of megabatch.cu,
-// megaverify.cu and megabatch_verify.cu): conversions, 16-byte weight
-// streaming, block reductions, the GEMV kernel with its norm prologues,
-// fused epilogues and weight tiers (model dtype, int8, grouped int4; the
-// single-stream chains; the tiers' chunk decode is weight_tier.cuh's, shared
-// with gemv_batch.cuh), decode attention over fp / int8 / half-split int4 panes
-// with quantize-on-write, the final argmax, and the slot strides of batched
-// [L, B, C, W] panes. Each including
-// source gets its own copy (anonymous namespace); the host sides stay in the
-// sources.
+// megaverify.cu and megabatch_verify.cu, draft_burst.cu): conversions,
+// 16-byte weight streaming, block reductions, the GEMVs' prologue, epilogue
+// and weight-tier kinds and their norm and activation arithmetic (the tiers'
+// chunk decode is weight_tier.cuh's), decode attention over fp / int8 /
+// half-split int4 panes with quantize-on-write, the final argmax, and the
+// slot strides of batched [L, B, C, W] panes. Each including source gets its
+// own copy (anonymous namespace); the host sides stay in the sources.
 //
 // Numerics (the JAX kernels' rounding points): the norm output, q, k, v, the
 // attention output, the activation output and every residual add round to the
@@ -43,6 +41,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
+}
+
+// A value of T as fp32, loaded through ld.global.cg (L2 only): for data that
+// another block of the same launch wrote (L1 is not coherent).
+__device__ __forceinline__ float ldcg_f32(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg_f32(const __nv_bfloat16* p) {
+  return __uint_as_float((unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
 // Elements of T in one 16-byte load, and their unpacking to fp32.
@@ -121,16 +126,15 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// -------------------------------------------------------------------- GEMV
+// ------------------------------------------------------------ GEMV kinds
 //
-// y[row] = sum_k in[k] * W[row, k] over rows of a row-major [N, K] weight.
-// Prologue: PRO_LN puts LayerNorm(x) (rounded to T) in shared memory, PRO_RMS
-// RMSNorm(x) (the normalised value rounded to T before the gain, the product
-// rounded again), PRO_VEC the input vector. KS warps split one row's K; a
-// block covers kWarps / KS rows per pass and strides over row groups by the
-// grid. The first pass's weights (up to kPrefetch<T> 16-byte chunks a lane)
-// are requested before the prologue, so its latency overlaps the weight
-// stream. Epilogues (`bias` may be null: no bias):
+// y[row] = sum_k in[k] * W[row, k] over rows of a row-major [N, K] weight,
+// as the chains' GEMVs compute it (gemv_stream.cuh, gemv_batch.cuh,
+// gemv_stream_tc.cuh, gemm_rows_tc.cuh, draft_burst.cu, and the persistent
+// GPT-2 step's tiles). Prologue: PRO_LN LayerNorm(x) with fp32 statistics,
+// rounded to T; PRO_RMS RMSNorm(x) (the normalised value rounded to T before
+// the gain, the product rounded again); PRO_VEC the input vector. Epilogues
+// (`bias` may be null: no bias):
 //   EPI_STORE     out[row] = T(y + b)
 //   EPI_GELU      out[row] = T(gelu(y + b))
 //   EPI_RESIDUAL  out[row] = T(out[row] + T(y + b))   (out is x, in place)
@@ -155,58 +159,13 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 //         JAX kernel's int4w8 form (raw nibble dots, the fp32 sums scaled)
 //         at every G; its grouped form, which rounds each v * s to T before
 //         the dot, is not kept (a multiply and a rounding a weight more).
-// The quantized tiers keep the input in shared memory with QTier<WK>::PAD
-// floats of padding after every chunk's inputs, so neighbouring lanes'
-// float4 reads of their chunks fall in distinct banks.
 
 enum { PRO_LN = 0, PRO_VEC = 1, PRO_RMS = 2 };
-template <typename T> constexpr int kPrefetch = 24 / Vec<T>::N;  // 3 in bf16, 6 in fp32
 enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_ARGMAX = 3, EPI_SWIGLU = 4 };
 
-// Inputs a 16-byte chunk of weights covers, and the shared-memory padding
-// after each chunk's inputs.
+// Inputs a 16-byte chunk of weights covers.
 template <typename T, int WK> struct WTier : QTier<WK> {};
-template <typename T> struct WTier<T, W_T> { static constexpr int N = Vec<T>::N, PAD = 0; };
-
-// Shared-memory slot of input k (chunks of N inputs, PAD floats after each).
-template <int N, int PAD> __device__ __forceinline__ int hpos(int k) {
-  return PAD ? k + PAD * (k / N) : k;
-}
-
-template <typename T, int N = 1, int PAD = 0>
-__device__ void layer_norm_to_shared(const T* __restrict__ x, const float* __restrict__ g,
-                                     const float* __restrict__ b, int E, float eps, float* h,
-                                     float* red) {
-  float s = 0.0f;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const float v = to_f32(x[e]);
-    h[hpos<N, PAD>(e)] = v;
-    s += v;
-  }
-  const float mean = block_sum(s, red) / (float)E;
-  float s2 = 0.0f;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const float d = h[hpos<N, PAD>(e)] - mean;
-    s2 += d * d;
-  }
-  const float r = rsqrtf(block_sum(s2, red) / (float)E + eps);
-  for (int e = threadIdx.x; e < E; e += kThreads)
-    h[hpos<N, PAD>(e)] = round_to<T>((h[hpos<N, PAD>(e)] - mean) * r * g[e] + b[e]);
-}
-
-template <typename T, int N = 1, int PAD = 0>
-__device__ void rms_norm_to_shared(const T* __restrict__ x, const float* __restrict__ g, int E,
-                                   float eps, float* h, float* red) {
-  float s = 0.0f;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const float v = to_f32(x[e]);
-    h[hpos<N, PAD>(e)] = v;
-    s += v * v;
-  }
-  const float r = rsqrtf(block_sum(s, red) / (float)E + eps);
-  for (int e = threadIdx.x; e < E; e += kThreads)
-    h[hpos<N, PAD>(e)] = round_to<T>(round_to<T>(h[hpos<N, PAD>(e)] * r) * round_to<T>(g[e]));
-}
+template <typename T> struct WTier<T, W_T> { static constexpr int N = Vec<T>::N; };
 
 __device__ __forceinline__ float gelu_tanh(float m) {
   return 0.5f * m * (1.0f + tanhf(0.7978845608028654f * (m + 0.044715f * (m * m * m))));
@@ -220,131 +179,10 @@ __host__ __device__ __forceinline__ size_t weight_row_bytes(int wk, int K) {
   return wk == W_T ? (size_t)K * sizeof(T) : (wk == W_I8 ? (size_t)K : (size_t)K / 2);
 }
 
-template <typename T, int PRO, int EPI, int KS, int WK>
-__global__ void __launch_bounds__(kThreads)
-gemv_kernel(const void* __restrict__ W, const void* __restrict__ ws, int group, int N, int K,
-            const T* __restrict__ in, const float* __restrict__ ln_g,
-            const float* __restrict__ ln_b, float ln_eps, const float* __restrict__ bias,
-            T* __restrict__ out, float* __restrict__ part_val, int* __restrict__ part_idx) {
-  constexpr int RPB = kWarps / KS;  // rows per block and pass
-  constexpr int VN = WTier<T, WK>::N, PAD = WTier<T, WK>::PAD;
-  static_assert(EPI != EPI_SWIGLU || RPB % 2 == 0, "SwiGLU pairs rows within a pass");
-  extern __shared__ float h[];  // [K] (+ PAD after every VN inputs)
-  __shared__ float red[kWarps];
-  __shared__ float part[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = warp / KS, ks = warp % KS;
-  const int n_chunks = K / VN;
-  const int c0 = ks * n_chunks / KS, c1 = (ks + 1) * n_chunks / KS;
-  const size_t row_bytes = weight_row_bytes<T>(WK, K);
-  auto row_ptr = [&](int row) {
-    return reinterpret_cast<const uint4*>(static_cast<const char*>(W) + (size_t)row * row_bytes);
-  };
-
-  uint4 pre[kPrefetch<T>];
-  if (blockIdx.x * RPB + r < N) {
-    const uint4* wr = row_ptr(blockIdx.x * RPB + r);
-#pragma unroll
-    for (int i = 0; i < kPrefetch<T>; ++i)
-      if (c0 + lane + 32 * i < c1) pre[i] = load_stream(wr + c0 + lane + 32 * i);
-  }
-  if (PRO == PRO_LN) {
-    layer_norm_to_shared<T, VN, PAD>(in, ln_g, ln_b, K, ln_eps, h, red);
-  } else if (PRO == PRO_RMS) {
-    rms_norm_to_shared<T, VN, PAD>(in, ln_g, K, ln_eps, h, red);
-  } else {
-    for (int e = threadIdx.x; e < K; e += kThreads) h[hpos<VN, PAD>(e)] = to_f32(in[e]);
-  }
-  __syncthreads();
-
-  // acc + chunk c of row `row` (its 16 bytes in u) times its inputs
-  const int n_groups = WK == W_I4 ? K / group : 1;
-  const float chunk_to_group = WK == W_I4 ? (float)VN / (float)group : 0.0f;
-  auto chunk = [&](const uint4& u, int c, int row, float acc) -> float {
-    const float* hv = h + c * (VN + PAD);
-    if constexpr (WK == W_T) {
-      return dot16<T>(u, hv, acc);
-    } else {
-      float cd[VN];
-      decode_chunk<WK>(u, cd);
-      if constexpr (WK == W_I8) return acc + chunk_dot_smem<WK>(cd, hv);
-      const T* s = static_cast<const T*>(ws) + (size_t)row * n_groups;
-      return fmaf(chunk_dot_smem<WK>(cd, hv), to_f32(s[chunk_group(c, chunk_to_group)]),
-                  acc);
-    }
-  };
-  // the row's sum over the KS warps, scaled by the int8 row scale
-  auto row_sum = [&](int t, int row) {
-    float y = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KS; ++j) y += part[t * KS + j];
-    if constexpr (WK == W_I8) y *= static_cast<const float*>(ws)[row];
-    return y;
-  };
-  float best = -INFINITY;
-  int best_idx = 0;
-  for (int row0 = blockIdx.x * RPB; row0 < N; row0 += gridDim.x * RPB) {
-    const int row = row0 + r;
-    float acc = 0.0f;
-    if (row < N) {
-      const uint4* wr = row_ptr(row);
-      int c = c0 + lane;
-      if (row0 == blockIdx.x * RPB) {  // the first pass: the prefetched chunks
-#pragma unroll
-        for (int i = 0; i < kPrefetch<T>; ++i, c += 32)
-          if (c < c1) acc = chunk(pre[i], c, row, acc);
-      }
-#pragma unroll 4
-      for (; c < c1; c += 32) acc = chunk(load_stream(wr + c), c, row, acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) part[warp] = acc;
-    __syncthreads();
-    if (EPI == EPI_SWIGLU) {
-      if (threadIdx.x < RPB / 2 && row0 + 2 * threadIdx.x + 1 < N) {
-        const int o = row0 + 2 * threadIdx.x;
-        const float gate = round_to<T>(silu(row_sum(2 * threadIdx.x, o)));
-        const float up = round_to<T>(row_sum(2 * threadIdx.x + 1, o + 1));
-        out[row0 / 2 + threadIdx.x] = from_f32<T>(gate * up);
-      }
-    } else if (threadIdx.x < RPB && row0 + threadIdx.x < N) {
-      const int o = row0 + threadIdx.x;
-      const float y = row_sum(threadIdx.x, o);
-      const float b = bias != nullptr ? bias[o] : 0.0f;
-      if (EPI == EPI_STORE) {
-        out[o] = from_f32<T>(y + b);
-      } else if (EPI == EPI_GELU) {
-        out[o] = from_f32<T>(gelu_tanh(y + b));
-      } else if (EPI == EPI_RESIDUAL) {
-        out[o] = from_f32<T>(to_f32(out[o]) + round_to<T>(y + b));
-      } else if (better(y, o, best, best_idx)) {
-        best = y;
-        best_idx = o;
-      }
-    }
-    __syncthreads();  // part[] is rewritten by the next pass
-  }
-  if (EPI == EPI_ARGMAX) {
-    __shared__ float bv[RPB];
-    __shared__ int bi[RPB];
-    if (threadIdx.x < RPB) {
-      bv[threadIdx.x] = best;
-      bi[threadIdx.x] = best_idx;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float v = bv[0];
-      int i = bi[0];
-      for (int t = 1; t < RPB; ++t)
-        if (better(bv[t], bi[t], v, i)) { v = bv[t]; i = bi[t]; }
-      part_val[blockIdx.x] = v;
-      part_idx[blockIdx.x] = i;
-    }
-  }
-}
-
 // The first maximum over n per-block (max, argmax) partials -> *tok_out; with
-// `advance`, the token is clamped to [0, V-1] and *length incremented.
+// `advance`, the token is clamped to [0, V-1] and *length incremented. The
+// partials are read through ld.global.cg (other blocks of a persistent
+// launch write them).
 __device__ void argmax_block(const float* __restrict__ part_val, const int* __restrict__ part_idx,
                              int n, int V, int advance, int* __restrict__ tok_out,
                              int* __restrict__ length) {
@@ -352,8 +190,11 @@ __device__ void argmax_block(const float* __restrict__ part_val, const int* __re
   __shared__ int si[kWarps];
   float v = -INFINITY;
   int i = 0;
-  for (int t = threadIdx.x; t < n; t += kThreads)
-    if (better(part_val[t], part_idx[t], v, i)) { v = part_val[t]; i = part_idx[t]; }
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    const float pv_ = __ldcg(part_val + t);
+    const int pi_ = __ldcg(part_idx + t);
+    if (better(pv_, pi_, v, i)) { v = pv_; i = pi_; }
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(0xffffffffu, v, o);
@@ -372,12 +213,6 @@ __device__ void argmax_block(const float* __restrict__ part_val, const int* __re
     }
     *tok_out = i;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-argmax_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx, int n,
-              int V, int advance, int* __restrict__ tok_out, int* __restrict__ length) {
-  argmax_block(part_val, part_idx, n, V, advance, tok_out, length);
 }
 
 // --------------------------------------------------------------- attention
@@ -628,11 +463,6 @@ __device__ __forceinline__ void attention_block(const AttnParams& p, const int b
   }
 }
 
-template <typename T, int KK, int VK, int D>
-__global__ void __launch_bounds__(kThreads) attention_kernel(const AttnParams p) {
-  attention_block<T, KK, VK, D>(p, blockIdx.x);
-}
-
 // ------------------------------------------------------------------- host
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -668,64 +498,8 @@ WeightRef weight_at(const void* w, const void* s, int kind, int group, size_t ro
           s ? static_cast<const char*>(s) + row0 * sb : nullptr, kind, group};
 }
 
-template <typename T, int PRO, int EPI, int KS, int WK>
-int launch_gemv(const WeightRef& w, int N, int K, int grid, cudaStream_t st, const T* in,
-                const float* ln_g, const float* ln_b, float ln_eps, const float* bias, T* out,
-                float* part_val, int* part_idx) {
-  constexpr int VN = WTier<T, WK>::N, PAD = WTier<T, WK>::PAD;
-  const size_t smem = sizeof(float) * ((size_t)K + (size_t)PAD * (K / VN));
-  auto kernel = gemv_kernel<T, PRO, EPI, KS, WK>;
-  if (int rc = allow_smem(kernel, smem)) return rc;
-  kernel<<<grid, kThreads, smem, st>>>(w.w, w.s, w.group, N, K, in, ln_g, ln_b, ln_eps, bias,
-                                       out, part_val, part_idx);
-  LAUNCH_CHECK();
-  return 0;
-}
-
-// The GEMV of weight `w`'s tier: `grid` blocks over N rows of K inputs.
-template <typename T, int PRO, int EPI, int KS>
-int gemv(const WeightRef& w, int N, int K, int grid, cudaStream_t st, const T* in,
-         const float* ln_g, const float* ln_b, float ln_eps, const float* bias, T* out,
-         float* part_val = nullptr, int* part_idx = nullptr) {
-  if (w.kind == W_T)
-    return launch_gemv<T, PRO, EPI, KS, W_T>(w, N, K, grid, st, in, ln_g, ln_b, ln_eps, bias,
-                                             out, part_val, part_idx);
-  if (w.kind == W_I8)
-    return launch_gemv<T, PRO, EPI, KS, W_I8>(w, N, K, grid, st, in, ln_g, ln_b, ln_eps, bias,
-                                              out, part_val, part_idx);
-  if (w.kind == W_I4)
-    return launch_gemv<T, PRO, EPI, KS, W_I4>(w, N, K, grid, st, in, ln_g, ln_b, ln_eps, bias,
-                                              out, part_val, part_idx);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T, int KK, int VK>
-int launch_attention(const AttnParams& p, int head_dim, cudaStream_t st) {
-  const int rows = p.cos != nullptr && p.kv_width > p.capacity ? p.kv_width : p.capacity;
-  const size_t smem = sizeof(float) * (size_t)rows;  // scores; the writer's roped k
-  if (head_dim == 64)
-    attention_kernel<T, KK, VK, 64><<<p.n_head + 1, kThreads, smem, st>>>(p);
-  else if (head_dim == 128)
-    attention_kernel<T, KK, VK, 128><<<p.n_head + 1, kThreads, smem, st>>>(p);
-  else
-    return (int)cudaErrorInvalidValue;
-  LAUNCH_CHECK();
-  return 0;
-}
-
-// The attention kernel of the panes' storage kinds (0 = T, 8 = int8,
-// 4 = half-split int4; K and V both T, or both quantized).
-template <typename T>
-int attention(const AttnParams& p, int k_kind, int v_kind, int head_dim, cudaStream_t st) {
-  if (k_kind == 0 && v_kind == 0) return launch_attention<T, 0, 0>(p, head_dim, st);
-  if (k_kind == 8 && v_kind == 8) return launch_attention<T, 8, 8>(p, head_dim, st);
-  if (k_kind == 4 && v_kind == 4) return launch_attention<T, 4, 4>(p, head_dim, st);
-  if (k_kind == 8 && v_kind == 4) return launch_attention<T, 8, 4>(p, head_dim, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 // Byte offset of layer `layer` in a [L, C, W] pane of storage `kind`.
-size_t pane_offset(int kind, size_t item, int layer, int C, int W) {
+__host__ __device__ inline size_t pane_offset(int kind, size_t item, int layer, int C, int W) {
   const size_t row = kind == 0 ? item * W : (kind == 8 ? W : W / 2);
   return (size_t)layer * C * row;
 }

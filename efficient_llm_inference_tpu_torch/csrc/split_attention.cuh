@@ -1,0 +1,297 @@
+// Split-KV decode attention of one (K/V head, split) item, shared by the
+// single-stream steps: the Llama/Qwen chain's attention kernel
+// (llama_megastep.cu, one block an item) and GPT-2's persistent step
+// (gpt2_megastep.cu, a block's items of the layer's attention phase).
+//
+// Item b < n_kv * splits: K/V head hk = b / splits over rows
+// [s * rows, min((s + 1) * rows, length)) of the layer's panes (s = b %
+// splits), for the `group` query heads hk * group .. (hk + 1) * group - 1.
+// Each K and V row is read once for the whole group (HC heads a pass hold
+// their q in registers; a group of more reads the rows again from L2).
+// Phase 1: the group's scores of the split's rows into shared memory (D/8
+// lanes a row, 8 dims each, one shuffle tree a head). Phase 2: a warp a
+// head: the split's max m_s, exp(s - m_s) (times the V scale and rounded
+// to T for quantized panes) and their sum l_s. Phase 3: PV, summed over a
+// warp's row slots by shuffles and over the warps in shared memory, to the
+// partial (m_s, l_s, acc_s[D]) of each head. A split past the length writes
+// the neutral partial (-inf, 0, 0). The last item of a K/V head to finish
+// (a counter the combiner resets to zero, so the next launch or layer finds
+// it clean) merges the splits and the current token. The current token's
+// q | k | v are read with ld.global.cg: in a persistent kernel another block
+// wrote them during the same launch, and L1 is not coherent.
+//
+// Numerics (megastep_common.cuh's rounding points): in fp32, a split's
+// scores, its max m_s, exp(s - m_s), their sum l_s and the PV sums acc_s;
+// the combine takes M = max(m_s, s_cur) and out = (sum_s acc_s e^(m_s - M)
+// + e^(s_cur - M) v_cur) / (sum_s l_s e^(m_s - M) + e^(s_cur - M)), the
+// same softmax as one pass in another order of fp32 rounding. Quantized
+// panes: the probabilities times the V scales are rounded to the model dtype
+// relative to the split's max m_s, then rescaled in fp32 at the combine.
+
+#pragma once
+
+#include "megastep_common.cuh"
+
+namespace {
+
+constexpr int kCombine = 16;  // splits the combine reads in one round trip
+
+struct SplitAttn {
+  AttnParams p;  // cos / sin: the step's RoPE rows, or null (no RoPE)
+  int n_kv, splits, rows;
+  float* part;  // [n_head, splits, D + 2]: (m, l, acc[D]) a query head and split
+  int* count;   // [n_kv] finished splits, zero between uses
+};
+
+// head_value with its loads through ld.global.cg.
+template <typename T>
+__device__ __forceinline__ float head_value_cg(const T* head, int d, int D, const float* cs,
+                                               const float* sn) {
+  const float a = ldcg_f32(head + d);
+  if (cs == nullptr) return a;
+  const int half = D / 2;
+  const float r = d < half ? -ldcg_f32(head + d + half) : ldcg_f32(head + d - half);
+  return round_to<T>(__fadd_rn(__fmul_rn(a, cs[d]), __fmul_rn(r, sn[d])));
+}
+
+// Shared memory (floats) of one item: the group's q, the current token's k
+// and v, its scores, the split's scores.
+__host__ __device__ __forceinline__ size_t split_item_floats(int group, int D, int rows) {
+  return (size_t)group * D + 2 * (size_t)D + group + (size_t)group * rows;
+}
+
+// Item `item` (< n_kv * splits) of a layer's split attention, block-wide;
+// sm: split_item_floats(...) floats of shared memory. Before `wait()` it
+// loads only pane rows t < length (which no kernel of the step writes) and
+// their scales; wait() returns the step's raw length.
+template <typename T, int KK, int VK, int D, int HC, typename Wait>
+__device__ __forceinline__ void split_attention_item(const SplitAttn& a, const int item, float* sm,
+                                                     Wait wait) {
+  constexpr int LPR = D / 8;     // lanes a row in phases 1 and 3
+  constexpr int RPW = 32 / LPR;  // rows a warp and pass
+  constexpr int DPT = D / 32;    // dims a lane of the current token's score
+  constexpr bool QUANT = KK != 0;
+  __shared__ float pv[kWarps][HC][D];
+  __shared__ int last;
+  const AttnParams& p = a.p;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = p.capacity, KW = p.kv_width, G = p.group;
+  const int hk = item / a.splits, s = item - hk * a.splits;
+  const int rows = a.rows, r0 = s * rows;
+  const int gi = lane / LPR, d0 = (lane % LPR) * 8;
+  const Pane<T, KK> kpane{p.k, KW};
+  const Pane<T, VK> vpane{p.v, KW};
+  // Before the wait: this lane's row of the warp's first pass (K, V and
+  // their scales). No kernel of the step writes a row t < length, which is
+  // all that is used of them; a row past it (the new row's included) is
+  // read and never used.
+  float k0[8], v0[8], ks0 = 0.0f, vs0 = 0.0f;  // vs0: the V scale of row r0 + lane
+  {
+    const int row = min(r0 + min(warp * RPW + gi, rows - 1), C - 1);
+    kpane.template load<8>(row, hk, D, d0, k0);
+    vpane.template load<8>(row, hk, D, d0, v0);
+    if (QUANT) {
+      ks0 = p.ks[row];
+      vs0 = p.vs[min(r0 + min(lane, rows - 1), C - 1)];
+    }
+  }
+  const int raw_len = wait();
+  const int len = min(max(raw_len, 0), C);
+  const T* q = static_cast<const T*>(p.qkv);
+  const T* kc = q + p.q_width;
+  const T* vc = kc + KW;
+  const float* cs = p.cos;  // the step's rows
+  const float* sn = p.sin;
+
+  const int n = min(r0 + rows, len) - r0;  // visible rows of this split
+  float* qs = sm;                // [G, D] the group's rotated q
+  float* cur = qs + G * D;       // [2, D] the current token's rotated k and its v
+  float* scur = cur + 2 * D;     // [G] the current token's scores
+  float* sc = scur + G;          // [G, rows] scores, then weights
+  auto part = [&](int j, int split) {
+    return a.part + ((size_t)(hk * G + j) * a.splits + split) * (D + 2);
+  };
+  for (int e = tid; e < (G + 2) * D; e += kThreads) {
+    const int j = e / D, d = e - j * D;
+    if (j < G)
+      qs[e] = head_value_cg<T>(q + (hk * G + j) * D, d, D, cs, sn);
+    else
+      cur[e - G * D] =
+          j == G ? head_value_cg<T>(kc + hk * D, d, D, cs, sn) : ldcg_f32(vc + hk * D + d);
+  }
+  __syncthreads();
+  // the current token's score for each head (full precision), for the
+  // combine of whichever item of this K/V head ends last
+  for (int j = warp; j < G; j += kWarps) {
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      const int d = lane * DPT + i;
+      dot = fmaf(qs[j * D + d], cur[d], dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) scur[j] = dot * p.sm_scale;
+  }
+
+  if (n > 0) {
+    if (warp * RPW + gi >= n) {  // a row past the length: never read, kept finite
+#pragma unroll
+      for (int i = 0; i < 8; ++i) k0[i] = v0[i] = 0.0f;
+    }
+    // phase 1: scores
+    for (int h0 = 0; h0 < G; h0 += HC) {
+      float u[HC][8];
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) u[jj][i] = h0 + jj < G ? qs[(h0 + jj) * D + d0 + i] : 0.0f;
+      for (int cb = warp * RPW; cb < n; cb += kWarps * RPW) {
+        const int cl = min(cb + gi, n - 1);
+        const bool first = cb == warp * RPW;  // the rows loaded before the wait
+        float kv[8];
+        if (first) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kv[i] = k0[i];
+        } else {
+          kpane.template load<8>(r0 + cl, hk, D, d0, kv);
+        }
+        const float ksc = QUANT ? (first ? ks0 : p.ks[r0 + cl]) : 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) dot = fmaf(u[jj][i], kv[i], dot);
+#pragma unroll
+          for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (lane % LPR == 0 && cb + gi < n && h0 + jj < G)
+            sc[(h0 + jj) * rows + cl] = QUANT ? dot * ksc * p.sm_scale : dot * p.sm_scale;
+        }
+      }
+    }
+    __syncthreads();
+    // phase 2: a warp a head
+    for (int j = warp; j < G; j += kWarps) {
+      float* sj = sc + j * rows;
+      float m = -INFINITY;
+      for (int c = lane; c < n; c += 32) m = fmaxf(m, sj[c]);
+      m = warp_max(m);
+      float l = 0.0f;
+      for (int c = lane; c < n; c += 32) {
+        const float pr = expf(sj[c] - m);
+        l += pr;
+        sj[c] = QUANT ? round_to<T>(pr * (c < 32 ? vs0 : p.vs[r0 + c])) : pr;
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        part(j, s)[0] = m;
+        part(j, s)[1] = l;
+      }
+    }
+    __syncthreads();
+    // phase 3: PV
+    for (int h0 = 0; h0 < G; h0 += HC) {
+      float acc[HC][8];
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[jj][i] = 0.0f;
+#pragma unroll 2
+      for (int cb = warp * RPW; cb < n; cb += kWarps * RPW) {
+        const int cl = min(cb + gi, n - 1);
+        float vv[8];
+        if (cb == warp * RPW) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) vv[i] = v0[i];
+        } else {
+          vpane.template load<8>(r0 + cl, hk, D, d0, vv);
+        }
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj) {
+          const float w = cb + gi < n && h0 + jj < G ? sc[(h0 + jj) * rows + cl] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[jj][i] = fmaf(w, vv[i], acc[jj][i]);
+        }
+      }
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[jj][i] += __shfl_xor_sync(0xffffffffu, acc[jj][i], o);
+      if (gi == 0) {
+#pragma unroll
+        for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) pv[warp][jj][d0 + i] = acc[jj][i];
+      }
+      __syncthreads();
+      for (int e = tid; e < HC * D; e += kThreads) {
+        const int jj = e / D, d = e - jj * D;
+        if (h0 + jj < G) {
+          float num = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) num += pv[w][jj][d];
+          part(h0 + jj, s)[2 + d] = num;
+        }
+      }
+      __syncthreads();  // pv is the next chunk's
+    }
+  } else {  // no visible row in this split
+    for (int e = tid; e < G * (D + 2); e += kThreads) {
+      const int j = e / (D + 2), i = e - j * (D + 2);
+      part(j, s)[i] = i == 0 ? -INFINITY : 0.0f;
+    }
+  }
+
+  // The last item of this K/V head to finish combines its splits: the
+  // count's add is an acquire-release atomic after the block's barrier (its
+  // partials are visible before it; the last item's reads come after it).
+  // Each output value takes kCombine splits' (m, l, acc[d]) in one round
+  // trip: M over them and the current token, e^(m_s - M) weights (a split
+  // past the length weighs 0), running sums rescaled when a later chunk
+  // raises M (more than kCombine splits only).
+  __syncthreads();
+  if (tid == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(a.count + hk) : "memory");
+    last = prev == (unsigned)a.splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int j = e / D, d = e - j * D;
+    float M = scur[j], L = 0.0f, num = 0.0f;
+    for (int t0 = 0; t0 < a.splits; t0 += kCombine) {
+      float mv[kCombine], lv[kCombine], av[kCombine];
+#pragma unroll
+      for (int i = 0; i < kCombine; ++i) {
+        const bool in = t0 + i < a.splits;
+        const float* pt = part(j, in ? t0 + i : 0);
+        mv[i] = in ? __ldcg(pt) : -INFINITY;
+        lv[i] = in ? __ldcg(pt + 1) : 0.0f;
+        av[i] = in ? __ldcg(pt + 2 + d) : 0.0f;
+      }
+      float Mc = M;
+#pragma unroll
+      for (int i = 0; i < kCombine; ++i) Mc = fmaxf(Mc, mv[i]);
+      const float rescale = expf(M - Mc);
+      L *= rescale;
+      num *= rescale;
+#pragma unroll
+      for (int i = 0; i < kCombine; ++i) {
+        const float w = expf(mv[i] - Mc);
+        L = fmaf(lv[i], w, L);
+        num = fmaf(av[i], w, num);
+      }
+      M = Mc;
+    }
+    const float p_cur = expf(scur[j] - M);
+    L += p_cur;
+    num += p_cur * cur[D + d];
+    static_cast<T*>(p.out)[(hk * G + j) * D + d] = from_f32<T>(num / L);
+  }
+  if (tid == 0) a.count[hk] = 0;  // clean for the next use
+}
+
+}  // namespace

@@ -1,12 +1,10 @@
-// The weight tiers' chunk decode, shared by the single-stream GEMV
-// (megastep_common.cuh gemv_kernel) and the batched one (gemv_batch.cuh
-// gemv_batch_kernel): the tier kinds, the codes of one 16-byte load as fp32,
-// their dot with the load's inputs (the same partial sums in the same order
-// for both GEMVs), and the int4 scale group of a load. The single-stream
-// GEMV keeps its one input row in shared memory as fp32 with QTier<WK>::PAD
-// floats after every load's inputs (`chunk_dot_smem`; unpadded, 32 codes a
-// load put every lane of a warp on the same banks); the batched one stages
-// its rows in the model dtype and widens a load's inputs in registers.
+// The weight tiers' chunk decode, shared by the CUDA-core GEMVs (the
+// single-stream streaming GEMV gemv_stream.cuh and the persistent GPT-2
+// step, the batched gemv_batch.cuh): the tier kinds, the codes of one
+// 16-byte load as fp32, their dot with the load's inputs (the same partial
+// sums in the same order for every GEMV), and the int4 scale group of a
+// load. Each stages its input rows in the model dtype and widens a load's
+// inputs in registers.
 //
 // Tiers (the JAX kernels' "wscale" / "w4scale" modes):
 //   W_T   values of the model dtype (the GEMVs' own 16-byte loads);
@@ -25,11 +23,10 @@ namespace {
 
 enum { W_T = 0, W_I4 = 4, W_I8 = 8 };
 
-// Inputs a 16-byte load of codes covers, and the fp32 padding after them in
-// shared memory.
+// Inputs a 16-byte load of codes covers.
 template <int WK> struct QTier;
-template <> struct QTier<W_I8> { static constexpr int N = 16, PAD = 4; };
-template <> struct QTier<W_I4> { static constexpr int N = 32, PAD = 4; };
+template <> struct QTier<W_I8> { static constexpr int N = 16; };
+template <> struct QTier<W_I4> { static constexpr int N = 32; };
 
 // Codes to fp32 without the conversion unit (16 a clock an SM, the int4
 // tier's limit when each code took one): XOR-ing a word with 0x80808080
@@ -71,21 +68,6 @@ __device__ __forceinline__ float chunk_dot(const float (&c)[QTier<WK>::N],
     for (int j = 1; j < PW; ++j) p[i] = fmaf(c[PW * i + j], a[PW * i + j], p[i]);
   }
   return (p[0] + p[1]) + (p[2] + p[3]);
-}
-
-// chunk_dot with the inputs read from hv[0 : N) (fp32 in shared memory,
-// 16-byte aligned, as float4).
-template <int WK>
-__device__ __forceinline__ float chunk_dot_smem(const float (&c)[QTier<WK>::N],
-                                                const float* hv) {
-  constexpr int N = QTier<WK>::N;
-  float a[N];
-#pragma unroll
-  for (int q = 0; q < N / 4; ++q) {
-    const float4 t = reinterpret_cast<const float4*>(hv)[q];
-    a[4 * q] = t.x; a[4 * q + 1] = t.y; a[4 * q + 2] = t.z; a[4 * q + 3] = t.w;
-  }
-  return chunk_dot<WK>(c, a);
 }
 
 // The int4 scale group of load c of a row, floor(c * 32 / G), taken in fp32

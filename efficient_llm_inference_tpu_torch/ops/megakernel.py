@@ -1,11 +1,12 @@
-"""Whole-step GPT-2 decode: one chain of CUDA kernels per batch-1 step.
+"""Whole-step GPT-2 decode: one persistent CUDA kernel per batch-1 step.
 
 Port of efficient_llm_inference_tpu/ops/pallas/megakernel.py
 (gpt2_megastep, gpt2_megaverify, to_mega_layout, mega_supported,
 pack_gpt2_mega). The TPU program streams every weight through a VMEM ring;
-on the H100 the step is a fixed chain of hand-written kernels from
-`csrc/gpt2_megastep.cu`, launched by one host call (`gpt2_megastep`) and, in
-the engine's decode loop, captured once into a CUDA graph
+on the H100 the step is one cooperative kernel from `csrc/gpt2_megastep.cu`
+(every block resident, its phases separated by grid barriers, its weight
+stream running through them), launched by one host call (`gpt2_megastep`)
+and, in the engine's decode loop, captured once into a CUDA graph
 (`MegaDecodeGraph`) that replays all N steps of a generation. The
 quantized-KV variant (ops/megakernel_quant.py) shares this module's packing,
 launcher and graph. The speculative verify pass (`gpt2_megaverify`: R <= 8
@@ -44,10 +45,12 @@ pack into the same row-major [out, in] rows, of codes instead of values:
 The LM head of a quantized model is its quantized copy (`lm_q` / `lm_q4`,
 exactly V rows: no padding to carry); the embedding lookup stays on `wte`.
 Every chain streams the tiers from the same packing: the single-stream
-steps (#9 here, #11, #12 and #13 at R = 1) through `gemv_kernel`, the
-verify passes (#10 here, #13 at R > 1), the batched steps (#14-#17) and the
-batched verifies (#18-#21) through the batched GEMV (`csrc/gemv_batch.cuh`);
-each wrapper counts a tier's launches in `<wrapper>.tiers[kind]`.
+steps (#9 here and #11 through the persistent step's ring of tiles, #12
+and #13 at R = 1 through `csrc/gemv_stream.cuh`), the verify passes (#10
+here, #13 at R > 1), the batched steps (#14-#17) and the batched verifies
+(#18-#21) through the batched GEMV (`csrc/gemv_batch.cuh`, bf16 ones on
+the tensor-core routes); each wrapper counts a tier's launches in
+`<wrapper>.tiers[kind]`.
 
 Numerics follow the JAX kernel's rounding points: layer-norm statistics in
 fp32; the LN output, q, k, v, the attention output, the GELU output and each
@@ -79,8 +82,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # KV storage kinds as the kernels name them: 0 = the model dtype, 8 = int8
 # codes, 4 = int4 codes packed in half-split pairs.
 KIND_CODE = {"fp": 0, "int8": 8, "int4": 4}
-_THREADS_WARPS = 8  # warps per block of the GEMV kernels
-_LM_MAX_BLOCKS = 1056  # 132 SMs x 8 resident blocks
+# (max, argmax) partials a row of the LM head: one a block of the largest
+# grid an LM-head GEMV launches (gemm_rows_tc.cuh's 1002 tiles of Llama-3's
+# vocabulary; the persistent GPT-2 step's one block an SM).
+LM_PARTS = 1056
+# The persistent GPT-2 step's plan (csrc/gpt2_megastep.cu kThreads,
+# kRowsPer): the threads of a block, a layer phase's rows a thread's
+# epilogue takes, and the attention items a layer its split plan aims at.
+STEP_THREADS = 256
+STEP_ROWS_PER = 4
+ATTN_ITEMS = 128
+ATTN_MIN_ROWS = 32
 
 
 def to_mega_layout(buf: torch.Tensor) -> torch.Tensor:
@@ -484,6 +496,17 @@ class MegaStepArgs(ctypes.Structure):
     ] + tier_fields(("head", "attn_s", "proj_s", "fc_s", "fcp_s", "head_s"))
 
 
+class Gpt2StepArgs(MegaStepArgs):
+    """Mirror of `struct Gpt2StepArgs` in csrc/gpt2_megastep.cu: the
+    single-stream step's `MegaStepArgs`, then its grid, its split
+    attention's plan (`attention_plan`) and its launcher's scratch
+    (`step_scratch`)."""
+
+    _fields_ = [("grid", ctypes.c_int), ("attn_splits", ctypes.c_int),
+                ("attn_rows", ctypes.c_int), ("attn_part", ctypes.c_void_p),
+                ("sync", ctypes.c_void_p)]
+
+
 _lib = None
 
 
@@ -491,11 +514,58 @@ def kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("gpt2_megastep")
-        for fn in (lib.elit_gpt2_megastep, lib.elit_gpt2_megastep_quant):
+        for fn in (lib.elit_gpt2_megastep, lib.elit_gpt2_megastep_quant,
+                   lib.elit_gpt2_megastep_skeleton):
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(MegaStepArgs), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(Gpt2StepArgs), ctypes.c_void_p]
+        lib.elit_gpt2_megastep_grid.restype = ctypes.c_int
+        lib.elit_gpt2_megastep_grid.argtypes = [
+            ctypes.POINTER(Gpt2StepArgs), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.elit_gpt2_megastep_kernels.restype = ctypes.c_longlong
+        lib.elit_gpt2_megastep_kernels.argtypes = []
         _lib = lib
     return _lib
+
+
+def step_kernels() -> int:
+    """Kernels the GPT-2 single-stream step has launched in this process
+    (csrc/gpt2_megastep.cu counts each launch): one a step."""
+    return int(kernels().elit_gpt2_megastep_kernels())
+
+
+# ---------------------------------------------------------------------------
+# The persistent step's plan: the launcher's part of it (the C side sizes
+# its ring and shared memory; tests/test_torch_gpt2_step_plan.py models both).
+
+
+def attention_plan(capacity: int, n_head: int) -> Tuple[int, int]:
+    """(splits, rows) of the persistent step's split-KV attention: the
+    capacity cut into `splits` runs of `rows` rows (a multiple of 8, at
+    least ATTN_MIN_ROWS), about ATTN_ITEMS (head, split) items a layer. A
+    function of the capacity and the head count alone, never of the grid,
+    so a step's bits are the same at every grid size, and of the capacity,
+    not the length, so a captured graph serves every length."""
+    rows = max(ATTN_MIN_ROWS, -(-capacity * n_head // ATTN_ITEMS))
+    rows = -(-rows // 8) * 8
+    return -(-capacity // rows), rows
+
+
+def min_grid(n_embd: int) -> int:
+    """The least grid the step takes: a block's rows of fc (4E) at most
+    STEP_ROWS_PER a thread."""
+    return -(-4 * n_embd // (STEP_ROWS_PER * STEP_THREADS))
+
+
+def step_scratch(cfg, capacity: int) -> dict:
+    """The persistent step's plan and scratch sizes: the attention's splits
+    and rows, its partials (`part` fp32: (m, l, acc[D]) a head and split)
+    and the zeroed counters (`sync` int32: the grid barrier, the LM head's
+    ticket, a finished-split count a head), which every launch leaves as it
+    found them."""
+    splits, rows = attention_plan(capacity, cfg.n_head)
+    return {"splits": splits, "rows": rows,
+            "part": cfg.n_head * splits * (cfg.head_dim + 2), "sync": 2 + cfg.n_head}
 
 
 def check_weights(packed: dict, weights: dict, kind: str, dtype, device) -> int:
@@ -557,17 +627,19 @@ class Workspace:
     """Scratch of one step, preallocated so a captured step allocates
     nothing: the residual stream x, q|k|v, the attention and MLP activations
     (model dtype, of the given widths) and the LM head's per-block (max,
-    argmax) partials, one per block of the LM-head kernel; each once per
-    row (slot) of the step. The single-stream Llama step adds its split
-    attention's scratch (ops/megakernel_llama.py `attention_scratch`): the
-    partials (`attn_part`, `part` fp32), per-K/V-head counters
-    (`attn_count`, `count` int32, zeroed: each launch leaves them zero) and
-    the step's RoPE rows (`rope`, `rope` fp32)."""
+    argmax) partials, LM_PARTS a row (one a block of the LM head); each once
+    per row (slot) of the step. The single-stream steps add their split
+    attention's scratch (`step_scratch`; ops/megakernel_llama.py
+    `attention_scratch`): the partials (`attn_part`, `part` fp32) and
+    counters (`attn_count`, `count` int32, zeroed: each launch leaves them
+    zero; a count a K/V head, and for GPT-2's persistent step first its
+    grid barrier and its LM head's ticket); Llama's adds the step's RoPE
+    rows (`rope`, `rope` fp32)."""
 
-    def __init__(self, dtype: torch.dtype, device, vocab: int, *, x: int,
+    def __init__(self, dtype: torch.dtype, device, *, x: int,
                  qkv: int, attn: int, ffn: int, rows: int = 1,
                  part: int = 0, count: int = 0, rope: int = 0):
-        self.n_lm = min(-(-vocab // _THREADS_WARPS), _LM_MAX_BLOCKS)
+        self.n_lm = LM_PARTS
         f32 = dict(dtype=torch.float32, device=device)
         self.attn_part = torch.empty(part, **f32) if part else None
         self.attn_count = (torch.zeros(count, dtype=torch.int32, device=device)
@@ -606,15 +678,20 @@ def _slots(launcher, k: torch.Tensor) -> tuple:
 
 class StepLauncher:
     """The prepared arguments of one configuration's step; `launch()` issues
-    the chain on the current stream and allocates nothing, so it can be
+    the step on the current stream and allocates nothing, so it can be
     captured. `tok_in`/`tok_out`/`length` are device int32 tensors: the
     step reads the current token (or `x_emb`) and `length` on the device.
-    A subclass with `batched = True` (ops/megakernel_batch.py) takes
-    [L, B, C, W] panes, [B] tokens and lengths and a [B, E] x_emb, and
-    passes B first in its args struct."""
+    GPT-2's single-stream step (`Gpt2StepArgs`) is one cooperative kernel
+    of `grid` blocks: all the card holds at once, queried here, or the
+    `grid` given (tests: a step's bits do not depend on it); its launcher
+    keeps the step's attention partials and zeroed counters. A subclass
+    with `batched = True` (ops/megakernel_batch.py) takes [L, B, C, W]
+    panes, [B] tokens and lengths and a [B, E] x_emb, and passes B first in
+    its args struct; the verify and batched launchers issue their chains
+    of kernels."""
 
     entry = {False: "elit_gpt2_megastep", True: "elit_gpt2_megastep_quant"}
-    args_type = MegaStepArgs
+    args_type = Gpt2StepArgs
     batched = False
     max_rows = 1
     launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
@@ -630,7 +707,7 @@ class StepLauncher:
                  x_emb=None, tok_in=None, ks=None, vs=None,
                  k_kind: str = "fp", v_kind: str = "fp",
                  quant_eps: float = 1e-8, advance: bool = False,
-                 rows: Optional[int] = None):
+                 rows: Optional[int] = None, grid: Optional[int] = None):
         B, lead, n_len, prefix = self.layout(k, rows)
         E, L, C = cfg.n_embd, cfg.n_layer, k.shape[-2]
         dtype = packed["wte"].dtype
@@ -670,7 +747,10 @@ class StepLauncher:
             _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
         else:
             _check("tok_in", tok_in, torch.int32, (B,), dev)
-        ws = Workspace(dtype, dev, V, x=E, qkv=3 * E, attn=E, ffn=4 * E, rows=B)
+        single = issubclass(self.args_type, Gpt2StepArgs)
+        plan = step_scratch(cfg, C) if single else None
+        ws = Workspace(dtype, dev, x=E, qkv=3 * E, attn=E, ffn=4 * E, rows=B,
+                       **({"part": plan["part"], "count": plan["sync"]} if single else {}))
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
         self.quant = k_kind != "fp"
@@ -689,6 +769,31 @@ class StepLauncher:
         if wkind != "fp":
             set_tier(self.args, packed, weights, wkind, group)
         self.device = dev
+        if single:
+            self.args.attn_splits, self.args.attn_rows = plan["splits"], plan["rows"]
+            self.args.attn_part = ws.attn_part.data_ptr()
+            self.args.sync = ws.attn_count.data_ptr()
+            self._set_grid(grid)
+
+    def _set_grid(self, grid: Optional[int]) -> None:
+        """The persistent step's grid: every block the card holds at once
+        (the kernel's blocks an SM times the SM count, queried once here),
+        or `grid` (tests: a step's bits do not depend on it), which must not
+        exceed that."""
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        lib = self.library()
+        _build.check(lib, lib.elit_gpt2_megastep_grid(ctypes.byref(self.args),
+                                                      ctypes.byref(per_sm),
+                                                      ctypes.byref(sms)),
+                     "elit_gpt2_megastep_grid")
+        self.per_sm, self.sms = per_sm.value, sms.value
+        full = min(self.per_sm * self.sms, LM_PARTS)
+        least = min_grid(self.args.n_embd)
+        if full < least or (grid is not None and not least <= grid <= full):
+            raise RuntimeError(f"gpt2 megastep: a grid of {grid or full} blocks cannot be "
+                               f"resident at once or is under {least} ({self.per_sm} a "
+                               f"block an SM x {self.sms} SMs, at most {LM_PARTS})")
+        self.args.grid = full if grid is None else grid
 
     def set_tokens(self, tok_in: torch.Tensor, tok_out: torch.Tensor) -> None:
         """Point the step at other token slots (views of one int32 buffer
@@ -699,11 +804,16 @@ class StepLauncher:
     def library(self) -> ctypes.CDLL:
         return kernels()
 
-    def launch(self) -> None:
+    def launch(self, entry: Optional[str] = None) -> None:
+        """Issues the step (or the library's entry point `entry` on the same
+        arguments) on the current stream."""
         lib = self.library()
-        name = self.entry[self.quant]
+        name = entry or self.entry[self.quant]
         rc = getattr(lib, name)(ctypes.byref(self.args),
                                 torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0 and isinstance(self.args, Gpt2StepArgs):
+            _build.check(lib, rc, f"{name} ({self.args.grid} blocks, cooperative; "
+                                  f"{self.per_sm} a block an SM x {self.sms} SMs)")
         _build.check(lib, rc, name)
         self.launched += 1
 
@@ -726,8 +836,8 @@ def gpt2_megastep(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     row `length` of every layer (the JAX kernel aliases them the same way)
     and returned; length: tokens already
     cached (int or int32 tensor); x_emb: [1, E] token + position embedding
-    in the model dtype. On a CUDA tensor it launches the kernel chain of
-    `csrc/gpt2_megastep.cu` and counts one launch in
+    in the model dtype. On a CUDA tensor it launches the persistent kernel
+    of `csrc/gpt2_megastep.cu` (one kernel a step) and counts one launch in
     `gpt2_megastep.launches` (full-precision weights) or
     `gpt2_megastep.tiers["int8" | "int4"].launches`; on a CPU tensor it runs
     `gpt2_megastep_plain`. The capacity is the panes' row count (the JAX

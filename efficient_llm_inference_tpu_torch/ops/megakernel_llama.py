@@ -520,7 +520,7 @@ class LlamaStepLauncher(StepLauncher):
         plan = (attention_scratch(
             cfg, C, torch.cuda.get_device_properties(dev).multi_processor_count)
             if single else None)
-        ws = Workspace(dtype, dev, V, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I, rows=B,
+        ws = Workspace(dtype, dev, x=E, qkv=QW + 2 * KW, attn=QW, ffn=I, rows=B,
                        **({k: plan[k] for k in ("part", "count", "rope")} if single else {}))
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)

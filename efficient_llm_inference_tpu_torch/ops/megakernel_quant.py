@@ -190,8 +190,8 @@ def gpt2_megastep_quant(packed: dict, k, v, ks, vs, length, x_emb, *, cfg,
     k, v: int8 [L, C, E] or half-split int4 [L, C, E/2] panes (kinds from
     `kv_mode`); ks, vs: fp32 [L, C] per-token scales. Row `length` of every
     layer is quantized and written in place (the JAX kernel aliases them the
-    same way). On a CUDA tensor it launches the kernel chain of
-    `csrc/gpt2_megastep.cu` and counts one launch in
+    same way). On a CUDA tensor it launches the persistent kernel of
+    `csrc/gpt2_megastep.cu` (one kernel a step) and counts one launch in
     `gpt2_megastep_quant.launches` (or, over quantized weights, its tier's
     `gpt2_megastep_quant.tiers[...]`); on a CPU tensor it runs
     `gpt2_megastep_quant_plain`.

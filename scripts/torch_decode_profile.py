@@ -25,7 +25,12 @@ prints one JSON line with:
   taken out;
 - wall_1_ms: the median wall of the same generation with one new token
   (the prefill and the host around it);
-- kernels_per_generation, and the six kernels with the most device time.
+- kernels_per_generation, and the six kernels with the most device time;
+- decode_kernels: the launches of the single-stream step's own kernels
+  (the persistent GPT-2 step's one a step, or the kernel chains' 5 L + 3 a
+  step: STEP_KERNELS), and prefill_kernels: every other kernel, copy and
+  fill of the generation (the prefill and the host's copies around the
+  decode).
 
 With `--megakernel-only` the single stream runs the megakernel path alone;
 with `--tree PATH` the profile imports the package of another checkout
@@ -90,6 +95,10 @@ sys.path.insert(0, str(_TREE))
 from efficient_llm_inference_tpu_torch import Config, InferenceEngine  # noqa: E402
 
 METHODS = ("full_cache", "quant_int8", "quant_int4", "quant_mixed")
+# Names of the single-stream steps' kernels in this checkout or an older one:
+# the persistent GPT-2 step, and the chains' embed, GEMV, attention, argmax.
+STEP_KERNELS = ("gpt2_step_kernel", "gemv_kernel", "gemv_stream_kernel", "attention_kernel",
+                "embed_kernel", "argmax_kernel", "argmax_step_kernel")
 PROMPT_TOKENS, NEW_TOKENS = 256, 64
 
 
@@ -308,6 +317,8 @@ def main() -> int:
                 lambda: eng.generate_ids(text, method, NEW_TOKENS))
             wall = statistics.median(walls)
             top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+            decode = sum(c for n, (c, _) in by_name.items()
+                         if any(k in n for k in STEP_KERNELS))
             print(json.dumps({
                 "model": model,
                 "tree": str(_TREE),
@@ -322,6 +333,8 @@ def main() -> int:
                 "kernel_ms": kernel_ms,
                 "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
                 "kernels_per_generation": count,
+                "decode_kernels": decode,
+                "prefill_kernels": count - decode,
                 "top": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top],
             }), flush=True)
         del eng

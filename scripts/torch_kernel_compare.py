@@ -26,9 +26,14 @@ verify case also prints its device time by kernel name from a
 torch.profiler trace of one call.
 
 The single-stream steps (#9 gpt2_megastep and #11 gpt2_megastep_quant at
-GPT-2 small's full width, the control; #13 llama_megastep and #12
-llama_megastep_quant at Llama-3.2-1B's) are timed the same way at C = 320,
-length 319: GPT-2 in bf16 over fp / int8 / int4 / mixed panes; Llama-3.2-1B
+GPT-2 small's full width; #13 llama_megastep and #12 llama_megastep_quant at
+Llama-3.2-1B's) are timed the same way at C = 320, length 319: GPT-2 in
+bf16 over fp / int8 / int4 / mixed panes and over the int8 / int4 / int4w8
+weight tiers (fp and int8 panes), with, where the checkout has the
+persistent GPT-2 step, its skeleton (`elit_gpt2_megastep_skeleton`: the
+step's weight stream and grid barriers without arithmetic) over each
+weight tier; with --profile, GPT-2's fp- and int8-pane steps' kernels too;
+Llama-3.2-1B
 in bf16 and fp32 (the bf16 weights widened), each pane kind, over the
 model-dtype weights and over the int8 / int4 / int4w8 tiers (as
 from_model_name(weight_quant=...) quantizes them). With --profile, the
@@ -214,16 +219,36 @@ def single_stream(tree: str, profile: bool) -> None:
         return lambda: quant(packed, *st, length, x, cfg=cfg, kv_mode=mode)
 
     cfg = gpt2_mod.GPT2Config.small()
+    spec = spec_by_name("gpt2")
     params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
                                        torch.bfloat16, "cuda")
-    packed = mk.pack_gpt2_mega(params, cfg)
     x = (torch.randn((1, cfg.n_embd), generator=g) * 0.3).to(torch.bfloat16).cuda()
-    for mode in PANES:
-        st = state(mode, torch.bfloat16, cfg.n_layer, cfg.n_embd)
-        ms = device_ms(stepper("gpt2", mode, packed, cfg, st, x), calls=20)
-        print(json.dumps({"tree": tree, "single": "gpt2", "dtype": "bf16", "panes": mode,
-                          "weights": "bf16", "ms": ms}), flush=True)
-    del params, packed
+    for weights in ("model", "int8", "int4", "int4w8"):
+        if weights == "model":
+            packed = mk.pack_gpt2_mega(params, cfg)
+        else:
+            _, mode_w, group = weight_quant_plan(spec, weights)
+            packed = mk.pack_gpt2_mega(quantize_weights(spec, params, mode_w, group), cfg)
+        for mode in PANES if weights == "model" else ("fp", "int8"):
+            st = state(mode, torch.bfloat16, cfg.n_layer, cfg.n_embd)
+            fn = stepper("gpt2", mode, packed, cfg, st, x)
+            row = {"tree": tree, "single": "gpt2", "dtype": "bf16", "panes": mode,
+                   "weights": "bf16" if weights == "model" else weights,
+                   "ms": device_ms(fn, calls=20)}
+            if profile and mode in ("fp", "int8"):
+                row["kernels"], row["launches"] = launches_in_order(fn)
+            print(json.dumps(row), flush=True)
+        if hasattr(mk, "Gpt2StepArgs"):  # the persistent step's stream and barriers alone
+            st = state("fp", torch.bfloat16, cfg.n_layer, cfg.n_embd)
+            tok = torch.zeros(1, dtype=torch.int32, device="cuda")
+            step = mk.StepLauncher(packed, cfg, *st, length, tok, x_emb=x)
+            print(json.dumps({
+                "tree": tree, "single": "gpt2", "skeleton": True, "dtype": "bf16",
+                "weights": "bf16" if weights == "model" else weights, "grid": step.args.grid,
+                "ms": device_ms(lambda: step.launch("elit_gpt2_megastep_skeleton"),
+                                calls=20)}), flush=True)
+        del packed
+    del params
 
     cfg = llama_mod.LlamaConfig.llama3_1b()
     spec = spec_by_name("llama-3-1b")

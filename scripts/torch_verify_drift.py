@@ -16,7 +16,7 @@ seed 42), for chip_smoke.py's input seeds and for a second set (+1000):
   kernel #10 / #13 on slot b's pane (fp), or the whole-step quant kernel
   #11 / #12 at lengths[b] + t on the batched kernel's earlier rows
   (quantized panes);
-- then the bf16 cases of tests/test_torch_cuda_kernels.py's
+- then the bf16 cases of tests/test_torch_cuda_verify.py's
   test_megabatch_verify_matches_plain (its three geometries, B in {1, 3,
   16}, R in {2, 5, 8}), inputs built as the test builds them;
 - per case one JSON line: each token's shortfall under the plain maximum
@@ -213,10 +213,10 @@ def main() -> int:
                           flush=True)
     del gparams, llama, runs
     torch.cuda.empty_cache()
-    # the bf16 cases of tests/test_torch_cuda_kernels.py's
+    # the bf16 cases of tests/test_torch_cuda_verify.py's
     # test_megabatch_verify_matches_plain, built as the test builds them
     sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_cuda_kernels as ct
+    import torch_cuda_cases as ct
 
     for test_family in ("gpt2", "gpt2-full", "llama"):
         for mode in cs.MODES:

@@ -4,7 +4,7 @@ against a table and its invariants, the C side's constants and the args
 struct's ctypes mirror against the sources, the kernel's fragment order and
 shared-memory layout as index arithmetic, and a plain model of its split-K
 sum against the one-pass product. The kernel itself runs on the card
-(tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
+(tests/test_torch_cuda_batch.py, chip_smoke.py)."""
 
 import ctypes
 import pathlib

@@ -70,13 +70,13 @@ def test_attention_scratch_and_workspace_sizes():
     plan = tml.attention_scratch(cfg, 320, 132)
     assert plan == {"splits": 10, "rows": 32, "part": 32 * 10 * (64 + 2), "count": 8,
                     "rope": 2 * 64}
-    ws = tmk.Workspace(torch.float32, "cpu", cfg.vocab_size, x=2048, qkv=3072, attn=2048,
+    ws = tmk.Workspace(torch.float32, "cpu", x=2048, qkv=3072, attn=2048,
                        ffn=8192, **{k: plan[k] for k in ("part", "count", "rope")})
     assert ws.attn_part.shape == (plan["part"],) and ws.attn_part.dtype == torch.float32
     assert ws.attn_count.shape == (8,) and ws.attn_count.dtype == torch.int32
     assert int(ws.attn_count.abs().sum()) == 0
     assert ws.rope.shape == (128,) and ws.rope.dtype == torch.float32
-    plain = tmk.Workspace(torch.float32, "cpu", 300, x=64, qkv=192, attn=64, ffn=256)
+    plain = tmk.Workspace(torch.float32, "cpu", x=64, qkv=192, attn=64, ffn=256)
     assert plain.attn_part is None and plain.attn_count is None and plain.rope is None
 
 
