@@ -53,13 +53,19 @@ Phases (each prints one line with its seconds):
    (GPT-2): each row of generate_batch equals the single-stream megakernel's
    tokens of its prompt up to the first step with a top-2 gap under 1e-4.
 
-Static-batch serving (the batched whole-step kernels #14-#17 of
-csrc/megabatch.cu) runs in three more phases:
+Static-batch serving (the batched whole-step kernels: GPT-2's #14 / #16 one
+persistent kernel a step in csrc/gpt2_megabatch.cu, Llama's #15 / #17 the
+chain of csrc/megabatch.cu) runs in three more phases:
 - batch kernels, after phase 2 for GPT-2 small (#14, #16) and after phase 4
   for Llama-3.2-1B (#15, #17): B = 8 slots at lengths 0, 1, 7, 8, 100, 255,
   318, 319 of C = 320, fp/int8/int4/mixed panes, bf16 and fp32, against the
   plain batched steps (per slot the token and new-row tolerances of phase
-  2; every other column untouched), timed at B = 8 and B = 1;
+  2; every other column untouched), timed at B = 8 and B = 1; GPT-2's step
+  launches one kernel a step at B = 1, 8, 16 and 32 (checked and printed),
+  and a slot's token and new K/V bytes are the same at B = 32, 16, 9, 8
+  and 1 and at 37 blocks (bf16 weights, fp and int8 panes, GPT-2 small's
+  full width); the plain steps are timed for the kernels line's fp and
+  int8 panes;
 - batch main path, after phase 5: generate_batch on 8 prompts of 24-256
   tokens (bucket 256) with 64 new tokens for kv_mode None, int8, int4 and
   mixed on gpt2 and llama-3-1b in bf16: the batched chain launches once per
@@ -109,7 +115,8 @@ four more phases:
   plain versions per slot and row (the tolerances of phase 2 with its
   deep-bf16 allowance for Llama; over quantized panes each row against the
   plain step on the kernel's own earlier rows), every other column
-  untouched; timed in bf16 at R = 8;
+  untouched; timed in bf16 at R = 8 (the plain versions for fp and int8
+  panes, the kernels line's);
 - server main path, after the speculation main path: MegaBatchServer.run
   on the engines' models in bf16, the protocol of
   scripts/measure_megaserver.py ("Question i: " + 6-10 words, 64 new
@@ -509,10 +516,11 @@ def _token_ok(tok: int, logits: torch.Tensor, dtype, deep_bf16: bool = False,
 
 
 def _new_row_err(mode, dtype, got, want, before, row=MEGA_LEN,
-                 deep_bf16=False) -> float:
+                 deep_bf16=False, bf16_steps=2.0) -> float:
     """Max |kernel - plain| of the new rows (dequantized for quantized
     panes), after checking them against the tolerances and checking that no
-    other row moved. `deep_bf16`: a quantized bf16 row may also carry the
+    other row moved. A quantized row may be one quantization step off in
+    fp32 and `bf16_steps` in bf16. `deep_bf16`: a quantized bf16 row may also carry the
     fp rows' tolerance (1.6e-2 of the row's largest value) on top of its two
     steps, because the values it quantizes differ by that much: over 16
     layers of a bf16 residual stream the kernel's and the plain step's
@@ -537,7 +545,7 @@ def _new_row_err(mode, dtype, got, want, before, row=MEGA_LEN,
             raise AssertionError(f"megastep {mode} {dtype}: new rows off by {err} > {tol}")
         return err
     err = 0.0
-    steps = 1 if dtype == torch.float32 else 2
+    steps = 1 if dtype == torch.float32 else bf16_steps
     for kind, g_, w_, gs, ws in zip(mq._kv_kinds(mode), got[:2], want[:2],
                                     got[2:], want[2:]):  # each pane by its own step
         gv = mq.pane_values(g_[:, row], kind) * gs[:, row, None]
@@ -627,6 +635,11 @@ def check_megasteps() -> dict:
             reports[(mode, dtype)] = entry
         del params, packed
     return _mega_reports(reports, "gpt2_megastep", "gpt2_megastep_quant")
+
+
+# The pane kinds whose bf16 times a step's two kernels-line entries carry
+# (_mega_reports); the plain versions are timed for these alone.
+LINE_MODES = ("fp", "int8")
 
 
 def _mega_reports(reports: dict, fp_name: str, quant_name: str) -> dict:
@@ -843,6 +856,28 @@ def _batch_bound(mode, dtype, cfg, family, lengths, packed=None) -> tuple:
     return bound_ms(n_bytes, flops, rate)
 
 
+def _step_kernels(family: str) -> int:
+    """Kernels GPT-2's batched persistent step has launched (0 for Llama,
+    whose chain check_llama_batch_rows counts)."""
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mb
+
+    return mb.step_kernels() if family == "gpt2" else 0
+
+
+def _one_kernel(family: str, before: int, what: str) -> None:
+    """GPT-2's batched step launched exactly one kernel since `before`."""
+    if family == "gpt2" and _step_kernels(family) - before != 1:
+        raise AssertionError(f"{what}: {_step_kernels(family) - before} kernels a step, want 1")
+
+
+# GPT-2's batched step's quantized bf16 new rows: quantization steps from the
+# plain step's at most. Its tensor-core sums over 12 layers put one row of
+# chip_smoke.py's cases 2.11 steps off (the other slots, B = 16 and 32 and
+# the int8 / int4 weight tiers 1.72-2.00; the CUDA-core chain it replaced
+# 1.77 at most), scripts/torch_step_drift.py --batch --gpt2, PERF.md §6.
+GPT2_BATCH_STEPS = 2.5
+
+
 def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
                       suffix: str = "", time_plain: bool = True, rows_2l: tuple = ()) -> dict:
     """#14/#16 (GPT-2) or #15/#17 (Llama) against their plain batched steps:
@@ -861,7 +896,9 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
     step's rounding flips compound to the rows' limit at 32 slots, whatever
     the chain (scripts/torch_step_drift.py --batch: the largest row reaches
     0.98-1.06 of it on the CUDA-core GEMVs of gemv_batch.cuh and on
-    tensor-core GEMVs, also where their sums round to nearest; PERF.md §6)."""
+    tensor-core GEMVs, also where their sums round to nearest; PERF.md §6).
+    GPT-2's quantized bf16 rows may be GPT2_BATCH_STEPS quantization steps
+    off (Llama's carry the deep-bf16 allowance instead)."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
 
@@ -892,7 +929,9 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
                     x = (torch.randn((n_slots, E), generator=g, device="cuda") * 0.3).to(dtype)
                 got = [t.clone() for t in state]
                 want = [t.clone() for t in state]
+                before = _step_kernels(family)
                 toks = _batch_step(mode, packed, cfg, got, dev_len, x, family=family)[0]
+                _one_kernel(family, before, f"{name} {mode} B={n_slots}")
                 logits = _batch_step(mode, packed, cfg, want, lengths, x, plain=True,
                                      family=family)[-1]
                 torch.cuda.synchronize()
@@ -917,10 +956,12 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
                             f"token {tok}, plain argmax {int(logits[b].argmax())}")
                     err = max(err, _new_row_err(mode, dtype, *([t[:, b] for t in ts]
                                                                for ts in rows),
-                                                row=length, deep_bf16=llama))
+                                                row=length, deep_bf16=llama,
+                                                bf16_steps=2.0 if llama else GPT2_BATCH_STEPS))
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 line = (f"  {name} {mode} {str(dtype)[6:]} B={n_slots} C=320 lengths "
-                        f"{lengths[:8]}{' (repeated)' if n_slots > B else ''}: tokens "
+                        f"{lengths[:8]}{' (repeated)' if n_slots > B else ''}"
+                        f"{': 1 kernel a step' if family == 'gpt2' else ''}: tokens "
                         f"{toks.tolist()[:8]} (plain {logits.argmax(-1).tolist()[:8]}), new "
                         f"rows max|kernel-plain| {err:.2e}"
                         f"{' (first 2 layers)' if two_layers else ''}")
@@ -932,6 +973,10 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
                         one = [t[:, 7:8].clone() for t in got]
                         x1 = x[7:8].contiguous()
                         b1, _ = _batch_bound(mode, dtype, cfg, family, (MEGA_LEN,), packed)
+                        before = _step_kernels(family)
+                        _batch_step(mode, packed, cfg, [t.clone() for t in one], one_len, x1,
+                                    family=family)
+                        _one_kernel(family, before, f"{name} {mode} B=1")
                         entry.update({
                             "ms": ms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
                             "ms_b1": device_ms(lambda: _batch_step(
@@ -939,10 +984,12 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
                                 calls=10),
                             "plain_ms": device_ms(lambda: _batch_step(
                                 mode, packed, cfg, want, lengths, x, plain=True,
-                                family=family), calls=1, replays=3) if time_plain else None,
+                                family=family), calls=1, replays=3)
+                            if time_plain and mode in LINE_MODES else None,
                             "bound_ms_b1": b1,
                         })
-                        line += (f"; device ms B=8 {ms:.5f} (bound {bnd:.5f}, {by}), B=1 "
+                        line += (f"; device ms B=8 {ms:.5f} (bound {bnd:.5f}, {by}), B=1"
+                                 f"{' (1 kernel a step)' if family == 'gpt2' else ''} "
                                  f"{entry['ms_b1']:.5f} (bound {b1:.5f}), plain B=8 "
                                  f"{_ms(entry['plain_ms'])}; per token B=8 {ms / B:.5f}")
                     else:
@@ -957,6 +1004,68 @@ def check_megabatches(family: str, cfg, params_for, wide: dict, modes=MODES,
 
 
 ROW_BATCHES = (32, 16, 9, 8)  # the bf16 Llama chain's slot counts held bit for bit
+
+
+def check_gpt2_batch_rows(cfg) -> None:
+    """GPT-2's batched step (#14 / #16, csrc/gpt2_megabatch.cu: one
+    persistent kernel a step for all slots) at GPT-2 small's full width,
+    fp and int8 panes, over the main path's seed-42 bf16 weights: slot b's
+    token and new K/V row bytes (codes and scales) are bit for bit the same
+    run at B = 32, 16, 9, 8, alone (B = 1; slots 0, 8, 31) and at 37 blocks
+    (B = 32); one kernel a step at every B. The card tests
+    (tests/test_torch_cuda_batch.py test_gpt2_megabatch_slot_bits) hold
+    every weight tier, pane kind and dtype, and 5 blocks."""
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mb
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
+
+    params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
+                                       torch.bfloat16, "cuda")
+    packs = {"bf16": mk.pack_gpt2_mega(params, cfg)}
+    B, E = ROW_BATCHES[0], cfg.n_embd
+    lengths = [BATCH_LENGTHS[b % len(BATCH_LENGTHS)] for b in range(B)]
+    g = torch.Generator(device="cuda").manual_seed(78)
+    x = (torch.randn((B, E), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    for weights, packed in packs.items():
+        for mode in ("fp", "int8"):
+            state = _verify_state(mode, torch.bfloat16, 950 + len(weights), cfg.n_layer, B, E,
+                                  C=MEGA_C)
+            kinds = ("fp", "fp") if mode == "fp" else mq._kv_kinds(mode)
+            want, kernels = {}, {}
+            runs = [(list(range(n)), None) for n in ROW_BATCHES]
+            runs += [([0], None), ([8], None), ([31], None), (list(range(B)), 37)]
+            for slots, grid in runs:
+                st = [t[:, slots].contiguous() for t in state]
+                tok = torch.zeros(len(slots), dtype=torch.int32, device="cuda")
+                launcher = mb.GPT2BatchLauncher(
+                    packed, cfg, st[0], st[1],
+                    torch.tensor([lengths[b] for b in slots], dtype=torch.int32, device="cuda"),
+                    tok, x_emb=x[slots].contiguous(), ks=st[2] if mode != "fp" else None,
+                    vs=st[3] if mode != "fp" else None, k_kind=kinds[0], v_kind=kinds[1],
+                    grid=grid)
+                before = mb.step_kernels()
+                launcher.launch()
+                kernels[len(slots)] = mb.step_kernels() - before
+                torch.cuda.synchronize()
+                for i, b in enumerate(slots):
+                    got = (int(tok[i]), [t[:, i, lengths[b]].clone() for t in st])
+                    if b not in want:
+                        want[b] = got
+                    elif got[0] != want[b][0] or not all(
+                            torch.equal(r, w) for r, w in zip(got[1], want[b][1])):
+                        raise AssertionError(
+                            f"gpt2_megabatch{'' if mode == 'fp' else '_quant'} {weights} "
+                            f"weights, {mode} panes: slot {b} differs at B = {len(slots)}"
+                            f"{f', {grid} blocks' if grid else ''} from B = {B}")
+            if set(kernels.values()) != {1}:
+                raise AssertionError(f"GPT-2 batched step launches {kernels}, want 1 a step")
+            log(f"  gpt2_megabatch bf16 rows, {weights} weights, {mode} panes: slots' tokens "
+                f"and new K/V bytes equal at B = {', '.join(map(str, ROW_BATCHES))} and 1, and "
+                f"at 37 blocks; 1 kernel a step at B = {sorted(kernels)}")
+            del state
+    del packs, params
+    torch.cuda.empty_cache()
 
 
 def check_llama_batch_rows(llama) -> None:
@@ -1427,8 +1536,8 @@ def _verify_batch_cases(family: str, cfg, params_for, n_slots: int, modes=MODES,
                     bnd, by = _verify_batch_bound(mode, dtype, cfg, family, lengths, R, packed)
                     entry.update({
                         "ms": device_ms(kernel, calls=5),
-                        "plain_ms": (device_ms(plain_fn, calls=1, replays=1) if time_plain
-                                     else None),
+                        "plain_ms": (device_ms(plain_fn, calls=1, replays=1)
+                                     if time_plain and mode in LINE_MODES else None),
                         "bound_ms": bnd, "bound_by": by, "library_ms": None,
                     })
                     line += (f"; device ms kernel {entry['ms']:.5f}, plain "
@@ -3060,13 +3169,13 @@ def _line_kernels() -> dict:
             "efficient_llm_inference_tpu_torch/csrc/llama_megastep.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_quant.py:694"),
         "gpt2_megabatch": (
-            "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
+            "efficient_llm_inference_tpu_torch/csrc/gpt2_megabatch.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:124"),
         "llama_megabatch": (
             "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:583"),
         "gpt2_megabatch_quant": (
-            "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
+            "efficient_llm_inference_tpu_torch/csrc/gpt2_megabatch.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_quant.py:215"),
         "llama_megabatch_quant": (
             "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
@@ -3148,7 +3257,8 @@ def main() -> int:
     gpt2_cfg = gpt2_mod.GPT2Config.small()
     reports.update(check_megabatches("gpt2", gpt2_cfg, lambda dtype: gpt2_mod.init_gpt2_params(
         torch.Generator().manual_seed(42), gpt2_cfg, dtype, "cuda"),
-        wide={"fp": (16, 32), "quant": (16,)}))
+        wide={"fp": (16, 32), "quant": (16,)}))  # #16 at 32: check_gpt2_batch_rows
+    check_gpt2_batch_rows(gpt2_cfg)
     log(f"phase batch kernels, gpt2: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -1,82 +1,75 @@
-// One decode step of B independent streams (greedy, 1 <= B <= 32) as a fixed
-// chain of kernels, for GPT-2 and for Llama/Qwen.
+// One decode step of B independent Llama/Qwen streams (greedy, 1 <= B <=
+// 32) as a fixed chain of kernels.
 //
 // Replaces efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py:
-// gpt2_megabatch and llama_megabatch (KV panes in the model dtype) and
-// ops/pallas/megakernel_batch_quant.py: gpt2_megabatch_quant and
-// llama_megabatch_quant (int8, half-split int4 or mixed panes with
-// per-(slot, token) fp32 scales), the TPU's batched whole-step decode
-// programs. Entry points: elit_gpt2_megabatch(_quant) and
+// llama_megabatch (KV panes in the model dtype) and
+// ops/pallas/megakernel_batch_quant.py: llama_megabatch_quant (int8,
+// half-split int4 or mixed panes with per-(slot, token) fp32 scales), the
+// TPU's batched whole-step decode programs. Entry points:
 // elit_llama_megabatch(_quant). Each launches, on the stream it is given, the
-// chain of its single-stream counterpart (gpt2_megastep.cu,
-// llama_megastep.cu) with a slot dimension:
+// chain of its single-stream counterpart (llama_megastep.cu) with a slot
+// dimension (GPT-2's batched step is one persistent kernel of its own,
+// gpt2_megabatch.cu):
 //
-//   embed                  one block per slot: x[b] from tok_in[b] (GPT-2 adds
-//                          wpe[min(lengths[b], P-1)]) or x_emb[b]
+//   embed                  one block per slot: x[b] from tok_in[b] or x_emb[b]
 //   per layer l:
 //     gemv  norm -> qkv    every weight row read once for all B slots
 //     attention            grid (H + 1) x B: blocks (h, b) attend slot b's
 //                          pane rows t < lengths[b] (GQA: K/V head h / group;
-//                          Llama: RoPE at min(lengths[b], P-1)); block (H, b)
+//                          RoPE at min(lengths[b], P-1)); block (H, b)
 //                          writes row lengths[b] of slot b's panes
 //     gemv  out-proj + x   residual add in place
-//     gemv  norm -> MLP    GELU (GPT-2) or SwiGLU (Llama) epilogue
+//     gemv  norm -> MLP    SwiGLU epilogue
 //     gemv  MLP-out + x    residual add in place
 //   gemv  norm -> LM head  per-block, per-slot (max, argmax) partials
 //   argmax                 one block per slot -> tok_out[b]; with `advance`,
 //                          clamp to [0, V-1] and lengths[b] += 1
 //
-// The bf16 Llama/Qwen chain (#15, #17 in bf16) differs: its GEMVs are
-// gemv_stream_tc.cuh's persistent tensor-core stream, one launch a GEMV for
-// every 1 <= B <= 32 (no groups of 8: every weight is read once a step), and
-// every kernel of it (embed, the GEMVs, the attention, the argmax) is
-// launched with programmatic dependent launch, so each starts while the one
-// before it ends and a GEMV's first weight stages are in flight before its
-// griddepcontrol.wait. The fp32 chains and GPT-2's keep gemv_batch.cuh.
+// The bf16 chain (#15, #17 in bf16): its GEMVs are gemv_stream_tc.cuh's
+// persistent tensor-core stream, one launch a GEMV for every 1 <= B <= 32
+// (no groups of 8: every weight is read once a step), and every kernel of
+// it (embed, the GEMVs, the attention, the argmax) is launched with
+// programmatic dependent launch, so each starts while the one before it ends
+// and a GEMV's first weight stages are in flight before its
+// griddepcontrol.wait. The fp32 chain keeps gemv_batch.cuh.
 //
-// Bound: bytes. A step reads every weight once for all B slots (GPT-2 small
-// in bf16: 247 MB; Llama-3.2-1B: 2.47 GB) plus each slot's visible K/V rows,
-// so B tokens cost about one single-stream step while the weights dominate
-// (at B = 8 and 320 cached rows the panes add 8 x 9.8 MB for GPT-2 in bf16,
-// 8 x 10.5 MB for Llama-3.2-1B). The batched GEMV (gemv_batch.cuh) is a
-// skinny GEMM done as a GEMV: a block stages the B input rows in shared
-// memory in the model dtype (exact: the staged values are the norm outputs
-// rounded to T, or activations already in T) with 16-byte loads, once for
-// all its rows when they fit (up to 200 KB, opted into; Llama-3.2-1B's down-projection at B = 8
-// in bf16 takes 128 KB), and each warp streams RW = 1 or 4 weight rows with
-// 16-byte non-caching loads, applying every chunk to the staged rows (B x RW
-// fp32 accumulators a lane). Above 8 slots each GEMV is launched once per
-// group of 8 slots, streaming the weights again. The norm statistics are
-// computed by warp b for slot b of the group in every block that consumes
-// them. The bf16 Llama chain's GEMVs instead read every weight once for all
-// 32 slots (above); left for later: the same for GPT-2's chain, and the
-// single-stream chain's split-KV attention in the batched chains.
+// Bound: bytes. A step reads every weight once for all B slots
+// (Llama-3.2-1B in bf16: 2.47 GB) plus each slot's visible K/V rows, so B
+// tokens cost about one single-stream step while the weights dominate (at B
+// = 8 and 320 cached rows the panes add 8 x 10.5 MB). The fp32 chain's
+// batched GEMV (gemv_batch.cuh) is a skinny GEMM done as a GEMV: a block
+// stages the B input rows in shared memory in the model dtype (exact: the
+// staged values are the norm outputs rounded to T, or activations already in
+// T) with 16-byte loads, once for all its rows when they fit, and each warp
+// streams RW = 1 or 4 weight rows with 16-byte non-caching loads, applying
+// every chunk to the staged rows (B x RW fp32 accumulators a lane). Above 8
+// slots each of its GEMVs is launched once per group of 8 slots, streaming
+// the weights again. The norm statistics are computed by warp b for slot b
+// of the group in every block that consumes them.
 //
 // Weight tiers (the JAX kernels' "wscale" / "w4scale" modes,
-// ops/pallas/megakernel_batch.py:149-160, :625-640,
-// megakernel_batch_quant.py:244-256, :724-735): with w_kind 8 or 4 every
-// GEMV streams int8 or grouped-int4 codes (gemv_batch.cuh's tiers; a
-// 16-byte load decoded once for the group's slots), the LM head from the
+// ops/pallas/megakernel_batch.py:625-640, megakernel_batch_quant.py:724-735):
+// with w_kind 8 or 4 every GEMV streams int8 or grouped-int4 codes
+// (gemv_batch.cuh's and gemv_stream_tc.cuh's tiers), the LM head from the
 // quantized copy `head`.
 //
-// Numerics: per slot, the single-stream chains' rounding points
-// (megastep_common.cuh); the fp32 sums of the norm statistics and of a row
-// split over KS warps may be taken in another order than in a batch-1 step.
-// In the bf16 Llama chain a slot's sums are in an order fixed by the weight's
-// shape (gemv_stream_tc.cuh), so its token and new K/V rows are the same bits
-// at any B and beside any other slots.
+// Numerics: per slot, the single-stream chain's rounding points
+// (megastep_common.cuh); in the fp32 chain the fp32 sums of the norm
+// statistics and of a row split over KS warps may be taken in another order
+// than in a batch-1 step. In the bf16 chain a slot's sums are in an order
+// fixed by the weight's shape (gemv_stream_tc.cuh), so its token and new K/V
+// rows are the same bits at any B and beside any other slots.
 //
 // C interface (ctypes): each entry point takes its args struct (mirrored by
 // ops/megakernel_batch.py) and a stream, checks the first error of each
 // launch with cudaGetLastError() and returns it (0 = success);
 // elit_cuda_error_string names a code. elit_stream_gemv runs one GEMV of the
-// bf16 Llama chain alone, for measurement. The structs are the single-stream
-// MegaArgs / LlamaArgs with `batch` first and the single-stream structs'
-// weight tier last (LlamaBatchArgs then the bf16 chain's scratch: the
-// split partials and zeroed tile counters, ops/_gemv_stream_tc.py);
-// length, tok_in, tok_out are [B],
-// x_emb [B, E], the panes [L, B, C, W], the scales [L, B, C], the workspace
-// [B, width], lm_val/lm_idx [B, lm_blocks].
+// bf16 chain alone, for measurement. The struct is the single-stream
+// LlamaArgs with `batch` first and the single-stream struct's weight tier
+// last, then the bf16 chain's scratch: the split partials and zeroed tile
+// counters, ops/_gemv_stream_tc.py; length, tok_in, tok_out are [B], x_emb
+// [B, E], the panes [L, B, C, W], the scales [L, B, C], the workspace [B,
+// width], lm_val/lm_idx [B, lm_blocks].
 
 #include "gemv_stream_tc.cuh"
 
@@ -84,43 +77,6 @@ namespace {
 constexpr int kMaxSlots = 32;  // the largest batch: the JAX server's largest admission wave
 long long g_kernels = 0;       // kernels the bf16 Llama chain has launched (elit_megabatch_kernels)
 }  // namespace
-
-// Mirrored by ops/megakernel_batch.py's GPT2BatchArgs (ctypes).
-struct Gpt2BatchArgs {
-  int batch;
-  int dtype, n_layer, n_embd, n_head, vocab, n_pos, capacity;
-  int k_kind, v_kind, advance, lm_blocks;
-  float ln_eps, quant_eps;
-  const void* attn_w;
-  const void* proj_w;
-  const void* fc_w;
-  const void* fcp_w;
-  const void* wte;
-  const void* wpe;
-  const float* smalls;
-  const float* lnf;
-  void* k;
-  void* v;
-  float* ks;
-  float* vs;
-  int* length;
-  const int* tok_in;
-  const void* x_emb;
-  int* tok_out;
-  void* x;
-  void* qkv;
-  void* attn;
-  void* ffn;
-  float* lm_val;
-  int* lm_idx;
-  int w_kind, w_group;  // weight tier: 0 = model dtype, 8 = int8, 4 = int4
-  const void* head;     // [V, E] LM-head codes ([V, E/2] int4), or null: wte
-  const void* attn_s;   // scales: [L, 3E] fp32 (int8), [L, 3E, E/G] T (int4)
-  const void* proj_s;
-  const void* fc_s;
-  const void* fcp_s;
-  const void* head_s;
-};
 
 // Mirrored by ops/megakernel_batch.py's LlamaBatchArgs (ctypes).
 struct LlamaBatchArgs {
@@ -246,23 +202,6 @@ int attention_batch(const AttnParams& p, const SlotStrides& s, int B, int k_kind
 // ------------------------------------------------------ embedding, argmax
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gpt2_embed_batch(const T* __restrict__ wte, const T* __restrict__ wpe,
-                 const int* __restrict__ tok_in, const T* __restrict__ x_emb,
-                 const int* __restrict__ lengths, int E, int V, int P, T* __restrict__ x) {
-  const int b = blockIdx.x;
-  T* xb = x + (size_t)b * E;
-  if (tok_in == nullptr) {
-    for (int e = threadIdx.x; e < E; e += kThreads) xb[e] = x_emb[(size_t)b * E + e];
-    return;
-  }
-  const T* we = wte + (size_t)min(max(tok_in[b], 0), V - 1) * E;
-  const T* pe = wpe + (size_t)min(max(lengths[b], 0), P - 1) * E;
-  for (int e = threadIdx.x; e < E; e += kThreads)
-    xb[e] = from_f32<T>(to_f32(we[e]) + to_f32(pe[e]));
-}
-
-template <typename T>
 __device__ __forceinline__ void llama_embed_slot(const T* __restrict__ embed,
                                                  const int* __restrict__ tok_in,
                                                  const T* __restrict__ x_emb, int E, int V,
@@ -308,64 +247,6 @@ argmax_batch_pdl_kernel(const float* __restrict__ part_val, const int* __restric
 }
 
 // ------------------------------------------------------------------ chains
-
-template <typename T>
-int gpt2_step(const Gpt2BatchArgs& a, cudaStream_t st) {
-  const int L = a.n_layer, E = a.n_embd, V = a.vocab, B = a.batch, C = a.capacity;
-  const T* wte = static_cast<const T*>(a.wte);
-  auto weight = [&](const void* w, const void* s, int l, int n, int k) {
-    return weight_at<T>(w, s, a.w_kind, a.w_group, (size_t)l * n, k);
-  };
-  T* x = static_cast<T*>(a.x);
-  T* qkv = static_cast<T*>(a.qkv);
-  T* attn = static_cast<T*>(a.attn);
-  T* ffn = static_cast<T*>(a.ffn);
-
-  gpt2_embed_batch<T><<<B, kThreads, 0, st>>>(wte, static_cast<const T*>(a.wpe), a.tok_in,
-                                              static_cast<const T*>(a.x_emb), a.length, E, V,
-                                              a.n_pos, x);
-  LAUNCH_CHECK();
-  for (int l = 0; l < L; ++l) {
-    const float* sm = a.smalls + (size_t)l * 13 * E;
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_STORE, 1>(
-        weight(a.attn_w, a.attn_s, l, 3 * E, E), 3 * E, E, B, x, sm, sm + E, a.ln_eps, sm + 4 * E,
-        qkv, nullptr, nullptr, 0, nullptr, st)));
-    AttnParams ap{};
-    SlotStrides ss{};
-    layer_panes<T>(ap, ss, a.k, a.v, a.ks, a.vs, a.k_kind, a.v_kind, l, B, C, E);
-    ss.qkv = 3 * E;
-    ss.out = E;
-    ap.qkv = qkv;
-    ap.length = a.length;
-    ap.capacity = C;
-    ap.n_head = a.n_head;
-    ap.q_width = ap.kv_width = E;
-    ap.group = 1;
-    ap.sm_scale = 1.0f / sqrtf((float)(E / a.n_head));
-    ap.quant_eps = a.quant_eps;
-    ap.out = attn;
-    RETURN_IF(attention_batch<T>(ap, ss, B, a.k_kind, a.v_kind, E / a.n_head, st));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 2>(
-        weight(a.proj_w, a.proj_s, l, E, E), E, E, B, attn, nullptr, nullptr, 0.0f, sm + 7 * E, x,
-        nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_LN, EPI_GELU, 1>(
-        weight(a.fc_w, a.fc_s, l, 4 * E, E), 4 * E, E, B, x, sm + 2 * E, sm + 3 * E, a.ln_eps,
-        sm + 8 * E, ffn, nullptr, nullptr, 0, nullptr, st)));
-    RETURN_IF((gemv_batch<T, PRO_VEC, EPI_RESIDUAL, 4>(
-        weight(a.fcp_w, a.fcp_s, l, E, 4 * E), E, 4 * E, B, ffn, nullptr, nullptr, 0.0f,
-        sm + 12 * E, x, nullptr, nullptr, 0, nullptr, st)));
-  }
-  const WeightRef head = a.w_kind == W_T ? WeightRef{a.wte, nullptr, W_T, 0}
-                                           : weight(a.head, a.head_s, 0, V, E);
-  int lm_grid = 0;
-  RETURN_IF((gemv_batch<T, PRO_LN, EPI_ARGMAX, 1>(
-      head, V, E, B, x, a.lnf, a.lnf + E, a.ln_eps, nullptr, nullptr, a.lm_val, a.lm_idx,
-      a.lm_blocks, &lm_grid, st)));
-  argmax_batch_kernel<<<B, kThreads, 0, st>>>(a.lm_val, a.lm_idx, lm_grid, V, a.advance,
-                                              a.tok_out, a.length);
-  LAUNCH_CHECK();
-  return 0;
-}
 
 template <typename T>
 int llama_step(const LlamaBatchArgs& a, cudaStream_t st) {
@@ -491,21 +372,6 @@ int llama_step_tc(const LlamaBatchArgs& a, cudaStream_t st) {
   return 0;
 }
 
-int run_gpt2(const Gpt2BatchArgs* a, void* stream, bool quant) {
-  if (a == nullptr) return (int)cudaErrorInvalidValue;
-  const bool q = a->k_kind != 0 || a->v_kind != 0;
-  const int E = a->n_embd, H = a->n_head;
-  const bool int4 = a->k_kind == 4 || a->v_kind == 4;
-  if (q != quant || a->batch < 1 || a->batch > kMaxSlots || H <= 0 || E % H || E % 128 ||
-      a->capacity <= 0 || a->capacity > 8192 || a->lm_blocks <= 0 ||
-      (q && (!a->ks || !a->vs)) || (int4 && (E / 2) % (E / H)) || !gpt2_tier_ok(*a))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 0) return gpt2_step<float>(*a, st);
-  if (a->dtype == 1) return gpt2_step<__nv_bfloat16>(*a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 int run_llama(const LlamaBatchArgs* a, void* stream, bool quant) {
   if (a == nullptr) return (int)cudaErrorInvalidValue;
   const bool q = a->k_kind != 0 || a->v_kind != 0;
@@ -525,14 +391,6 @@ int run_llama(const LlamaBatchArgs* a, void* stream, bool quant) {
 }
 
 }  // namespace
-
-extern "C" int elit_gpt2_megabatch(const Gpt2BatchArgs* a, void* stream) {
-  return run_gpt2(a, stream, false);
-}
-
-extern "C" int elit_gpt2_megabatch_quant(const Gpt2BatchArgs* a, void* stream) {
-  return run_gpt2(a, stream, true);
-}
 
 extern "C" int elit_llama_megabatch(const LlamaBatchArgs* a, void* stream) {
   return run_llama(a, stream, false);

@@ -225,55 +225,84 @@ template <typename T, int KIND>
 struct Pane {
   const void* base;
   int W;
-  // Lane-values [d0, d0 + n) of head h in row c, as fp32 (codes unscaled).
-  template <int NV>
-  __device__ __forceinline__ void load(int c, int h, int D, int d0, float (&o)[NV]) const {
+  // The bytes of 8 aligned lane-values as loaded: one or two 16-byte loads
+  // of T, or 8 bytes of codes (in u[0].x, u[0].y).
+  struct Raw {
+    uint4 u[KIND == 0 ? (int)sizeof(T) / 2 : 1];
+  };
+  // Lane-values [d0, d0 + 8) of head h in row c, as loaded (raw) and as
+  // fp32 (decode; codes unscaled): load<8> in two halves, so that a caller
+  // can issue several rows' loads before it uses any.
+  __device__ __forceinline__ Raw raw(int c, int h, int D, int d0) const {
     const int e0 = h * D + d0;
+    Raw r;
     if constexpr (KIND == 0) {
-      const T* p = static_cast<const T*>(base) + (size_t)c * W + e0;
-      if constexpr (NV == 8) {  // 8 aligned values: one or two 16-byte loads
-        const uint4* p4 = reinterpret_cast<const uint4*>(p);
-        if constexpr (sizeof(T) == 2) {
-          unpack16(p4[0], o);
-        } else {
-          float a[4], b[4];
-          unpack16(p4[0], a);
-          unpack16(p4[1], b);
+      const uint4* p4 =
+          reinterpret_cast<const uint4*>(static_cast<const T*>(base) + (size_t)c * W + e0);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) { o[i] = a[i]; o[i + 4] = b[i]; }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < NV; ++i) o[i] = to_f32(p[i]);
-      }
+      for (int i = 0; i < (int)sizeof(T) / 2; ++i) r.u[i] = p4[i];
     } else {
       const int half = W / 2;
-      const bool hi = KIND == 4 && e0 < half;
       const int8_t* p = static_cast<const int8_t*>(base) +
                         (KIND == 8 ? (size_t)c * W + e0
                                    : (size_t)c * half + (e0 < half ? e0 : e0 - half));
-      auto value = [hi](int byte) {  // byte: the stored int8, sign-extended
-        return (float)(KIND == 8 ? byte : (hi ? (byte >> 4) : ((byte & 15) - 8)));
-      };
-      if constexpr (NV == 8) {  // 8 aligned bytes: one load
-        const uint2 w = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i] = value((int8_t)(w.x >> (8 * i)));
-          o[i + 4] = value((int8_t)(w.y >> (8 * i)));
-        }
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      r.u[0] = make_uint4(w.x, w.y, 0u, 0u);
+    }
+    return r;
+  }
+  __device__ __forceinline__ void decode(const Raw& r, int h, int D, int d0,
+                                         float (&o)[8]) const {
+    if constexpr (KIND == 0) {
+      if constexpr (sizeof(T) == 2) {
+        unpack16(r.u[0], o);
       } else {
+        float a[4], b[4];
+        unpack16(r.u[0], a);
+        unpack16(r.u[1], b);
 #pragma unroll
-        for (int i = 0; i < NV; ++i) o[i] = value(p[i]);
+        for (int i = 0; i < 4; ++i) { o[i] = a[i]; o[i + 4] = b[i]; }
+      }
+    } else {
+      const bool hi = KIND == 4 && h * D + d0 < W / 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[i] = value((int8_t)(r.u[0].x >> (8 * i)), hi);
+        o[i + 4] = value((int8_t)(r.u[0].y >> (8 * i)), hi);
       }
     }
+  }
+  // Lane-values [d0, d0 + n) of head h in row c, as fp32 (codes unscaled).
+  template <int NV>
+  __device__ __forceinline__ void load(int c, int h, int D, int d0, float (&o)[NV]) const {
+    if constexpr (NV == 8) {
+      decode(raw(c, h, D, d0), h, D, d0, o);
+    } else if constexpr (KIND == 0) {
+      const T* p = static_cast<const T*>(base) + (size_t)c * W + h * D + d0;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) o[i] = to_f32(p[i]);
+    } else {
+      const int e0 = h * D + d0, half = W / 2;
+      const int8_t* p = static_cast<const int8_t*>(base) +
+                        (KIND == 8 ? (size_t)c * W + e0
+                                   : (size_t)c * half + (e0 < half ? e0 : e0 - half));
+#pragma unroll
+      for (int i = 0; i < NV; ++i) o[i] = value(p[i], KIND == 4 && e0 < half);
+    }
+  }
+  // A code's value (byte: the stored int8, sign-extended; hi: the high nibble).
+  __device__ __forceinline__ static float value(int byte, bool hi) {
+    return (float)(KIND == 8 ? byte : (hi ? (byte >> 4) : ((byte & 15) - 8)));
   }
 };
 
 // Quantize-on-write of one token's row x [W] (block-wide), or a plain copy.
-// x holds values of T (as T, or as fp32 already rounded to T).
+// x holds values of T (as T, or as fp32 already rounded to T). x is not
+// __restrict__: in the draft burst it is q|k|v, which other blocks of the
+// launch rewrite every layer, and a restricted const pointer lets the
+// compiler read it through the non-coherent (read-only) cache.
 template <typename T, int KIND, typename S>
-__device__ void write_row(const S* __restrict__ x, void* pane, float* scales, int row, int W,
+__device__ void write_row(const S* x, void* pane, float* scales, int row, int W,
                           float eps, float* red) {
   if constexpr (KIND == 0) {
     T* dst = static_cast<T*>(pane) + (size_t)row * W;
@@ -304,14 +333,16 @@ __device__ void write_row(const S* __restrict__ x, void* pane, float* scales, in
 // Value d of one head's vector (D values of T): as stored, or, with RoPE
 // tables (cs/sn: the position's cos/sin rows, fp32 [D]), rotate-half RoPE of
 // the stored value computed in fp32 without fused multiply-adds and rounded
-// to T: x[d] cos[d] + r[d] sin[d], r = (-x[d + D/2], x[d - D/2]).
+// to T: x[d] cos[d] + r[d] sin[d], r = (-x[d + D/2], x[d - D/2]). Loaded
+// through ld.global.cg: in the draft burst and the persistent steps another
+// block of the same launch wrote the vector.
 template <typename T>
-__device__ __forceinline__ float head_value(const T* __restrict__ head, int d, int D,
-                                            const float* cs, const float* sn) {
-  const float a = to_f32(head[d]);
+__device__ __forceinline__ float head_value(const T* head, int d, int D, const float* cs,
+                                            const float* sn) {
+  const float a = ldcg_f32(head + d);
   if (cs == nullptr) return a;
   const int half = D / 2;
-  const float r = d < half ? -to_f32(head[d + half]) : to_f32(head[d - half]);
+  const float r = d < half ? -ldcg_f32(head + d + half) : ldcg_f32(head + d - half);
   return round_to<T>(__fadd_rn(__fmul_rn(a, cs[d]), __fmul_rn(r, sn[d])));
 }
 
@@ -458,7 +489,7 @@ __device__ __forceinline__ void attention_block(const AttnParams& p, const int b
     float num = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) num += pv[w][d];
-    num += p_cur * to_f32(vc[hk * D + d]);
+    num += p_cur * ldcg_f32(vc + hk * D + d);
     static_cast<T*>(p.out)[h * D + d] = from_f32<T>(num / denom);
   }
 }

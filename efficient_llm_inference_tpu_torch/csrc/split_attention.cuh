@@ -1,7 +1,10 @@
 // Split-KV decode attention of one (K/V head, split) item, shared by the
 // single-stream steps: the Llama/Qwen chain's attention kernel
 // (llama_megastep.cu, one block an item) and GPT-2's persistent step
-// (gpt2_megastep.cu, a block's items of the layer's attention phase).
+// (gpt2_megastep.cu, a block's items of the layer's attention phase); and
+// its warp-level form (split_attention_warp_item, below: a warp an item) in
+// GPT-2's batched persistent step (gpt2_megabatch.cu), both merged by the
+// same combine (combine_value).
 //
 // Item b < n_kv * splits: K/V head hk = b / splits over rows
 // [s * rows, min((s + 1) * rows, length)) of the layer's panes (s = b %
@@ -43,15 +46,56 @@ struct SplitAttn {
   int* count;   // [n_kv] finished splits, zero between uses
 };
 
-// head_value with its loads through ld.global.cg.
-template <typename T>
-__device__ __forceinline__ float head_value_cg(const T* head, int d, int D, const float* cs,
-                                               const float* sn) {
-  const float a = ldcg_f32(head + d);
-  if (cs == nullptr) return a;
-  const int half = D / 2;
-  const float r = d < half ? -ldcg_f32(head + d + half) : ldcg_f32(head + d - half);
-  return round_to<T>(__fadd_rn(__fmul_rn(a, cs[d]), __fmul_rn(r, sn[d])));
+// Output value d of query head j of the splits' partials merged with the
+// current token (score s_cur, value v_cur): M over the splits' maxima and
+// s_cur, kCombine splits' (m, l, acc[d]) in one round trip, running sums
+// rescaled when a later chunk raises M; a split past the length weighs 0.
+__device__ __forceinline__ float combine_value(const SplitAttn& a, int j, int D, int d,
+                                               float s_cur, float v_cur) {
+  float M = s_cur, L = 0.0f, num = 0.0f;
+  for (int t0 = 0; t0 < a.splits; t0 += kCombine) {
+    float mv[kCombine], lv[kCombine], av[kCombine];
+#pragma unroll
+    for (int i = 0; i < kCombine; ++i) {
+      const bool in = t0 + i < a.splits;
+      const float* pt = a.part + ((size_t)j * a.splits + (in ? t0 + i : 0)) * (D + 2);
+      mv[i] = in ? __ldcg(pt) : -INFINITY;
+      lv[i] = in ? __ldcg(pt + 1) : 0.0f;
+      av[i] = in ? __ldcg(pt + 2 + d) : 0.0f;
+    }
+    float Mc = M;
+#pragma unroll
+    for (int i = 0; i < kCombine; ++i) Mc = fmaxf(Mc, mv[i]);
+    const float rescale = expf(M - Mc);
+    L *= rescale;
+    num *= rescale;
+#pragma unroll
+    for (int i = 0; i < kCombine; ++i) {
+      const float w = expf(mv[i] - Mc);
+      L = fmaf(lv[i], w, L);
+      num = fmaf(av[i], w, num);
+    }
+    M = Mc;
+  }
+  const float p_cur = expf(s_cur - M);
+  L += p_cur;
+  num += p_cur * v_cur;
+  return num / L;
+}
+
+// Eight values of T at p (16-byte aligned) as fp32, through ld.global.cg.
+__device__ __forceinline__ void load8_cg(const __nv_bfloat16* p, float (&o)[8]) {
+  unpack16(__ldcg(reinterpret_cast<const uint4*>(p)), o);
+}
+__device__ __forceinline__ void load8_cg(const float* p, float (&o)[8]) {
+  float a[4], b[4];
+  unpack16(__ldcg(reinterpret_cast<const uint4*>(p)), a);
+  unpack16(__ldcg(reinterpret_cast<const uint4*>(p) + 1), b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = a[i];
+    o[i + 4] = b[i];
+  }
 }
 
 // Shared memory (floats) of one item: the group's q, the current token's k
@@ -114,10 +158,10 @@ __device__ __forceinline__ void split_attention_item(const SplitAttn& a, const i
   for (int e = tid; e < (G + 2) * D; e += kThreads) {
     const int j = e / D, d = e - j * D;
     if (j < G)
-      qs[e] = head_value_cg<T>(q + (hk * G + j) * D, d, D, cs, sn);
+      qs[e] = head_value<T>(q + (hk * G + j) * D, d, D, cs, sn);
     else
       cur[e - G * D] =
-          j == G ? head_value_cg<T>(kc + hk * D, d, D, cs, sn) : ldcg_f32(vc + hk * D + d);
+          j == G ? head_value<T>(kc + hk * D, d, D, cs, sn) : ldcg_f32(vc + hk * D + d);
   }
   __syncthreads();
   // the current token's score for each head (full precision), for the
@@ -261,37 +305,161 @@ __device__ __forceinline__ void split_attention_item(const SplitAttn& a, const i
   if (!last) return;
   for (int e = tid; e < G * D; e += kThreads) {
     const int j = e / D, d = e - j * D;
-    float M = scur[j], L = 0.0f, num = 0.0f;
-    for (int t0 = 0; t0 < a.splits; t0 += kCombine) {
-      float mv[kCombine], lv[kCombine], av[kCombine];
-#pragma unroll
-      for (int i = 0; i < kCombine; ++i) {
-        const bool in = t0 + i < a.splits;
-        const float* pt = part(j, in ? t0 + i : 0);
-        mv[i] = in ? __ldcg(pt) : -INFINITY;
-        lv[i] = in ? __ldcg(pt + 1) : 0.0f;
-        av[i] = in ? __ldcg(pt + 2 + d) : 0.0f;
-      }
-      float Mc = M;
-#pragma unroll
-      for (int i = 0; i < kCombine; ++i) Mc = fmaxf(Mc, mv[i]);
-      const float rescale = expf(M - Mc);
-      L *= rescale;
-      num *= rescale;
-#pragma unroll
-      for (int i = 0; i < kCombine; ++i) {
-        const float w = expf(mv[i] - Mc);
-        L = fmaf(lv[i], w, L);
-        num = fmaf(av[i], w, num);
-      }
-      M = Mc;
-    }
-    const float p_cur = expf(scur[j] - M);
-    L += p_cur;
-    num += p_cur * cur[D + d];
-    static_cast<T*>(p.out)[(hk * G + j) * D + d] = from_f32<T>(num / L);
+    static_cast<T*>(p.out)[(hk * G + j) * D + d] =
+        from_f32<T>(combine_value(a, hk * G + j, D, d, scur[j], cur[D + d]));
   }
   if (tid == 0) a.count[hk] = 0;  // clean for the next use
+}
+
+// The warp-level item of the batched GPT-2 step (gpt2_megabatch.cu: many
+// (slot, head, split) items a block and layer, so a block's 8 warps take 8
+// at once and a warp keeps a split's rows in flight together): the same
+// function as split_attention_item at group 1, lanes laid out as its phases
+// 1 and 3 (D/8 lanes a row, 8 dims each), a warp's passes over the split's
+// rows in chunks of warp_passes() whose K and V rows are loaded before any is
+// used, the scores in `sc` (rows floats of the warp's shared memory), the
+// current token's score by the same shuffle tree, and the same combine by
+// the last warp of a head to finish. Sums in an order fixed by (rows, D).
+// Passes a chunk: 8 (4 in fp32, whose rows take twice the registers).
+template <typename T>
+__host__ __device__ constexpr int warp_passes() {
+  return sizeof(T) == 4 ? 4 : 8;
+}
+
+// The first chunk of a warp item's K and V rows and scales, loaded before
+// the grid barrier (rows t < length, which no kernel of the step writes).
+template <typename T, int KK, int VK, int D>
+struct WarpRows {
+  static constexpr int N = warp_passes<T>();
+  typename Pane<T, KK>::Raw k[N];
+  typename Pane<T, VK>::Raw v[N];
+  float ks[N], vs;
+};
+
+template <typename T, int KK, int VK, int D>
+__device__ __forceinline__ void warp_rows(const SplitAttn& a, int item, int p0,
+                                          WarpRows<T, KK, VK, D>& r) {
+  constexpr int LPR = D / 8, RPW = 32 / LPR;
+  const AttnParams& p = a.p;
+  const int lane = threadIdx.x & 31, gi = lane / LPR, d0 = (lane % LPR) * 8;
+  const int hk = item / a.splits, r0 = (item - hk * a.splits) * a.rows, C = p.capacity;
+  const Pane<T, KK> kpane{p.k, p.kv_width};
+  const Pane<T, VK> vpane{p.v, p.kv_width};
+#pragma unroll
+  for (int j = 0; j < warp_passes<T>(); ++j) {
+    const int row = min(r0 + min((p0 + j) * RPW + gi, a.rows - 1), C - 1);
+    r.k[j] = kpane.raw(row, hk, D, d0);
+    r.v[j] = vpane.raw(row, hk, D, d0);
+    if (KK != 0) r.ks[j] = p.ks[row];
+  }
+  if (KK != 0) r.vs = p.vs[min(r0 + min(p0 * RPW + lane, a.rows - 1), C - 1)];
+}
+
+template <typename T, int KK, int VK, int D>
+__device__ void split_attention_warp_item(const SplitAttn& a, const int item, float* sc,
+                                          const int raw_len, WarpRows<T, KK, VK, D>& r) {
+  constexpr int LPR = D / 8, RPW = 32 / LPR, NP = warp_passes<T>();
+  constexpr bool QUANT = KK != 0;
+  const AttnParams& p = a.p;
+  const int lane = threadIdx.x & 31, gi = lane / LPR, d0 = (lane % LPR) * 8;
+  const int hk = item / a.splits, s = item - hk * a.splits;
+  const int C = p.capacity, KW = p.kv_width, r0 = s * a.rows;
+  const Pane<T, KK> kpane{p.k, KW};
+  const Pane<T, VK> vpane{p.v, KW};
+  const int len = min(max(raw_len, 0), C);
+  const int n = min(r0 + a.rows, len) - r0;  // visible rows of this split
+  const T* kc = static_cast<const T*>(p.qkv) + p.q_width;
+  float q[8], kcur[8];  // 16-byte loads through ld.global.cg (another block wrote them)
+  load8_cg(static_cast<const T*>(p.qkv) + hk * D + d0, q);
+  load8_cg(kc + hk * D + d0, kcur);
+  float s_cur = 0.0f;  // the current token's score (full precision)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s_cur = fmaf(q[i], kcur[i], s_cur);
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) s_cur += __shfl_xor_sync(0xffffffffu, s_cur, o);
+  s_cur *= p.sm_scale;
+  float* part = a.part + ((size_t)hk * a.splits + s) * (D + 2);
+  const float vs0 = r.vs;  // the V scale of row r0 + lane (first chunk)
+  if (n > 0) {
+    const int passes = (n + RPW - 1) / RPW;
+    const bool one = passes <= NP;  // the first chunk's rows stay loaded
+    // scores, NP passes at a time (the first chunk's rows loaded ahead)
+    for (int p0 = 0; p0 < passes; p0 += NP) {
+      if (p0 > 0) warp_rows<T, KK, VK, D>(a, item, p0, r);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int c = (p0 + j) * RPW + gi;
+        float kv[8];
+        kpane.decode(r.k[j], hk, D, d0, kv);
+        float dot = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot = fmaf(q[i], kv[i], dot);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (lane % LPR == 0 && c < n) sc[c] = QUANT ? dot * r.ks[j] * p.sm_scale : dot * p.sm_scale;
+      }
+    }
+    __syncwarp();
+    float m = -INFINITY;
+    for (int c = lane; c < n; c += 32) m = fmaxf(m, sc[c]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = lane; c < n; c += 32) {
+      const float pr = expf(sc[c] - m);
+      l += pr;
+      sc[c] = QUANT ? round_to<T>(pr * (c < 32 ? vs0 : p.vs[r0 + c])) : pr;
+    }
+    l = warp_sum(l);
+    __syncwarp();
+    // PV: the V rows of the chunk in registers (the first chunk's already)
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
+    for (int p0 = 0; p0 < passes; p0 += NP) {
+      if (!one) warp_rows<T, KK, VK, D>(a, item, p0, r);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int c = (p0 + j) * RPW + gi;
+        if (c >= n) continue;  // a row past the length: never used (it may be written now)
+        float vv[8];
+        vpane.decode(r.v[j], hk, D, d0, vv);
+        const float w = sc[c];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = fmaf(w, vv[i], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    if (lane == 0) {
+      part[0] = m;
+      part[1] = l;
+    }
+    if (gi == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part[2 + d0 + i] = acc[i];
+    }
+  } else {  // no visible row in this split
+    for (int i = lane; i < D + 2; i += 32) part[i] = i == 0 ? -INFINITY : 0.0f;
+  }
+  // the last warp of this (slot, head) to finish combines its splits
+  __syncwarp();
+  unsigned last = 0;
+  if (lane == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(a.count + hk) : "memory");
+    last = prev == (unsigned)a.splits - 1;
+  }
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  s_cur = __shfl_sync(0xffffffffu, s_cur, 0);
+  const T* vc = kc + KW;
+  for (int d = lane; d < D; d += 32)
+    static_cast<T*>(p.out)[hk * D + d] =
+        from_f32<T>(combine_value(a, hk, D, d, s_cur, ldcg_f32(vc + hk * D + d)));
+  __syncwarp();
+  if (lane == 0) a.count[hk] = 0;  // clean for the next use
 }
 
 }  // namespace

@@ -684,17 +684,27 @@ class StepLauncher:
     GPT-2's single-stream step (`Gpt2StepArgs`) is one cooperative kernel
     of `grid` blocks: all the card holds at once, queried here, or the
     `grid` given (tests: a step's bits do not depend on it); its launcher
-    keeps the step's attention partials and zeroed counters. A subclass
-    with `batched = True` (ops/megakernel_batch.py) takes [L, B, C, W]
-    panes, [B] tokens and lengths and a [B, E] x_emb, and passes B first in
-    its args struct; the verify and batched launchers issue their chains
-    of kernels."""
+    keeps the step's attention partials and zeroed counters (`scratch`). A
+    subclass with `batched = True` (ops/megakernel_batch.py) takes
+    [L, B, C, W] panes, [B] tokens and lengths and a [B, E] x_emb, and
+    passes B in its args struct (GPT-2's batched step, a Gpt2StepArgs with
+    B last, is a persistent kernel too); the verify and other batched
+    launchers issue their chains of kernels."""
 
     entry = {False: "elit_gpt2_megastep", True: "elit_gpt2_megastep_quant"}
+    grid_entry = "elit_gpt2_megastep_grid"  # the persistent kernel's blocks an SM
     args_type = Gpt2StepArgs
     batched = False
     max_rows = 1
     launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
+
+    def scratch(self, cfg, capacity: int, B: int) -> dict:
+        """The persistent step's plan and scratch sizes (`step_scratch`)."""
+        return step_scratch(cfg, capacity)
+
+    def least_grid(self, n_embd: int) -> int:
+        """The least grid the persistent step takes (`min_grid`)."""
+        return min_grid(n_embd)
 
     def layout(self, k, rows: Optional[int]) -> tuple:
         """(token rows B, lead dims of the panes, entries of `length`, the
@@ -747,10 +757,10 @@ class StepLauncher:
             _check("x_emb", x_emb.reshape(B * E), dtype, (B * E,), dev)
         else:
             _check("tok_in", tok_in, torch.int32, (B,), dev)
-        single = issubclass(self.args_type, Gpt2StepArgs)
-        plan = step_scratch(cfg, C) if single else None
+        persistent = issubclass(self.args_type, Gpt2StepArgs)
+        plan = self.scratch(cfg, C, B) if persistent else None
         ws = Workspace(dtype, dev, x=E, qkv=3 * E, attn=E, ffn=4 * E, rows=B,
-                       **({"part": plan["part"], "count": plan["sync"]} if single else {}))
+                       **({"part": plan["part"], "count": plan["sync"]} if persistent else {}))
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
         self.quant = k_kind != "fp"
@@ -769,10 +779,12 @@ class StepLauncher:
         if wkind != "fp":
             set_tier(self.args, packed, weights, wkind, group)
         self.device = dev
-        if single:
+        if persistent:
             self.args.attn_splits, self.args.attn_rows = plan["splits"], plan["rows"]
             self.args.attn_part = ws.attn_part.data_ptr()
             self.args.sync = ws.attn_count.data_ptr()
+            if self.batched:
+                self.args.batch = B
             self._set_grid(grid)
 
     def _set_grid(self, grid: Optional[int]) -> None:
@@ -782,15 +794,15 @@ class StepLauncher:
         exceed that."""
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         lib = self.library()
-        _build.check(lib, lib.elit_gpt2_megastep_grid(ctypes.byref(self.args),
-                                                      ctypes.byref(per_sm),
-                                                      ctypes.byref(sms)),
-                     "elit_gpt2_megastep_grid")
+        _build.check(lib, getattr(lib, self.grid_entry)(ctypes.byref(self.args),
+                                                        ctypes.byref(per_sm),
+                                                        ctypes.byref(sms)),
+                     self.grid_entry)
         self.per_sm, self.sms = per_sm.value, sms.value
         full = min(self.per_sm * self.sms, LM_PARTS)
-        least = min_grid(self.args.n_embd)
+        least = self.least_grid(self.args.n_embd)
         if full < least or (grid is not None and not least <= grid <= full):
-            raise RuntimeError(f"gpt2 megastep: a grid of {grid or full} blocks cannot be "
+            raise RuntimeError(f"{self.entry[False]}: a grid of {grid or full} blocks cannot be "
                                f"resident at once or is under {least} ({self.per_sm} a "
                                f"block an SM x {self.sms} SMs, at most {LM_PARTS})")
         self.args.grid = full if grid is None else grid

@@ -5,13 +5,17 @@ Port of efficient_llm_inference_tpu/ops/pallas/megakernel_batch.py
 `llama_mega_batch_supported`, `gpt2_megabatch`, `llama_megabatch`;
 full-precision weights and the int8 / grouped-int4 weight tiers of
 ops/megakernel.py's packing). The TPU program streams the weights once per step
-for all B slots; on the H100 the step is the single-stream chain of
-ops/megakernel.py / ops/megakernel_llama.py with a slot dimension,
-`csrc/megabatch.cu`: every weight row is read once and applied to the B
-slots' activations, and attention runs one block per (query head, slot).
-The engine (engine/generate.py `make_generate_batch`) captures the N steps
-of a generation in one CUDA graph (ops/megakernel.py `MegaDecodeGraph` with
-B rows). The quantized-pane variant is ops/megakernel_batch_quant.py.
+for all B slots; on the H100 so does each step: GPT-2's is the single
+stream's persistent kernel with a slot dimension (`csrc/gpt2_megabatch.cu`:
+one cooperative launch a step for every 1 <= B <= 32, each weight tile's
+product with the B slots on the tensor cores in bf16, split-KV attention
+items for every slot), Llama/Qwen's the single-stream chain of
+ops/megakernel_llama.py with a slot dimension (`csrc/megabatch.cu`: every
+weight row read once and applied to the B slots' activations, attention one
+block per (query head, slot)). The engine (engine/generate.py
+`make_generate_batch`) captures the N steps of a generation in one CUDA
+graph (ops/megakernel.py `MegaDecodeGraph` with B rows). The quantized-pane
+variant is ops/megakernel_batch_quant.py.
 
 Slots are independent streams: slot b reads only its own pane columns
 t < lengths[b] plus its current token, writes its new K/V row at column
@@ -33,10 +37,11 @@ from . import _gemv_stream_tc
 from . import megakernel as mk
 from . import megakernel_llama as ml
 
-# The kernels' largest batch (csrc/megabatch.cu kMaxSlots): the JAX server's
-# largest admission wave. The batched GEMV takes up to 256 rows
-# (csrc/gemv_batch.cuh kMaxRows), launched in groups of 8; the bf16 Llama
-# chain's (csrc/gemv_stream_tc.cuh) takes all 32 slots in one launch.
+# The kernels' largest batch (csrc/megabatch.cu kMaxSlots, csrc/gpt2_megabatch.cu
+# kMaxBatch): the JAX server's largest admission wave. The fp32 Llama chain's
+# batched GEMV takes up to 256 rows (csrc/gemv_batch.cuh kMaxRows), launched in
+# groups of 8; the bf16 Llama chain's (csrc/gemv_stream_tc.cuh) and GPT-2's
+# persistent step take all 32 slots in one launch.
 MAX_BATCH = 32
 
 
@@ -59,13 +64,15 @@ def _batch_ok(batch: int) -> bool:
 def mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
     """Can the batched GPT-2 step run this geometry? The JAX package's
     structure (uniform full-precision weights, E % 128 == 0,
-    capacity % 8 == 0, batch >= 1) and the kernels' limits: head_dim 64 or
-    128, capacity <= 8192, batch <= MAX_BATCH. The JAX package's VMEM
-    budget (`_pick_tps_batch`) is a TPU limit and is not carried over: the
-    GEMVs stage their inputs in K-chunks that fit shared memory at any
-    width. The weight gates are the single-stream step's (`mk._weights_ok`:
-    JAX's, and the kernels' G % 32 for int4)."""
-    return mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+    capacity % 8 == 0, batch >= 1) and the kernel's limits: head_dim 64 or
+    128, capacity <= 8192, batch <= MAX_BATCH, and a block's shared memory
+    holding the batch's staged rows beside two ring slots (`smem_plan` at
+    the weights' dtype and tier: GPT-2 large in fp32 past 24 slots does not
+    fit). The JAX package's VMEM budget (`_pick_tps_batch`) is a TPU limit
+    and is not carried over. The weight gates are the single-stream step's
+    (`mk._weights_ok`: JAX's, and the kernels' G % 32 for int4)."""
+    return (mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
+            and smem_fits(cfg, capacity, params, batch))
 
 
 def llama_mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
@@ -122,11 +129,84 @@ def llama_megabatch_plain(packed: dict, k: torch.Tensor, v: torch.Tensor, length
 # The kernels: the single-stream launchers with a slot dimension.
 
 
-class GPT2BatchArgs(ctypes.Structure):
-    """Mirror of `struct Gpt2BatchArgs` in csrc/megabatch.cu: B, then
-    ops/megakernel.py's `MegaStepArgs`."""
+class GPT2BatchArgs(mk.Gpt2StepArgs):
+    """Mirror of `struct Gpt2BatchArgs` in csrc/gpt2_megabatch.cu:
+    ops/megakernel.py's `Gpt2StepArgs` (the single-stream step's arguments
+    over [B]-row tensors, its scratch sized by `batch_scratch`), then B."""
 
-    _fields_ = [("batch", ctypes.c_int)] + mk.MegaStepArgs._fields_
+    _fields_ = [("batch", ctypes.c_int)]
+
+
+def batch_scratch(cfg, capacity: int, B: int) -> dict:
+    """The batched persistent step's plan and scratch sizes: the single
+    stream's attention plan (`mk.attention_plan`, a function of the capacity
+    and the head count alone, so a slot's bits do not depend on B), its
+    partials for every slot (`part` fp32: [B, H, splits, D + 2]) and the
+    zeroed counters (`sync` int32: the grid barrier, the LM head's ticket, a
+    finished-split count a slot and head)."""
+    splits, rows = mk.attention_plan(capacity, cfg.n_head)
+    return {"splits": splits, "rows": rows,
+            "part": B * cfg.n_head * splits * (cfg.head_dim + 2), "sync": 2 + B * cfg.n_head}
+
+
+# The batched step's shared memory (csrc/gpt2_megabatch.cu smem_plan, whose
+# constants tests/test_torch_gpt2_batch_plan.py holds against these): the
+# weight ring of tiles of 8 warps' rows, the B slots' staged input rows and
+# two buffers of the warps' sums for the slots' n8 tiles.
+MAX_SLOTS, RING_BYTES = 64, 176 * 1024  # persistent_step.cuh kMaxSlots, kRingBytes
+DYN_SMEM, ROW_PAD, HOLD, MIN_SLOTS = 216 * 1024, 32, 2, 5  # gpt2_megabatch.cu
+WARPS = mk.STEP_THREADS // 32
+
+
+def _size(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def item_bytes(n_embd: int, dtype, wkind: str) -> int:
+    """Bytes of one E-input weight row of a tier (item_bytes)."""
+    if wkind == "fp":
+        return n_embd * _size(dtype)
+    return n_embd if wkind == "int8" else n_embd // 2
+
+
+def tile_items(dtype) -> int:
+    """Weight rows of one ring tile (Tile<T, WK>::items): 4 bytes a warp."""
+    return WARPS * (4 // _size(dtype))
+
+
+def red_rows(dtype) -> int:
+    """A sums buffer's stride over a slot's rows (red_rows): a tile's rows + 1."""
+    return tile_items(dtype) + 1
+
+
+def smem_plan(cfg, capacity: int, dtype, wkind: str, B: int) -> tuple:
+    """(ring slots, tile bytes, staged row bytes, dynamic shared memory,
+    fc_proj's quarters staged at once) of the batched step at this
+    geometry: the most quarters (4, 2, 1) that leave the ring MIN_SLOTS
+    slots. The kernel refuses fewer than two slots."""
+    E = cfg.n_embd
+    tile = tile_items(dtype) * item_bytes(E, dtype, wkind)
+    np_ = 8 * -(-B // 8)
+    red = 2 * WARPS * np_ * red_rows(dtype) * 4
+    _, rows = mk.attention_plan(capacity, cfg.n_head)
+    for fcp_q in (4, 2, 1):
+        rs = fcp_q * E * _size(dtype) + ROW_PAD
+        h = max(B * rs, WARPS * rows * 4, 2 * E * 4)  # slot rows; warps' scores; k, v
+        h16 = -(-h // 16) * 16
+        ring = min(RING_BYTES, DYN_SMEM - h16 - red)
+        slots = min(MAX_SLOTS, ring // tile) if ring > 0 else 0
+        if slots >= MIN_SLOTS or fcp_q == 1:
+            return slots, tile, rs, slots * tile + h16 + red, fcp_q
+
+
+def smem_fits(cfg, capacity: int, params: dict, batch: int) -> bool:
+    """Does the batched step's plan at the weights' dtype and tier keep the
+    two ring slots the kernel needs (`smem_plan`)? params: weights the
+    single-stream gate (`mk.mega_supported`) already takes."""
+    mode = mk._gpt2_weight_mode(params["blocks"])
+    dtype = mk._full_precision_dtype(params) if mode == "f" else params["wte"].dtype
+    wkind = "fp" if mode == "f" else mode
+    return smem_plan(cfg, capacity, dtype, wkind, batch)[0] >= 2
 
 
 # The bf16 Llama chain's tensor-core GEMV scratch, the tail of LlamaBatchArgs.
@@ -142,18 +222,41 @@ class LlamaBatchArgs(ctypes.Structure):
 
 
 _lib = None
+_gpt2_lib = None
+
+
+def gpt2_kernels() -> ctypes.CDLL:
+    """The library of GPT-2's batched persistent step (csrc/gpt2_megabatch.cu)."""
+    global _gpt2_lib
+    if _gpt2_lib is None:
+        lib = _build.load("gpt2_megabatch")
+        for fn in (lib.elit_gpt2_megabatch, lib.elit_gpt2_megabatch_quant,
+                   lib.elit_gpt2_megabatch_skeleton):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(GPT2BatchArgs), ctypes.c_void_p]
+        lib.elit_gpt2_megabatch_grid.restype = ctypes.c_int
+        lib.elit_gpt2_megabatch_grid.argtypes = [
+            ctypes.POINTER(GPT2BatchArgs), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.elit_gpt2_megabatch_kernels.restype = ctypes.c_longlong
+        lib.elit_gpt2_megabatch_kernels.argtypes = []
+        _gpt2_lib = lib
+    return _gpt2_lib
+
+
+def step_kernels() -> int:
+    """Kernels GPT-2's batched step has launched in this process
+    (csrc/gpt2_megabatch.cu counts each launch): one a step at every B."""
+    return int(gpt2_kernels().elit_gpt2_megabatch_kernels())
 
 
 def kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("megabatch")
-        for fn, args in ((lib.elit_gpt2_megabatch, GPT2BatchArgs),
-                         (lib.elit_gpt2_megabatch_quant, GPT2BatchArgs),
-                         (lib.elit_llama_megabatch, LlamaBatchArgs),
-                         (lib.elit_llama_megabatch_quant, LlamaBatchArgs)):
+        for fn in (lib.elit_llama_megabatch, lib.elit_llama_megabatch_quant):
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(LlamaBatchArgs), ctypes.c_void_p]
         lib.elit_megabatch_kernels.restype = ctypes.c_longlong
         lib.elit_megabatch_kernels.argtypes = []
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -220,15 +323,29 @@ stream_gemv.launches = 0
 
 class GPT2BatchLauncher(mk.StepLauncher):
     """The prepared arguments of one configuration's batched GPT-2 step
-    ([L, B, C, W] panes, [B] tokens and lengths)."""
+    ([L, B, C, W] panes, [B] tokens and lengths): one cooperative kernel of
+    `grid` blocks a step, as the single stream's (any grid of at least one
+    block; tests: a slot's bits do not depend on it), with its scratch for
+    B slots (`batch_scratch`)."""
 
     entry = {False: "elit_gpt2_megabatch", True: "elit_gpt2_megabatch_quant"}
+    grid_entry = "elit_gpt2_megabatch_grid"
     args_type = GPT2BatchArgs
     batched = True
     max_rows = MAX_BATCH
 
+    def layout(self, k, rows) -> tuple:
+        B, lead = mk._slots(self, k)
+        return B, lead, B, ()  # B is the struct's last field
+
+    def scratch(self, cfg, capacity: int, B: int) -> dict:
+        return batch_scratch(cfg, capacity, B)
+
+    def least_grid(self, n_embd: int) -> int:
+        return 1
+
     def library(self) -> ctypes.CDLL:
-        return kernels()
+        return gpt2_kernels()
 
 
 class LlamaBatchLauncher(ml.LlamaStepLauncher):
@@ -277,8 +394,9 @@ def gpt2_megabatch(packed: dict, k: torch.Tensor, v: torch.Tensor, lengths,
     or quantized weights; k, v: [L, B, C, E] panes in the model dtype, slot
     b's row lengths[b] written in place; lengths: int32 [B] (tensor or
     ints); x_emb: [B, E] token + position embeddings in the model dtype. On
-    a CUDA tensor it launches the GPT-2 chain of `csrc/megabatch.cu` and
-    counts one launch in `gpt2_megabatch.launches` (full-precision weights)
+    a CUDA tensor it launches the persistent kernel of
+    `csrc/gpt2_megabatch.cu` (one kernel a step) and counts one launch in
+    `gpt2_megabatch.launches` (full-precision weights)
     or `gpt2_megabatch.tiers["int8" | "int4"].launches`; on a CPU tensor it
     runs `gpt2_megabatch_plain`.
     """

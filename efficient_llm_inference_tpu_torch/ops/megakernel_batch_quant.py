@@ -32,6 +32,7 @@ from .megakernel_batch import (
     _batch_ok,
     _per_slot,
     launch_batch,
+    smem_fits,
 )
 from .quantize import scale_rows
 
@@ -62,10 +63,12 @@ def mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: int,
     """The batched quantized-pane GPT-2 step's eligibility: the JAX
     package's structure (`megakernel_quant.mega_quant_supported`: uniform
     full-precision weights, E % 128, capacity % 8, (E/2) % 128 for an int4
-    pane), batch >= 1, and the kernels' limits (batch <= MAX_BATCH). The
-    VMEM budget (`_pick_tps_batch_quant`) is not carried over. The weight
-    gates are the single-stream step's."""
-    return mq.mega_quant_supported(cfg, capacity, params, kv_mode) and _batch_ok(batch)
+    pane), batch >= 1, and the kernel's limits (batch <= MAX_BATCH, and
+    the shared memory of `smem_fits`, which the pane kind does not
+    change). The VMEM budget (`_pick_tps_batch_quant`) is not carried over.
+    The weight gates are the single-stream step's."""
+    return (mq.mega_quant_supported(cfg, capacity, params, kv_mode) and _batch_ok(batch)
+            and smem_fits(cfg, capacity, params, batch))
 
 
 def llama_mega_batch_quant_supported(cfg, capacity: int, params: dict, batch: int,
@@ -119,8 +122,8 @@ def gpt2_megabatch_quant(packed: dict, k, v, ks, vs, lengths, x_emb, *, cfg,
 
     k, v: int8 [L, B, C, E] or half-split int4 [L, B, C, E/2] panes (kinds
     from `kv_mode`); ks, vs: fp32 [L, B, C]; slot b's row lengths[b] is
-    quantized and written in place. On a CUDA tensor it launches the GPT-2
-    chain of `csrc/megabatch.cu` and counts one launch in
+    quantized and written in place. On a CUDA tensor it launches the
+    persistent kernel of `csrc/gpt2_megabatch.cu` and counts one launch in
     `gpt2_megabatch_quant.launches` or its weight tier's
     `gpt2_megabatch_quant.tiers[...]`; on a CPU tensor it runs
     `gpt2_megabatch_quant_plain`.

@@ -45,19 +45,23 @@ end; programmatic dependent launch lets a kernel start before its
 predecessor ends). With --single, only the single-stream steps run. The
 CUDA runtime of torch, nvidia-smi's version and nvcc --version come first.
 
-With --batch, only the batched Llama steps run: #15 llama_megabatch (fp
-panes) and #17 llama_megabatch_quant (int8, int4 and mixed panes) at
-Llama-3.2-1B's full width in bf16, and #15 over the int8, int4 and int4w8
+With --batch, only the batched steps run: GPT-2 small's #14 gpt2_megabatch
+(fp panes) and #16 gpt2_megabatch_quant (int8, int4 and mixed panes) in
+bf16, and #14 / #16 (fp and int8 panes) over the int8, int4 and int4w8
 weight tiers (as from_model_name(weight_quant=...) quantizes them), each at
-B = 1, 8, 16 and 32 (C = 320, slot lengths LENGTHS repeated), with GPT-2
-small's #14 / #16 (fp and int8 panes) at B = 8 and 16 as the control. With
---batch --profile, the bf16 steps of #15 and #17 (int8 panes) at B = 8 and
-16, and the int8 tier at B = 8, also print their split by kernel role
-(embed, qkv, attention, o, gate|up, down, LM head, argmax; each launch
-charged its end minus the latest end before it) and the gaps (time in
-which no kernel of the step ran), from a torch.profiler trace of one replay
-of a CUDA graph of 4 steps, with the launches of a step and how many of
-them start before the one before them ends.
+B = 1, 8, 16 and 32 (C = 320, slot lengths LENGTHS repeated; B = 1 at
+length 319), with, where the checkout has GPT-2's persistent batched step,
+its skeleton (`elit_gpt2_megabatch_skeleton`: the weight stream, the grid
+barriers and the slots' input staging without arithmetic) over each weight
+tier at B = 1, 8 and 32; then Llama-3.2-1B's #15 (fp panes) and #17 (int8
+panes) in bf16 at B = 8 and 32 as the control. With --batch --profile, the
+Llama bf16 steps at B = 8 also print their split by kernel role (embed,
+qkv, attention, o, gate|up, down, LM head, argmax; each launch charged its
+end minus the latest end before it) and the gaps (time in which no kernel
+of the step ran), from a torch.profiler trace of one replay of a CUDA graph
+of 4 steps, with the launches of a step and how many of them start before
+the one before them ends; GPT-2's step is one kernel
+(scripts/torch_gpt2_step_phases.py --batch 8 splits it by phase).
 """
 
 from __future__ import annotations
@@ -327,9 +331,10 @@ def step_split(seq, n_layer: int, n_steps: int = 4) -> dict:
 
 
 def batch_steps(tree: str, profile: bool) -> None:
-    """The batched Llama steps of this tree (#15, #17 and the weight tiers
-    at B = 1, 8, 16, 32) and GPT-2's #14 / #16 as the control, one JSON line
-    each; with `profile`, the B = 8 and 16 bf16 steps' split by kernel."""
+    """The batched steps of this tree: GPT-2's #14 / #16 over every pane kind
+    and weight tier at B = 1, 8, 16, 32 and its skeleton, then the Llama
+    chain's #15 / #17 as the control, one JSON line each; with `profile`,
+    the Llama B = 8 bf16 steps' split by kernel."""
     import torch
 
     from efficient_llm_inference_tpu_torch.engine.engine import (
@@ -371,49 +376,61 @@ def batch_steps(tree: str, profile: bool) -> None:
                             dtype=torch.int32, device="cuda")
 
     cfg = gpt2_mod.GPT2Config.small()
+    spec = spec_by_name("gpt2")
     params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
                                        torch.bfloat16, "cuda")
-    packed = mk.pack_gpt2_mega(params, cfg)
-    for mode in ("fp", "int8"):
-        for B in (8, 16):
-            st = state(mode, cfg.n_layer, B, cfg.n_embd)
+    skeleton = hasattr(mb, "GPT2BatchLauncher") and hasattr(mb, "gpt2_kernels")
+    for weights in ("bf16", "int8", "int4", "int4w8"):
+        if weights == "bf16":
+            packed = mk.pack_gpt2_mega(params, cfg)
+        else:
+            _, mode_w, group = weight_quant_plan(spec, weights)
+            packed = mk.pack_gpt2_mega(quantize_weights(spec, params, mode_w, group), cfg)
+        for mode in (PANES if weights == "bf16" else ("fp", "int8")):
+            for B in (1, 8, 16, 32):
+                st = state(mode, cfg.n_layer, B, cfg.n_embd)
+                x = (torch.randn((B, cfg.n_embd), generator=g, device="cuda") * 0.3).to(
+                    torch.bfloat16)
+                ms = device_ms(stepper("gpt2", mode, packed, cfg, st, lengths_of(B), x))
+                print(json.dumps({"tree": tree, "batch": "gpt2", "panes": mode,
+                                  "weights": weights, "B": B, "ms": ms}), flush=True)
+                del st
+        for B in ((1, 8, 32) if skeleton else ()):
+            st = state("fp", cfg.n_layer, B, cfg.n_embd)
             x = (torch.randn((B, cfg.n_embd), generator=g, device="cuda") * 0.3).to(
                 torch.bfloat16)
-            ms = device_ms(stepper("gpt2", mode, packed, cfg, st, lengths_of(B), x))
-            print(json.dumps({"tree": tree, "batch": "gpt2", "panes": mode, "weights": "bf16",
-                              "B": B, "ms": ms}), flush=True)
-            del st
-    del params, packed
-    torch.cuda.empty_cache()
+            tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+            step = mb.GPT2BatchLauncher(packed, cfg, *st, lengths_of(B), tok, x_emb=x)
+            print(json.dumps({
+                "tree": tree, "batch": "gpt2", "skeleton": True, "weights": weights, "B": B,
+                "grid": step.args.grid,
+                "ms": device_ms(lambda: step.launch("elit_gpt2_megabatch_skeleton"))}),
+                flush=True)
+            del st, step
+        del packed
+        torch.cuda.empty_cache()
+    del params
 
     cfg = llama_mod.LlamaConfig.llama3_1b()
-    spec = spec_by_name("llama-3-1b")
     KW = cfg.n_kv_head * cfg.head_dim
     params = llama_mod.init_llama_params(torch.Generator().manual_seed(42), cfg,
                                          torch.bfloat16, "cuda")
-    for weights in ("bf16", "int8", "int4", "int4w8"):
-        if weights == "bf16":
-            packed = ml.pack_llama_mega(params, cfg)
-        else:
-            _, mode_w, group = weight_quant_plan(spec, weights)
-            packed = ml.pack_llama_mega(quantize_weights(spec, params, mode_w, group), cfg)
-        for mode in (PANES if weights == "bf16" else ("fp",)):
-            for B in (1, 8, 16, 32):
-                st = state(mode, cfg.n_layer, B, KW)
-                x = params["embed"][torch.arange(B, device="cuda") * 977 + 11].contiguous()
-                fn = stepper("llama", mode, packed, cfg, st, lengths_of(B), x)
-                row = {"tree": tree, "batch": "llama-3-1b", "panes": mode, "weights": weights,
-                       "B": B, "ms": device_ms(fn)}
-                if profile and B in (8, 16) and (
-                        mode in ("fp", "int8") if weights == "bf16" else
-                        weights == "int8" and B == 8):
-                    _, seq = launches_in_order(fn)
-                    row["split_us"] = step_split(seq, cfg.n_layer)
-                    row["first_launches"] = [r[0] for r in seq[:8]]
-                print(json.dumps(row), flush=True)
-                del st
-        del packed
-        torch.cuda.empty_cache()
+    packed = ml.pack_llama_mega(params, cfg)
+    for mode in ("fp", "int8"):
+        for B in (8, 32):
+            st = state(mode, cfg.n_layer, B, KW)
+            x = params["embed"][torch.arange(B, device="cuda") * 977 + 11].contiguous()
+            fn = stepper("llama", mode, packed, cfg, st, lengths_of(B), x)
+            row = {"tree": tree, "batch": "llama-3-1b", "panes": mode, "weights": "bf16",
+                   "B": B, "ms": device_ms(fn)}
+            if profile and B == 8:
+                _, seq = launches_in_order(fn)
+                row["split_us"] = step_split(seq, cfg.n_layer)
+                row["first_launches"] = [r[0] for r in seq[:8]]
+            print(json.dumps(row), flush=True)
+            del st
+    del packed, params
+    torch.cuda.empty_cache()
 
 
 def _cast(params, dtype):

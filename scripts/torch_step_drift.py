@@ -2,7 +2,7 @@
 """How far the single-stream Llama step's bf16 new K/V rows drift from its
 plain step over 16 layers, for this checkout and, optionally, others.
 
-    python3 scripts/torch_step_drift.py [OTHER_CHECKOUT ...] [--batch] [--gemv]
+    python3 scripts/torch_step_drift.py [OTHER_CHECKOUT ...] [--batch [--gpt2]] [--gemv]
 
 On one GPU, Llama-3.2-1B at full width and depth (from_model_name, random
 weights from seed 42, bf16), chip_smoke.py's Llama cases: fp / int8 / int4
@@ -22,7 +22,12 @@ kernels phase: every pane kind, B = 8, 16 and 32 slots at its lengths of
 C = 320, its seeds and inputs; then over the int8 weight tier, fp and int8
 panes, as its full-depth int8 phase): one line a case with the tokens that
 pass the gate, the slots whose new rows pass phase 2's limit, and for fp
-panes the largest row difference as a share of its slot's limit.
+panes the largest row difference as a share of its slot's limit. With
+--batch --gpt2, GPT-2's batched step (#14 / #16) at chip_smoke.py's GPT-2
+batch cases (seed-42 GPT-2 small, 12 layers) and over its int8 and int4
+weight tiers (fp and int8 panes): the slots within two steps (the limit
+without the deep-bf16 allowance) beside those within the allowance, and
+the largest quantized row difference in quantization steps.
 
 With --gemv (this checkout only), where the drift starts: one bf16 GEMV at
 each of Llama-3.2-1B's five weight shapes, 32 rows of N(0, 1) inputs and
@@ -82,30 +87,44 @@ def worker(tree: str) -> None:
                   f"{row}", flush=True)
 
 
-def batch_worker(tree: str) -> None:
+def batch_worker(tree: str, gpt2: bool = False) -> None:
     sys.path.insert(0, tree)
     sys.path.insert(1, str(HERE))
     import torch
 
     import chip_smoke as cs
     from efficient_llm_inference_tpu_torch import InferenceEngine
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
     from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+    from efficient_llm_inference_tpu_torch.ops import megakernel_quant as mq
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    eng = InferenceEngine.from_model_name("llama-3-1b")
-    cfg = eng.model.config
-    W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
+    family = "gpt2" if gpt2 else "llama"
+    if gpt2:  # chip_smoke.py's GPT-2 batch kernels phase: seed-42 GPT-2 small
+        cfg = gpt2_mod.GPT2Config.small()
+        base = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
+                                         torch.bfloat16, "cuda")
+        W = E = cfg.n_embd
+        pack, name = mk.pack_gpt2_mega, "gpt2"
+    else:
+        eng = InferenceEngine.from_model_name("llama-3-1b")
+        cfg, base = eng.model.config, eng.params
+        W, E = cfg.n_kv_head * cfg.head_dim, cfg.hidden_size
+        pack, name = ml.pack_llama_mega, "llama-3-1b"
     dtype = torch.bfloat16
-    cases = [("bf16", mode) for mode in cs.MODES] + [("int8", mode) for mode in ("fp", "int8")]
+    tiers = ("int8", "int4") if gpt2 else ("int8",)
+    cases = [("bf16", mode) for mode in cs.MODES] + [
+        (w, mode) for w in tiers for mode in ("fp", "int8")]
     packs = {}
     for weights, mode in cases:
         i = cs.MODES.index(mode)
         if weights not in packs:
             packs.clear()
-            params = (eng.params if weights == "bf16" else
-                      cs._quantized_params(spec_by_name("llama-3-1b"), eng.params, weights))
-            packs[weights] = ml.pack_llama_mega(params, cfg)
+            params = (base if weights == "bf16" else
+                      cs._quantized_params(spec_by_name(name), base, weights))
+            packs[weights] = pack(params, cfg)
             del params
         packed = packs[weights]
         for n_slots in (8, 16, 32):
@@ -120,28 +139,39 @@ def batch_worker(tree: str) -> None:
             dev_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             got = [t.clone() for t in state]
             want = [t.clone() for t in state]
-            toks = cs._batch_step(mode, packed, cfg, got, dev_len, x, family="llama")[0]
+            toks = cs._batch_step(mode, packed, cfg, got, dev_len, x, family=family)[0]
             logits = cs._batch_step(mode, packed, cfg, want, lengths, x, plain=True,
-                                    family="llama")[-1]
+                                    family=family)[-1]
             torch.cuda.synchronize()
-            tok_ok, row_ok, share = 0, 0, 0.0
+            tok_ok, row_ok, two_ok, share, steps = 0, 0, 0, 0.0, 0.0
             for b, length in enumerate(lengths):
                 tok_ok += cs._token_ok(int(toks[b]), logits[b], dtype)
                 slot = [[t[:, b] for t in ts] for ts in (got, want, state)]
-                try:
-                    cs._new_row_err(mode, dtype, *slot, row=length, deep_bf16=True)
-                    row_ok += 1
-                except AssertionError:
-                    pass
+                for deep in (True, False):
+                    try:
+                        cs._new_row_err(mode, dtype, *slot, row=length, deep_bf16=deep)
+                        row_ok += deep
+                        two_ok += not deep
+                    except AssertionError:
+                        pass
                 if mode == "fp":
                     g_ = torch.stack([t[:, b, length].float() for t in got])
                     w_ = torch.stack([t[:, b, length].float() for t in want])
                     tol = 1.6e-2 * max(w_.abs().max().item(), 1.0)
                     share = max(share, (g_ - w_).abs().max().item() / tol)
-            print(f"{tree} batch {weights} weights {mode} B={n_slots}: tokens ok {tok_ok}/{n_slots}, rows within "
-                  f"the limit {row_ok}/{n_slots}"
-                  + (f", largest fp row difference {share:.3f} of its limit"
-                     if mode == "fp" else ""), flush=True)
+                else:  # the largest dequantized difference in quantization steps
+                    for kind, g_, w_, gs, ws in zip(mq._kv_kinds(mode), slot[0][:2],
+                                                    slot[1][:2], slot[0][2:], slot[1][2:]):
+                        gv = mq.pane_values(g_[:, length], kind) * gs[:, length, None]
+                        wv = mq.pane_values(w_[:, length], kind) * ws[:, length, None]
+                        step = max(gs[:, length].max().item(), ws[:, length].max().item())
+                        steps = max(steps, (gv - wv).abs().max().item() / step)
+            print(f"{tree} batch {family} {weights} weights {mode} B={n_slots}: tokens ok "
+                  f"{tok_ok}/{n_slots}, rows within the deep-bf16 limit {row_ok}/{n_slots}, "
+                  f"within two steps / 1.6e-2 {two_ok}/{n_slots}"
+                  + (f", largest fp row difference {share:.3f} of its limit" if mode == "fp"
+                     else f", largest quantized row difference {steps:.2f} steps"),
+                  flush=True)
 
 
 def gemv_worker() -> None:
@@ -181,11 +211,14 @@ def gemv_worker() -> None:
 
 
 def main() -> int:
-    if len(sys.argv) in (3, 4) and sys.argv[1] == "--worker":
-        (batch_worker if "--batch" in sys.argv else worker)(sys.argv[2])
+    if len(sys.argv) in (3, 4, 5) and sys.argv[1] == "--worker":
+        if "--batch" in sys.argv:
+            batch_worker(sys.argv[2], gpt2="--gpt2" in sys.argv)
+        else:
+            worker(sys.argv[2])
         return 0
     batch = "--batch" in sys.argv
-    args = [a for a in sys.argv[1:] if a not in ("--batch", "--gemv")]
+    args = [a for a in sys.argv[1:] if a not in ("--batch", "--gemv", "--gpt2")]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -198,8 +231,8 @@ def main() -> int:
         return 0
     trees = [str(pathlib.Path(t).resolve()) for t in args] + [str(HERE)]
     for tree in trees:
-        subprocess.run([sys.executable, __file__, "--worker", tree] + ["--batch"] * batch,
-                       check=True)
+        subprocess.run([sys.executable, __file__, "--worker", tree] + ["--batch"] * batch
+                       + ["--gpt2"] * ("--gpt2" in sys.argv), check=True)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""The persistent GPT-2 step's plan (csrc/gpt2_megastep.cu; the launcher's
-part in ops/megakernel.py, the rest modelled here) on the CPU: the split attention's plan at GPT-2's 12
+"""The persistent GPT-2 step's plan (csrc/gpt2_megastep.cu over
+csrc/persistent_step.cuh; the launcher's part in ops/megakernel.py, the
+rest modelled here) on the CPU: the split attention's plan at GPT-2's 12
 heads and at head_dim 128, every weight row of every phase streamed once
 whatever the grid, the ring and its shared memory within a block's limit,
 the scratch sizes, the C constants and the args struct, and the split-KV
@@ -208,8 +209,14 @@ def _c_int(name: str, text: str) -> str:
     return m.group(1).strip()
 
 
+def _step_source() -> str:
+    """The single-stream step's source and the persistent-step header it
+    shares with the batched step (the structs, Tile, the ring's constants)."""
+    return (CSRC / "gpt2_megastep.cu").read_text() + (CSRC / "persistent_step.cuh").read_text()
+
+
 def test_c_constants_mirror_the_plan():
-    src = (CSRC / "gpt2_megastep.cu").read_text()
+    src = _step_source()
     common = (CSRC / "megastep_common.cuh").read_text()
     assert re.search(r"per_warp = (.*?);", src).group(1) == "4 / (int)sizeof(T)"
     assert (tile_items(torch.bfloat16), tile_items(torch.float32)) == (16, 8)
@@ -225,7 +232,7 @@ def test_c_constants_mirror_the_plan():
 def test_step_args_mirror_the_c_struct():
     """Gpt2StepArgs is MegaStepArgs (struct MegaArgs) followed by the C
     struct Gpt2StepArgs's own fields, in order."""
-    src = (CSRC / "gpt2_megastep.cu").read_text()
+    src = _step_source()
 
     def fields(struct):
         body = re.search(rf"struct {struct} {{(.*?)\n}};", src, re.S).group(1)

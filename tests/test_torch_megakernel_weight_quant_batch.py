@@ -214,19 +214,23 @@ def test_launcher_structs_carry_the_weight_tier():
     struct's fields, ending with its weight-tier fields, after its leading
     rows / batch fields; the batched verify's and the batched Llama step's
     then end with their bf16 chain's tensor-core scratch (the C structs'
-    trailing fields)."""
+    trailing fields); GPT-2's batched step is the single stream's
+    persistent-step struct (its grid, attention plan and scratch after the
+    weight tier) with B last."""
     tc = [f[0] for f in tbv.TC_FIELDS]
+    step_tail = [f[0] for f in tmk.Gpt2StepArgs._fields_]
     assert tc == ["xn", "tc_part", "tc_part_len", "tc_count"]
     tc_step = [f[0] for f in tmb.TC_FIELDS]
     assert tc_step == ["tc_part", "tc_part_len", "tc_count", "tc_count_len"]
     for struct, lead, base, tail in (
             (tmk.GPT2VerifyArgs, ["rows"], tmk.MegaStepArgs, []),
             (tml.LlamaVerifyArgs, ["rows"], tml.LlamaStepArgs, []),
-            (tmb.GPT2BatchArgs, ["batch"], tmk.MegaStepArgs, []),
+            (tmb.GPT2BatchArgs, [], tmk.MegaStepArgs, step_tail + ["batch"]),
             (tmb.LlamaBatchArgs, ["batch"], tml.LlamaStepArgs, tc_step),
             (tbv.GPT2BatchVerifyArgs, ["batch", "rows"], tmk.MegaStepArgs, tc),
             (tbv.LlamaBatchVerifyArgs, ["batch", "rows"], tml.LlamaStepArgs, tc)):
-        names = [f[0] for f in struct._fields_]
+        # a ctypes subclass lists its own fields: the struct's are its bases' first
+        names = [f[0] for c in reversed(struct.__mro__) for f in vars(c).get("_fields_", [])]
         assert names == lead + [f[0] for f in base._fields_] + tail, struct
         assert {"w_kind", "w_group", "head_s"} <= set(names)
         assert names[-len(tail) - 1] == "head_s"

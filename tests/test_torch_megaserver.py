@@ -2,7 +2,8 @@
 engine/megaserver.py) against the JAX package's, on the CPU in fp32.
 
 * The port's server against the JAX `MegaBatchServer` (interpret=True) on
-  the same numpy-made weights, GPT-2 and Llama, plain and spec="ngram",
+  the same numpy-made weights, GPT-2 (the Llama family's cases:
+  tests/test_torch_megaserver_llama.py) and Llama, plain and spec="ngram",
   panes in the model dtype and int8, 3 slots of C = 48 (five requests: two
   admission waves), each pair with an eos_id taken from a request's own
   stream (GPT-2 spec also without): every request's `out_ids` are equal,
@@ -92,13 +93,20 @@ def _serve(server, request_type):
     return reqs, widths
 
 
+# the Llama cases run in tests/test_torch_megaserver_llama.py (a file each
+# family, so that one xdist worker does not carry both)
 CASES = [("gpt2", None, None), ("gpt2", "ngram", None), ("gpt2", None, "int8"),
-         ("gpt2", "ngram", "int8"), ("llama", None, None), ("llama", "ngram", None),
-         ("llama", None, "int8"), ("llama", "ngram", "int8")]
+         ("gpt2", "ngram", "int8")]
+LLAMA_CASES = [("llama", None, None), ("llama", "ngram", None), ("llama", None, "int8"),
+               ("llama", "ngram", "int8")]
 
 
 @pytest.mark.parametrize("name,spec,kv_mode", CASES)
 def test_server_matches_jax_server(name, spec, kv_mode):
+    check_server_matches_jax_server(name, spec, kv_mode)
+
+
+def check_server_matches_jax_server(name, spec, kv_mode):
     jspec, tspec, jp, tp = family(name)
     kw = dict(spec=spec, spec_k=8 if name == "llama" and kv_mode is None else 4,
               kv_mode=kv_mode)

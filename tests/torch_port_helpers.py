@@ -1,8 +1,17 @@
 """Shared inputs of the port's parity tests: GPT-2 and Llama parameters
 drawn with numpy from a seed, in the JAX package's stacked-layer layout, so
-the same arrays feed both packages."""
+the same arrays feed both packages.
+
+Importing it runs the process's torch CPU ops on one thread: the port's
+tests are thousands of small ops, and under pytest-xdist six processes'
+intra-op thread pools spin against each other on the shared cores (one
+server parity test: 12 s alone or as one of six single-threaded processes,
+~850 s as one of six at torch's default thread count)."""
 
 import numpy as np
+import torch
+
+torch.set_num_threads(1)
 
 
 def np_gpt2_params(cfg, seed: int, std: float = 0.05) -> dict:
