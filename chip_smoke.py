@@ -72,15 +72,16 @@ chain of csrc/megabatch.cu) runs in three more phases:
   step and no other kernel of the port runs; aggregate tokens/s beside
   benchmark_method's single-stream tokens/s over the same prompts.
 
-Speculative decoding (the verify kernels #10/#13 at R > 1 of
-csrc/megaverify.cu, the draft bursts #22/#23 of csrc/draft_burst.cu) runs in
-three more phases:
+Speculative decoding (the verify kernels: #10 one persistent kernel a pass
+in csrc/gpt2_megaverify.cu, #13 at R > 1 the chain of csrc/megaverify.cu;
+the draft bursts #22/#23 of csrc/draft_burst.cu) runs in three more phases:
 - speculation kernels, after the batch kernels: gpt2_megaverify at GPT-2
   small's full width and llama_megaverify at Llama-3.2-1B's, R in {4, 8}
   rows, cur in {0, 7, 8, 100, C - 8 - R} of C = 344 (the main path's
   capacity at k = 8), bf16 and fp32, against the plain verify (R plain
   steps) with the tolerances of phase 2 (with its deep-bf16 allowance for
-  the Llama rows), timed at R = 8; the bursts at the
+  the Llama rows), each pass's launches counted (#10 one kernel, #13 6 L +
+  3), timed at R = 8; the bursts at the
   byte-vocab draft geometries (draft_gpt2, head_dim 32; draft_llama), k = 4,
   C = 208, each proposal against the plain step fed the kernel's tokens;
 - speculation main path, after the batch main path: generate_speculative
@@ -126,8 +127,12 @@ four more phases:
   once a round, nothing else; aggregate tokens/s, tokens a slot-round and
   the final verify width;
 - in the fp32 hold: GPT-2 small's plain and spec servers at C = 256 (every
-  request fits): each request equals the single-stream megakernel greedy
-  ids up to the first step whose top-2 gap is under 1e-4.
+  request fits), pools in fp32: each request equals the single-stream
+  megakernel greedy ids up to the first step whose top-2 gap is under 1e-4;
+  then the same servers at the JAX server's default pools, bf16, over the
+  fp32 weights (the kernels on the weights cast once to bf16): the batched
+  step (verify) launches once a step (round), every request gets its
+  tokens, their agreement with the fp32 pools' printed.
 
 The kernel API (`efficient_llm_inference_tpu_torch.ops`, the names of the
 JAX package's ops.pallas; #4-#8 and #24, which no engine path calls) runs in
@@ -1211,9 +1216,11 @@ def check_megaverify(family: str, cfg, params_for, rows=(4, 8), curs=None,
     steps): R in `rows` fed as token ids, cur in `curs` (default {0, 7, 8,
     100, C - 8 - R}, the last the largest the capacity rule admits) of C =
     SPEC_C, bf16 and fp32; per row the token and the new rows under the
-    megastep tolerances, every other row untouched. Device ms in bf16 at
-    R = 8, cur = C - 16. `suffix` ends the kernel's name (a weight tier's);
-    without `time_plain` the plain verify is checked but not timed."""
+    megastep tolerances, every other row untouched; the launches of a pass
+    (csrc/gpt2_megaverify.cu: one cooperative kernel; csrc/megaverify.cu:
+    the chain of 6 L + 3). Device ms in bf16 at R = 8, cur = C - 16.
+    `suffix` ends the kernel's name (a weight tier's); without `time_plain`
+    the plain verify is checked but not timed."""
     from efficient_llm_inference_tpu_torch.ops import megakernel as mk
     from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
 
@@ -1243,7 +1250,13 @@ def check_megaverify(family: str, cfg, params_for, rows=(4, 8), curs=None,
                 def plain_fn():
                     return plain(packed, *want, cur, ids, cfg=cfg, return_logits=True)
 
+                before = ml.verify_chain_kernels() if llama else mk.verify_step_kernels()
                 toks = kernel()[0]
+                ran = (ml.verify_chain_kernels() if llama else mk.verify_step_kernels()) - before
+                want_ran = 6 * cfg.n_layer + 3 if llama else 1
+                if ran != want_ran:
+                    raise AssertionError(f"{name} {dtype} R={R}: {ran} kernels a pass, "
+                                         f"expected {want_ran}")
                 logits = plain_fn()[-1]
                 torch.cuda.synchronize()
                 for t in range(R):
@@ -1256,7 +1269,7 @@ def check_megaverify(family: str, cfg, params_for, rows=(4, 8), curs=None,
                 worst = max(worst, err)
                 line = (f"  {name} {str(dtype)[6:]} R={R} C={SPEC_C} cur={cur}: tokens "
                         f"{toks.tolist()} (plain {logits.argmax(-1).tolist()}), new rows "
-                        f"max|kernel-plain| {err:.2e}")
+                        f"max|kernel-plain| {err:.2e}, {ran} kernel(s) a pass")
                 if dtype == torch.bfloat16 and R == 8 and cur == SPEC_C - 16:
                     b, by = _verify_bound(dtype, cfg, family, cur, R, packed)
                     report = {
@@ -2508,15 +2521,17 @@ def _server_prompts(tokenizer, n: int) -> list:
     return out
 
 
-def _server(eng, n_slots, kv, spec, capacity=SERVER_C):
+def _server(eng, n_slots, kv, spec, capacity=SERVER_C, dtype=None):
     """A MegaBatchServer over the engine's model and weights (its pools on
-    the card in the weights' dtype), chunks of 32 steps, k = SPEC_K."""
+    the card in `dtype`, by default the engine's), chunks of 32 steps, k =
+    SPEC_K."""
     from efficient_llm_inference_tpu_torch import MegaBatchServer, MegaPoolConfig
 
     return MegaBatchServer(eng.model, eng.params,
                            pool=MegaPoolConfig(n_slots=n_slots, capacity=capacity,
                                                max_chunk=32),
-                           kv_mode=kv, spec=spec, spec_k=SPEC_K)
+                           kv_mode=kv, spec=spec, spec_k=SPEC_K,
+                           dtype=dtype or eng.config.dtype)
 
 
 def _serve(srv, prompts):
@@ -2624,6 +2639,84 @@ def phase_server_fp32_hold(eng, n_slots: int = 16, n_requests: int = 32) -> None
             f"requests "
             f"equal the single-stream megakernel tokens; the rest equal up to a step with "
             f"a top-2 gap under 1e-4 (at {cut})")
+
+
+def _server_plain_logits(srv, prompt, out) -> torch.Tensor:
+    """The plain single-stream logits (fp32, [len(out), V]) of one request
+    of `srv` (pools in its dtype over its weights), teacher-forced on its
+    tokens `out`: row 0 the prefill's (its cache written in the pools'
+    dtype), row j the plain step over the server's packed weights fed
+    out[j - 1], embedded as the server embeds it."""
+    from efficient_llm_inference_tpu_torch.cache.kvcache import DenseKV
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_batch as mkb
+
+    model, params, C = srv.model, srv.params, srv.pool_cfg.capacity
+    strategy = DenseKV(n_layer=model.n_layer, n_head=model.n_kv_head, head_dim=model.head_dim,
+                       capacity=C, batch=1, dtype=srv.k_pool.dtype, device="cuda")
+    toks = torch.tensor([prompt], dtype=torch.long, device="cuda")
+    pos = torch.arange(len(prompt), device="cuda")[None]
+    logits, cache = model.forward(params, toks, pos, strategy.init(), strategy, None)
+    rows = [logits[0, -1].float()]
+    k = mkb.to_mega_layout_batch(cache["k"])[:, 0].contiguous()
+    v = mkb.to_mega_layout_batch(cache["v"])[:, 0].contiguous()
+    wte, wpe = srv.packed["wte"], srv.packed["wpe"]
+    for j in range(len(out) - 1):
+        cur = len(prompt) + j
+        x = wte[out[j]].float() + wpe[min(cur, model.n_positions - 1)].float()
+        rows.append(mk.gpt2_megastep_plain(srv.packed, k, v, cur, x[None].to(wte.dtype),
+                                           cfg=model.config, return_logits=True)[3].float())
+    return torch.stack(rows)
+
+
+def phase_server_pool_dtype(eng, n_slots: int = 16, n_requests: int = 32) -> None:
+    """The server's pools in the JAX server's default dtype, bf16, over an
+    fp32 engine's weights (GPT-2 small, 16 slots of C = 256, 32 requests),
+    plain and spec="ngram": the decode kernels take the weights cast once to
+    bf16 (the batched step once a step dispatched, the batched verify once
+    a round; no other kernel of the port runs), every request gets its
+    NEW_TOKENS tokens in the vocabulary. A request equal to the fp32 pools'
+    tokens is held by phase_server_fp32_hold; one that parts from them is
+    held, from its first parting to its end, to the plain bf16 logits
+    teacher-forced on its own tokens (_server_plain_logits): each token
+    within 2e-2 of their maximum, the bf16 limit of `_token_ok`
+    (tests/test_torch_megaserver_dtype.py holds the port against the JAX
+    server at this default)."""
+    assert eng.config.dtype == torch.float32
+    prompts = _server_prompts(eng.tokenizer, n_requests)
+    for spec in (None, "ngram"):
+        want, _, _ = _serve(_server(eng, n_slots, None, spec, capacity=256), prompts)
+        srv = _server(eng, n_slots, None, spec, capacity=256, dtype=torch.bfloat16)
+        assert srv.k_pool.dtype == srv.packed["attn_w"].dtype == torch.bfloat16
+        (reqs, wall, steps), got = _counted({}, lambda: _serve(srv, prompts))
+        kernel = f"{eng.model.name}_mega{'batch_verify' if spec else 'batch'}"
+        expect = {k: 0 for k in counters()}
+        expect[kernel] = steps
+        if got != expect or steps == 0:
+            raise AssertionError(f"bf16 pools over fp32 weights spec={spec}: launches {got}, "
+                                 f"expected {expect}")
+        assert all(r.done and len(r.out_ids) == NEW_TOKENS for r in reqs)
+        assert all(0 <= t < eng.model.vocab_size for r in reqs for t in r.out_ids)
+        same = [next((i for i, (a, b) in enumerate(zip(r.out_ids, w.out_ids)) if a != b),
+                     NEW_TOKENS) for r, w in zip(reqs, want)]
+        short = 0.0  # the largest shortfall of a held token under the plain maximum
+        for r, first in zip(reqs, same):
+            if first == NEW_TOKENS:
+                continue
+            logits = _server_plain_logits(srv, r.prompt_ids, r.out_ids)
+            for i in range(first, NEW_TOKENS):
+                if not _token_ok(r.out_ids[i], logits[i], torch.bfloat16):
+                    raise AssertionError(f"bf16 pools over fp32 weights spec={spec}: request "
+                                         f"{r.rid} token {i} ({r.out_ids[i]}) more than 2e-2 "
+                                         f"under the plain bf16 maximum")
+                short = max(short, float(logits[i].max() - logits[i][r.out_ids[i]]))
+        log(f"  MegaBatchServer {_hold_name(eng)} bf16 pools over fp32 weights spec={spec}: "
+            f"{n_requests} x {NEW_TOKENS} tokens in {wall * 1e3:.2f} ms ({steps} "
+            f"{'rounds' if spec else 'steps'}, {kernel} launched {steps} times); "
+            f"{sum(n == NEW_TOKENS for n in same)} of {n_requests} requests equal the fp32 "
+            f"pools' tokens, common prefix mean {sum(same) / len(same):.1f} tokens; the "
+            f"others' tokens from the parting on within {short:.4f} of the plain bf16 "
+            f"maximum (limit 2e-2)")
 
 
 def _hold_spec(eng, name: str, runs) -> None:
@@ -3181,7 +3274,7 @@ def _line_kernels() -> dict:
             "efficient_llm_inference_tpu_torch/csrc/megabatch.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel_batch_quant.py:679"),
         "gpt2_megaverify": (
-            "efficient_llm_inference_tpu_torch/csrc/megaverify.cu",
+            "efficient_llm_inference_tpu_torch/csrc/gpt2_megaverify.cu",
             "efficient_llm_inference_tpu/ops/pallas/megakernel.py:680"),
         "llama_megaverify": (
             "efficient_llm_inference_tpu_torch/csrc/megaverify.cu",
@@ -3382,6 +3475,7 @@ def main() -> int:
     phase_batch_fp32_hold(gpt2_32)
     phase_spec_fp32_hold(gpt2_32)
     phase_server_fp32_hold(gpt2_32)
+    phase_server_pool_dtype(gpt2_32)
     del gpt2_32
     for family, (cfg, dcfg) in _scale_pairs().items():
         eng32, draft32 = _scale_engine(family, cfg, dcfg, torch.float32)

@@ -402,6 +402,7 @@ int gemv_batch_rw(const WeightRef& w, int N, int K, int B, const T* in, const fl
                                          lm ? pv + (size_t)b0 * grid : nullptr,
                                          lm ? pi + (size_t)b0 * grid : nullptr);
     LAUNCH_CHECK();
+    ++launches_made();
   }
   return 0;
 }

@@ -84,7 +84,9 @@ int launch_pdl(void (*kernel)(Params...), int grid, size_t smem, cudaStream_t st
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
   const cudaError_t last = cudaGetLastError();
-  return (int)(e != cudaSuccess ? e : last);
+  const int rc = (int)(e != cudaSuccess ? e : last);
+  if (rc == 0) ++launches_made();
+  return rc;
 }
 
 // --------------------------------------------------------------- cp.async

@@ -495,11 +495,22 @@ struct Product {
 
 // ------------------------------------------------------------- GEMV phases
 
+// A ring tile of the batched step: the single stream's 16 rows in bf16; 4
+// rows in fp32 (the single stream's 8 are 40 KB at GPT-2 large, and two such
+// slots beside 25 or more staged fp32 rows do not fit a block). A tile's
+// rows change no sum: the warps split K.
+template <typename T, int WK>
+struct BTile {
+  static constexpr int items = sizeof(T) == 4 ? 4 : Tile<T, WK>::items;
+};
+template <typename T, int WK>
+using BStream = Stream<T, WK, BTile<T, WK>::items>;
+
 // A sums buffer's stride over a slot's rows: a tile's rows and one more, so
 // the lanes of a fragment store fall in distinct banks.
 template <typename T, int WK>
 __host__ __device__ constexpr int red_rows() {
-  return Tile<T, WK>::items + 1;
+  return BTile<T, WK>::items + 1;
 }
 
 // A thread's running first maximum of the LM head for its (up to two) slots.
@@ -517,11 +528,11 @@ struct Best {
 // step calls it from one place (its phase loop), so its code is one copy
 // whatever the phase: a step's code is what the SM's instruction caches keep.
 template <typename T, int WK>
-__device__ __forceinline__ void gemv_phase(Stream<T, WK>& S, const BatchParams& P, int kind, int l,
+__device__ __forceinline__ void gemv_phase(BStream<T, WK>& S, const BatchParams& P, int kind, int l,
                                            int epi, const void* scales, const float* bias,
                                            T* out, const T* src, unsigned char* smem, int& rpar,
                                            Best& best) {
-  constexpr int TI = Tile<T, WK>::items, RR = red_rows<T, WK>();
+  constexpr int TI = BTile<T, WK>::items, RR = red_rows<T, WK>();
   const MegaArgs& a = P.a;
   const PhasePlan& ph = S.plan[kind];
   const int E = a.n_embd, N = kind_rows(kind, E, a.vocab), ks = kind_split(kind), K = ks * E;
@@ -734,7 +745,7 @@ gpt2_batch_kernel(const __grid_constant__ BatchParams P) {
     lens[tid] = __ldcg(a.length + tid);
     toks[tid] = a.tok_in != nullptr ? min(max(__ldcg(a.tok_in + tid), 0), a.vocab - 1) : 0;
   }
-  Stream<T, WK> S;
+  BStream<T, WK> S;
   S.init(a, P.grid, P.slots, P.tile_bytes, plan, smem, full);  // a block barrier
   S.fill();
   unsigned* bar = P.sync;
@@ -801,7 +812,7 @@ gpt2_batch_kernel(const __grid_constant__ BatchParams P) {
     if (kind != K_HEAD) grid_sync(bar, P.grid);
   }
   {  // the threads of a slot are RT neighbours (a half or quarter warp)
-    constexpr int RT = Tile<T, WK>::items;
+    constexpr int RT = BTile<T, WK>::items;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       float v = best.v[u];
@@ -871,7 +882,7 @@ struct Smem {
 template <typename T, int WK>
 Smem smem_plan(int E, int rows, int B) {
   Smem m{};
-  m.tile_bytes = Tile<T, WK>::items * item_bytes<T, WK>(E);
+  m.tile_bytes = BTile<T, WK>::items * item_bytes<T, WK>(E);
   const int np = 8 * ((B + 7) / 8);  // the n8 tiles' slots
   const size_t red = 2 * (size_t)kWarps * np * red_rows<T, WK>() * sizeof(float);
   for (m.fcp_q = 4;; m.fcp_q /= 2) {

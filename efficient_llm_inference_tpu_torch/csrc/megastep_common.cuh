@@ -498,6 +498,15 @@ __device__ __forceinline__ void attention_block(const AttnParams& p, const int b
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// Kernels this source's launch helpers have launched: launch_pdl and
+// gemv_batch add one at each launch that succeeds, so a source that
+// exports the count (elit_megaverify_kernels) counts its chains' launches
+// where they happen.
+inline long long& launches_made() {
+  static long long n = 0;
+  return n;
+}
+
 #define LAUNCH_CHECK()                          \
   do {                                          \
     const cudaError_t e_ = cudaGetLastError();  \

@@ -189,10 +189,11 @@ struct PhasePlan {
 };
 
 // One block's weight stream: its tiles of every phase, in order, through
-// the ring. Every thread follows the consuming cursor (slot, parity);
-// thread 0 alone the issuing one (layer, phase, tile, slot), `slots` stages
-// ahead. No division on either path.
-template <typename T, int WK>
+// the ring, TI items a tile (the single stream's Tile; the batched step's
+// fp32 tile is smaller). Every thread follows the consuming cursor (slot,
+// parity); thread 0 alone the issuing one (layer, phase, tile, slot),
+// `slots` stages ahead. No division on either path.
+template <typename T, int WK, int TI = Tile<T, WK>::items>
 struct Stream {
   const MegaArgs* a;
   const PhasePlan* plan;  // [5], shared memory
@@ -218,7 +219,7 @@ struct Stream {
                       : kind == K_FCP  ? a.fcp_w
                                        : (a.w_kind == W_T ? a.wte : a.head);
       pl[kind] = {static_cast<const char*>(w) + (size_t)r0 * ks * ib, (size_t)N * ks * ib, r0,
-                  items, (items + Tile<T, WK>::items - 1) / Tile<T, WK>::items};
+                  items, (items + TI - 1) / TI};
     }
     __syncthreads();
     this->a = &a;
@@ -249,7 +250,6 @@ struct Stream {
       }
     }
     const PhasePlan& ph = plan[is_kind];
-    constexpr int TI = Tile<T, WK>::items;
     const int first = is_tile * TI, n = min(TI, ph.items - first);
     const int seg = tile_bytes / TI;  // bytes an item
     const char* src = ph.base + (is_kind == K_HEAD ? 0 : (size_t)is_layer * ph.layer_bytes) +

@@ -3,8 +3,11 @@
 // (llama_megastep.cu, one block an item) and GPT-2's persistent step
 // (gpt2_megastep.cu, a block's items of the layer's attention phase); and
 // its warp-level form (split_attention_warp_item, below: a warp an item) in
-// GPT-2's batched persistent step (gpt2_megabatch.cu), both merged by the
-// same combine (combine_value).
+// GPT-2's batched persistent step (gpt2_megabatch.cu); and its verify forms
+// (verify_attention_item and verify_attention_item_staged, below: R rows of
+// one sequence) in GPT-2's persistent verify (gpt2_megaverify.cu) and the
+// Llama/Qwen verify chain (megaverify.cu); all merged by the same combine
+// (combine_value).
 //
 // Item b < n_kv * splits: K/V head hk = b / splits over rows
 // [s * rows, min((s + 1) * rows, length)) of the layer's panes (s = b %
@@ -307,6 +310,465 @@ __device__ __forceinline__ void split_attention_item(const SplitAttn& a, const i
     const int j = e / D, d = e - j * D;
     static_cast<T*>(p.out)[(hk * G + j) * D + d] =
         from_f32<T>(combine_value(a, hk * G + j, D, d, scur[j], cur[D + d]));
+  }
+  if (tid == 0) a.count[hk] = 0;  // clean for the next use
+}
+
+// The verify forms: R rows of one sequence at lengths cur + t (cur = the
+// raw length, t < R), over fp panes in which the rows cur .. cur + R - 1
+// already hold the verify rows' k (rotated) and v. Item b < n_kv * splits:
+// K/V head hk = b / splits over rows [s * rows, ...) of the layer's panes,
+// for the group's G query heads of all R rows: G R "virtual heads" j = t G +
+// g, row t seeing the pane rows c < min(cur + t, C) (the cache and the verify
+// rows j < t: the JAX kernels' in-block causal set) and its own k / v
+// merged by the combine (combine_value), as the single stream's current
+// token. Each K and V row of the split is read from memory once for all of
+// them. A virtual head's sums are taken in an order fixed by (its row's
+// length, C, the plan): which other rows or heads share its pass, quad or
+// chunk changes nothing (a row past its length adds nothing), so a row's
+// bits do not depend on R. The plan (splits, rows) is a function of (C, the
+// heads, the card): the verify rows' lengths never change it. Partials:
+// [R, n_head, splits, D + 2]; counters: one a K/V head. Rows at or past cur
+// were written by another kernel or block of the pass and are read through
+// ld.global.cg.
+//
+// Two layouts of the same item, each the faster where it serves (PERF.md §6,
+// timed in one call): verify_attention_item, the single stream's split
+// item with HC virtual heads a pass (lanes split a row's dims, the warps
+// the split's rows), for GPT-2's persistent verify (G = 1: R virtual heads,
+// one or two passes); verify_attention_item_staged, the split's K and V
+// rows staged in shared memory and each warp a quad of virtual heads, for
+// the Llama/Qwen chain's GQA groups (G R up to 64 virtual heads: the passes
+// of the first would repeat their row loads, shuffles and barriers).
+struct VerifyAttn {
+  SplitAttn a;  // p.qkv / p.out: row 0's; p.cos / p.sin: the [n_pos, D] tables, or null
+  int R, qkv_stride, out_stride;  // rows; elements between rows of q|k|v and of the output
+};
+
+// Shared memory (floats) of verify_attention_item: the rows' rotated q of
+// the group, each row's own k and v, their scores, the split's scores.
+__host__ __device__ __forceinline__ size_t verify_item_floats(int group, int R, int D,
+                                                              int rows) {
+  return (size_t)group * R * D + 2 * (size_t)R * D + (size_t)group * R +
+         (size_t)group * R * rows;
+}
+
+// HC virtual heads a pass hold their q in registers; the next pass reads the
+// split's rows again from L1 / L2.
+template <typename T, int D, int HC, typename Wait>
+__device__ __forceinline__ void verify_attention_item(const VerifyAttn& va, const int item,
+                                                      float* sm, Wait wait) {
+  constexpr int LPR = D / 8;     // lanes a row in phases 1 and 3
+  constexpr int RPW = 32 / LPR;  // rows a warp and pass
+  constexpr int DPT = D / 32;    // dims a lane of an own-row score
+  constexpr int PE = 16 / (int)sizeof(T);
+  __shared__ float pv[kWarps][HC][D];
+  __shared__ int last;
+  const SplitAttn& a = va.a;
+  const AttnParams& p = a.p;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = p.capacity, KW = p.kv_width, G = p.group, R = va.R, GR = G * R;
+  const int hk = item / a.splits, s = item - hk * a.splits;
+  const int rows = a.rows, r0 = s * rows;
+  const int gi = lane / LPR, d0 = (lane % LPR) * 8;
+  const int cur = wait();
+  const T* q0 = static_cast<const T*>(p.qkv);
+  // visible pane rows of row t in this split
+  auto n_of = [&](int t) { return min(r0 + rows, min(max(cur + t, 0), C)) - r0; };
+  // lane-values [d0, d0 + 8) of K/V head hk in pane row c: a row at or past
+  // cur was written in this pass
+  auto row8 = [&](const void* pane, int c, float (&o)[8]) {
+    const uint4* src = reinterpret_cast<const uint4*>(static_cast<const T*>(pane) +
+                                                      (size_t)c * KW + hk * D + d0);
+    uint4 u[8 / PE];
+#pragma unroll
+    for (int i = 0; i < 8 / PE; ++i) u[i] = c >= cur ? __ldcg(src + i) : src[i];
+    if constexpr (PE == 8) {
+      unpack16(u[0], o);
+    } else {
+      float lo[4], hi[4];
+      unpack16(u[0], lo);
+      unpack16(u[1], hi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[i] = lo[i];
+        o[i + 4] = hi[i];
+      }
+    }
+  };
+  float* qs = sm;              // [GR, D] rotated q, virtual head j = t G + g
+  float* kcur = qs + GR * D;   // [R, D] each row's own rotated k
+  float* vcur = kcur + R * D;  // [R, D] its v
+  float* scur = vcur + R * D;  // [GR] own-row scores
+  float* sc = scur + GR;       // [GR, rows] scores, then weights
+  auto part = [&](int j) {     // virtual head j's partial of this split
+    const int t = j / G;
+    return a.part + (((size_t)t * p.n_head + hk * G + j - t * G) * a.splits + s) * (D + 2);
+  };
+  for (int e = tid; e < (GR + 2 * R) * D; e += kThreads) {
+    const int j = e / D, d = e - j * D;
+    const int t = j < GR ? j / G : (j < GR + R ? j - GR : j - GR - R);
+    const T* row = q0 + (size_t)t * va.qkv_stride;
+    const float* cs = nullptr;
+    const float* sn = nullptr;
+    if (p.cos != nullptr) {
+      const int pos = min(max(cur + t, 0), p.n_pos - 1);
+      cs = p.cos + (size_t)pos * D;
+      sn = p.sin + (size_t)pos * D;
+    }
+    if (j < GR)
+      qs[e] = head_value<T>(row + (hk * G + j - t * G) * D, d, D, cs, sn);
+    else if (j < GR + R)
+      qs[e] = head_value<T>(row + p.q_width + hk * D, d, D, cs, sn);
+    else
+      qs[e] = ldcg_f32(row + p.q_width + KW + hk * D + d);
+  }
+  __syncthreads();
+  // each virtual head's own-row score (full precision), for the combine
+  for (int j = warp; j < GR; j += kWarps) {
+    const float* kt = kcur + (j / G) * D;
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      const int d = lane * DPT + i;
+      dot = fmaf(qs[j * D + d], kt[d], dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) scur[j] = dot * p.sm_scale;
+  }
+  // phase 1: scores, HC virtual heads a pass
+  for (int h0 = 0; h0 < GR; h0 += HC) {
+    float u[HC][8];
+    int nj[HC], nmax = 0;
+#pragma unroll
+    for (int jj = 0; jj < HC; ++jj) {
+      const int j = h0 + jj;
+      nj[jj] = j < GR ? n_of(j / G) : 0;
+      nmax = max(nmax, nj[jj]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) u[jj][i] = j < GR ? qs[j * D + d0 + i] : 0.0f;
+    }
+    for (int cb = warp * RPW; cb < nmax; cb += kWarps * RPW) {
+      const int cl = min(cb + gi, nmax - 1);
+      float kv[8];
+      row8(p.k, r0 + cl, kv);
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj) {
+        float dot = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot = fmaf(u[jj][i], kv[i], dot);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (lane % LPR == 0 && cb + gi < nj[jj]) sc[(h0 + jj) * rows + cl] = dot * p.sm_scale;
+      }
+    }
+  }
+  __syncthreads();
+  // phase 2: a warp a virtual head
+  for (int j = warp; j < GR; j += kWarps) {
+    const int n = n_of(j / G);
+    float* sj = sc + j * rows;
+    float m = -INFINITY;
+    for (int c = lane; c < n; c += 32) m = fmaxf(m, sj[c]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = lane; c < n; c += 32) {
+      const float pr = expf(sj[c] - m);
+      l += pr;
+      sj[c] = pr;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      part(j)[0] = n > 0 ? m : -INFINITY;
+      part(j)[1] = l;
+    }
+  }
+  __syncthreads();
+  // phase 3: PV (a virtual head without a visible row sums nothing: 0)
+  for (int h0 = 0; h0 < GR; h0 += HC) {
+    float acc[HC][8];
+    int nj[HC], nmax = 0;
+#pragma unroll
+    for (int jj = 0; jj < HC; ++jj) {
+      nj[jj] = h0 + jj < GR ? n_of((h0 + jj) / G) : 0;
+      nmax = max(nmax, nj[jj]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[jj][i] = 0.0f;
+    }
+#pragma unroll 2
+    for (int cb = warp * RPW; cb < nmax; cb += kWarps * RPW) {
+      const int cl = min(cb + gi, nmax - 1);
+      float vv[8];
+      row8(p.v, r0 + cl, vv);
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj) {
+        const float w = cb + gi < nj[jj] ? sc[(h0 + jj) * rows + cl] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[jj][i] = fmaf(w, vv[i], acc[jj][i]);
+      }
+    }
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[jj][i] += __shfl_xor_sync(0xffffffffu, acc[jj][i], o);
+    if (gi == 0) {
+#pragma unroll
+      for (int jj = 0; jj < HC; ++jj)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pv[warp][jj][d0 + i] = acc[jj][i];
+    }
+    __syncthreads();
+    for (int e = tid; e < HC * D; e += kThreads) {
+      const int jj = e / D, d = e - jj * D;
+      if (h0 + jj < GR) {
+        float num = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) num += pv[w][jj][d];
+        part(h0 + jj)[2 + d] = num;
+      }
+    }
+    __syncthreads();  // pv is the next pass's
+  }
+  // the last item of this K/V head to finish combines its splits for every
+  // virtual head (split_attention_item's counter and combine)
+  __syncthreads();
+  if (tid == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(a.count + hk) : "memory");
+    last = prev == (unsigned)a.splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int e = tid; e < GR * D; e += kThreads) {
+    const int j = e / D, d = e - j * D, t = j / G, h = hk * G + j - t * G;
+    static_cast<T*>(p.out)[(size_t)t * va.out_stride + h * D + d] = from_f32<T>(
+        combine_value(a, t * p.n_head + h, D, d, scur[j], vcur[t * D + d]));
+  }
+  if (tid == 0) a.count[hk] = 0;  // clean for the next use
+}
+
+constexpr int kVerifyChunk = 32;  // pane rows the staged verify item stages at once
+
+// Virtual heads rounded up to whole quads.
+__host__ __device__ __forceinline__ int verify_heads_padded(int group, int R) {
+  return (group * R + 3) / 4 * 4;
+}
+
+// Shared memory (floats) of verify_attention_item_staged: the rows' rotated
+// q of the group (transposed, [D, GRp]), each row's own k and v, a chunk's V
+// and (padded) K rows, the own-row scores, the split's scores.
+__host__ __device__ __forceinline__ size_t verify_staged_floats(int group, int R, int D,
+                                                              int rows) {
+  const size_t GRp = verify_heads_padded(group, R);
+  return GRp * D + 2 * (size_t)R * D + (size_t)kVerifyChunk * D +
+         (size_t)kVerifyChunk * (D + 1) + GRp + (size_t)group * R * rows;
+}
+
+// The split's K and V rows staged kVerifyChunk at a time; then, block-wide:
+//   scores   lane c of a warp one pane row, the warp a quad of virtual
+//            heads (q transposed in shared memory: one broadcast load a dim
+//            for the four), each dot over d in order;
+//   softmax  a warp a virtual head: the split's max m_s, exp(s - m_s), their
+//            sum l_s;
+//   PV       a warp a quad, lane l dims [l D/32, (l + 1) D/32), the split's
+//            rows in order.
+template <typename T, int D, typename Wait>
+__device__ __forceinline__ void verify_attention_item_staged(const VerifyAttn& va,
+                                                             const int item, float* sm,
+                                                             Wait wait) {
+  constexpr int CH = kVerifyChunk;
+  constexpr int DL = D / 32;         // dims a lane of the PV
+  constexpr int PE = Vec<T>::N;      // values of T a 16-byte load
+  constexpr int LR = D / PE;         // 16-byte loads a pane row of a head
+  __shared__ int last;
+  const SplitAttn& a = va.a;
+  const AttnParams& p = a.p;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = p.capacity, KW = p.kv_width, G = p.group, R = va.R, GR = G * R;
+  const int GRp = verify_heads_padded(G, R), NQ = GRp / 4;
+  const int hk = item / a.splits, s = item - hk * a.splits;
+  const int rows = a.rows, r0 = s * rows;
+  const int cur = wait();
+  const T* q0 = static_cast<const T*>(p.qkv);
+  // visible pane rows of row t in this split
+  auto n_of = [&](int t) { return max(0, min(r0 + rows, min(max(cur + t, 0), C)) - r0); };
+  const int nall = n_of(R - 1);
+  float* qT = sm;                     // [D, GRp] rotated q, virtual head j = t G + g
+  float* kcur = qT + GRp * D;         // [R, D] each row's own rotated k
+  float* vcur = kcur + R * D;         // [R, D] its v
+  float* vbuf = vcur + R * D;         // [CH, D] a chunk's V rows
+  float* kbuf = vbuf + CH * D;        // [CH, D + 1] its K rows (lane c reads row c)
+  float* scur = kbuf + CH * (D + 1);  // [GRp] own-row scores
+  float* sc = scur + GRp;             // [GR, rows] scores, then weights
+  auto part = [&](int j) {            // virtual head j's partial of this split
+    const int t = j / G;
+    return a.part + (((size_t)t * p.n_head + hk * G + j - t * G) * a.splits + s) * (D + 2);
+  };
+  // q | own k | own v of every row (q, k rotated)
+  for (int e = tid; e < (GRp + 2 * R) * D; e += kThreads) {
+    const int j = e / D, d = e - j * D;
+    if (j >= GR && j < GRp) {  // a padding virtual head
+      qT[d * GRp + j] = 0.0f;
+      continue;
+    }
+    const int t = j < GR ? j / G : (j < GRp + R ? j - GRp : j - GRp - R);
+    const T* row = q0 + (size_t)t * va.qkv_stride;
+    const float* cs = nullptr;
+    const float* sn = nullptr;
+    if (p.cos != nullptr) {
+      const int pos = min(max(cur + t, 0), p.n_pos - 1);
+      cs = p.cos + (size_t)pos * D;
+      sn = p.sin + (size_t)pos * D;
+    }
+    if (j < GR)
+      qT[d * GRp + j] = head_value<T>(row + (hk * G + j - t * G) * D, d, D, cs, sn);
+    else if (j < GRp + R)
+      kcur[(j - GRp) * D + d] = head_value<T>(row + p.q_width + hk * D, d, D, cs, sn);
+    else
+      vcur[(j - GRp - R) * D + d] = ldcg_f32(row + p.q_width + KW + hk * D + d);
+  }
+  // pane rows [c0, c0 + CH) of the split into kbuf / vbuf, zero past nall
+  auto stage = [&](int c0) {
+    for (int i = tid; i < 2 * CH * LR; i += kThreads) {
+      const int kv = i / (CH * LR), r = i - kv * CH * LR, c = r / LR, d = (r - c * LR) * PE;
+      float f[PE];
+      if (c0 + c < nall) {
+        const T* src = static_cast<const T*>(kv ? p.v : p.k) + (size_t)(r0 + c0 + c) * KW +
+                       hk * D + d;
+        unpack16(__ldcg(reinterpret_cast<const uint4*>(src)), f);
+      } else {
+#pragma unroll
+        for (int k = 0; k < PE; ++k) f[k] = 0.0f;
+      }
+      float* dst = kv ? vbuf + c * D + d : kbuf + c * (D + 1) + d;
+#pragma unroll
+      for (int k = 0; k < PE; ++k) dst[k] = f[k];
+    }
+  };
+  __syncthreads();
+  // each virtual head's own-row score (full precision), for the combine
+  for (int j = warp; j < GR; j += kWarps) {
+    const float* kt = kcur + (j / G) * D;
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) {
+      const int d = lane * DL + i;
+      dot = fmaf(qT[d * GRp + j], kt[d], dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) scur[j] = dot * p.sm_scale;
+  }
+  // scores, a chunk of pane rows at a time
+  for (int c0 = 0; c0 < nall; c0 += CH) {
+    if (c0 > 0) __syncthreads();  // the last chunk's readers are done
+    stage(c0);
+    __syncthreads();
+    const float* kr = kbuf + lane * (D + 1);
+    const int c = c0 + lane;
+    for (int qd = warp; qd < NQ; qd += kWarps) {
+      float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        const float kd = kr[d];
+        const float4 qv = *reinterpret_cast<const float4*>(qT + d * GRp + 4 * qd);
+        dot[0] = fmaf(qv.x, kd, dot[0]);
+        dot[1] = fmaf(qv.y, kd, dot[1]);
+        dot[2] = fmaf(qv.z, kd, dot[2]);
+        dot[3] = fmaf(qv.w, kd, dot[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * qd + i;
+        if (j < GR && c < n_of(j / G)) sc[j * rows + c] = dot[i] * p.sm_scale;
+      }
+    }
+  }
+  __syncthreads();
+  // softmax: a warp a virtual head (no visible row: the neutral partial)
+  for (int j = warp; j < GR; j += kWarps) {
+    const int n = n_of(j / G);
+    float* sj = sc + j * rows;
+    float m = -INFINITY;
+    for (int c = lane; c < n; c += 32) m = fmaxf(m, sj[c]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = lane; c < n; c += 32) {
+      const float pr = expf(sj[c] - m);
+      l += pr;
+      sj[c] = pr;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      part(j)[0] = n > 0 ? m : -INFINITY;
+      part(j)[1] = l;
+    }
+  }
+  __syncthreads();
+  // PV: rounds of kWarps quads; the chunk staged for the scores is still
+  // there when there was one
+  const bool restage = nall > CH;
+  for (int q0 = 0; q0 < NQ; q0 += kWarps) {
+    const int qd = q0 + warp;
+    int nv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * qd + i;
+      nv[i] = qd < NQ && j < GR ? n_of(j / G) : 0;
+    }
+    float acc[4][DL];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < DL; ++k) acc[i][k] = 0.0f;
+    for (int c0 = 0; c0 < nall; c0 += CH) {
+      if (restage) {
+        __syncthreads();
+        stage(c0);
+        __syncthreads();
+      }
+      const int cn = min(CH, nall - c0);
+      for (int cc = 0; cc < cn; ++cc) {
+        const int c = c0 + cc;
+        float v[DL];
+#pragma unroll
+        for (int k = 0; k < DL; ++k) v[k] = vbuf[cc * D + lane * DL + k];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (c < nv[i]) {
+            const float w = sc[(4 * qd + i) * rows + c];
+#pragma unroll
+            for (int k = 0; k < DL; ++k) acc[i][k] = fmaf(w, v[k], acc[i][k]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * qd + i;
+      if (qd < NQ && j < GR) {
+#pragma unroll
+        for (int k = 0; k < DL; ++k) part(j)[2 + lane * DL + k] = acc[i][k];
+      }
+    }
+  }
+  // the last item of this K/V head to finish combines its splits for every
+  // virtual head (split_attention_item's counter and combine)
+  __syncthreads();
+  if (tid == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(a.count + hk) : "memory");
+    last = prev == (unsigned)a.splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int e = tid; e < GR * D; e += kThreads) {
+    const int j = e / D, d = e - j * D, t = j / G, h = hk * G + j - t * G;
+    static_cast<T*>(p.out)[(size_t)t * va.out_stride + h * D + d] = from_f32<T>(
+        combine_value(a, t * p.n_head + h, D, d, scur[j], vcur[t * D + d]));
   }
   if (tid == 0) a.count[hk] = 0;  // clean for the next use
 }

@@ -31,6 +31,19 @@ the JAX server, so every request's tokens are the JAX server's: plain
 greedy (of the pool's KV kind) while prompt + 1 + max_new fits the pane
 (C - 1, spec: C - 8), past that the JAX server's frozen-context tokens.
 Shared-prefix caching (`enable_prefix_cache`) is not ported.
+
+The pools' dtype is the JAX server's `dtype` (bf16 by default), apart from
+the weights': the prefill writes its cache in it, and with panes in that
+dtype (no `kv_mode`) the decode kernels compute in it, as JAX's compute in
+the panes' dtype on weight tiles cast to it; they take a copy of the packed
+weights cast once to it (`ops.megakernel.cast_packed`: the norms' gains,
+biases and int8 scales stay fp32, as JAX keeps its smalls). The kernels
+embed a token from that copy: GPT-2's wte and wpe rows are each rounded
+to the pools' dtype before their sum is, where JAX rounds the fp32 sum
+once (tests/test_torch_megaserver_dtype.py: no request of its GPT-2
+cases parts from JAX's server either way). Quantized pools
+decode in the weights' dtype, as JAX's (its quantized kernels compute in
+x_emb's dtype).
 """
 
 from __future__ import annotations
@@ -148,7 +161,7 @@ class MegaBatchServer:
         model: ModelSpec,
         params: dict,
         pool: MegaPoolConfig = MegaPoolConfig(),
-        dtype: Optional[torch.dtype] = None,
+        dtype: torch.dtype = torch.bfloat16,
         eos_id: Optional[int] = None,
         kv_mode: Optional[str] = None,
         interpret: bool = False,
@@ -160,8 +173,9 @@ class MegaBatchServer:
         prefix_cache_max: int = 4,
     ):
         """The JAX server's arguments and defaults. The pools live on the
-        params' device in the weights' dtype (`dtype`, when given, must be
-        that dtype); `interpret` (a Pallas switch) is accepted and ignored.
+        params' device in `dtype` (bf16 or fp32, over bf16 or fp32 weights;
+        the module docstring says what it sets); `interpret` (a Pallas
+        switch) is accepted and ignored.
         `spec="ngram"` turns every decode chunk into speculative rounds
         (greedy acceptance: per-request outputs equal the plain server's of
         the same kv_mode); spec_k <= 8. Size panes so prompt + 1 + max_new
@@ -176,13 +190,14 @@ class MegaBatchServer:
                 "(ROADMAP.md Queue 1 item 13); pass enable_prefix_cache=False")
         assert pool.capacity % 8 == 0, "pane length must be 8-aligned"
         wdtype = _weights(params).dtype
-        if dtype is not None and dtype != wdtype:
-            raise ValueError(f"pools in {dtype} over {wdtype} weights: the kernels "
-                             "take panes in the weights' dtype")
+        if dtype not in mk._DTYPE_CODE:
+            raise ValueError(f"pools in {dtype}: the kernels take float32 or bfloat16")
         self.model = model
         self.params = params
         self.pool_cfg = pool
-        self.dtype = wdtype
+        self.dtype = dtype  # the pools' and the prefill cache's
+        # the decode kernels' dtype: the panes' (fp pools), else the weights'
+        self._cdtype = wdtype if kv_mode else dtype
         self.device = _weights(params).device
         self.eos_id = eos_id
         self.kv_mode = kv_mode  # None = panes in the model dtype; int8/int4/mixed
@@ -221,6 +236,8 @@ class MegaBatchServer:
         self._fam = fam
         self.packed = fam.pack(params, cfg)
         assert self.packed is not None, "params not packable"
+        if self._cdtype != wdtype:
+            self.packed = mk.cast_packed(self.packed, self._cdtype)
 
         L, KW, dev = model.n_layer, model.n_kv_head * model.head_dim, self.device
         if kv_mode:
@@ -232,8 +249,8 @@ class MegaBatchServer:
             self.ks_pool = torch.ones((L, B, C), dtype=torch.float32, device=dev)
             self.vs_pool = torch.ones((L, B, C), dtype=torch.float32, device=dev)
         else:
-            self.k_pool = torch.zeros((L, B, C, KW), dtype=wdtype, device=dev)
-            self.v_pool = torch.zeros((L, B, C, KW), dtype=wdtype, device=dev)
+            self.k_pool = torch.zeros((L, B, C, KW), dtype=dtype, device=dev)
+            self.v_pool = torch.zeros((L, B, C, KW), dtype=dtype, device=dev)
             self.ks_pool = self.vs_pool = None
         # host mirrors
         self.lengths = np.zeros((B,), np.int32)
@@ -256,6 +273,17 @@ class MegaBatchServer:
         self._toks_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._active_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
         self._chunks: Dict = {}
+
+    def _embed(self, toks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The decode kernels' input rows of tokens `toks` at positions
+        `pos` (clamped to P - 1), as the kernels embed them from the packed
+        weights (in the kernels' dtype): GPT-2's wte and wpe rows summed in
+        fp32, the sum rounded."""
+        pos = torch.clamp(pos, max=self.model.n_positions - 1).long()
+        if self.model.name == "llama":
+            return self.packed["embed"][toks.long()]
+        wte = self.packed["wte"]
+        return (wte[toks.long()].float() + self.packed["wpe"][pos].float()).to(wte.dtype)
 
     # ------------------------------------------------------------------
     def _pools(self) -> tuple:
@@ -369,12 +397,7 @@ class MegaBatchServer:
             launcher.launch()
             tok2 = out
         else:
-            if model.name == "llama":
-                x = self.params["embed"][toks.long()]
-            else:
-                wte, wpe = self.params["wte"], self.params["wpe"]
-                pos = torch.clamp(lengths, max=model.n_positions - 1).long()
-                x = (wte[toks.long()] + wpe[pos]).to(wte.dtype)
+            x = self._embed(toks, lengths)
             if self.kv_mode:
                 tok2 = self._fam.step_quant(self.packed, *self._pools(), lengths, x,
                                             cfg=model.config, kv_mode=self.kv_mode)[0]
@@ -407,8 +430,8 @@ class MegaBatchServer:
             kinds = _kv_kinds(self.kv_mode) if self.kv_mode else ("fp", "fp")
             launcher = self._fam.step_launcher(
                 self.packed, self.model.config, self.k_pool, self.v_pool, self._lengths_dev,
-                toks_all[0], tok_in=self._toks_dev, ks=self.ks_pool, vs=self.vs_pool,
-                k_kind=kinds[0], v_kind=kinds[1])
+                toks_all[0], ks=self.ks_pool, vs=self.vs_pool,
+                k_kind=kinds[0], v_kind=kinds[1], tok_in=self._toks_dev)
             launcher.library()  # build and load outside the capture
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
@@ -486,8 +509,8 @@ class MegaBatchServer:
             greedy = torch.zeros((B * R,), dtype=torch.int32, device=dev)
             launcher = self._fam.verify_launcher(
                 self.packed, cfg, self.k_pool, self.v_pool, cur_buf, greedy,
-                tok_in=vin_buf, ks=self.ks_pool, vs=self.vs_pool, k_kind=kinds[0],
-                v_kind=kinds[1], rows=R)
+                ks=self.ks_pool, vs=self.vs_pool, k_kind=kinds[0], v_kind=kinds[1], rows=R,
+                tok_in=vin_buf)
             launcher.library()  # build and load outside the capture
 
             def verify(vin, cur):

@@ -23,7 +23,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("quantize_rows", "fused_quant_attention", "gpt2_megastep", "gpt2_megabatch",
-           "llama_megastep", "megabatch", "megaverify", "megabatch_verify",
+           "gpt2_megaverify", "llama_megastep", "megabatch", "megaverify", "megabatch_verify",
            "draft_burst", "dequant", "linear", "paged_attention")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

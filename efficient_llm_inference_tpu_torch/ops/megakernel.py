@@ -258,6 +258,27 @@ def lm_rows(params: dict, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     return pack_rows({"q4": params["lm_q4"], "s": params["lm_s4"]}, dtype)
 
 
+# Packed tensors every kernel reads in fp32 whatever the model dtype.
+FP32_KEYS = ("smalls", "lnf", "norms", "qkvb", "cos", "sin")
+
+
+def cast_packed(packed: dict, dtype) -> dict:
+    """A copy of packed weights (`pack_gpt2_mega` / `pack_llama_mega`) for
+    kernels in `dtype`: every tensor they read in the model dtype cast to
+    it (the full-precision weights, the embeddings, the int4 group scales),
+    the fp32 ones (FP32_KEYS, the int8 row scales) and the codes as they
+    are. The JAX batched kernels cast each weight tile to the panes' dtype
+    and keep their smalls fp32 (the server's pools apart from the
+    weights')."""
+    int4 = weight_kind(packed) == "int4"
+    out = {}
+    for key, t in packed.items():
+        if t.is_floating_point() and key not in FP32_KEYS and (int4 or not key.endswith("_s")):
+            t = t.to(dtype).contiguous()
+        out[key] = t
+    return out
+
+
 def scale_key(name: str) -> str:
     """The packed key of a weight's scales: "attn_w" -> "attn_s", "head" ->
     "head_s"."""
@@ -696,6 +717,7 @@ class StepLauncher:
     args_type = Gpt2StepArgs
     batched = False
     max_rows = 1
+    lead_field = None  # a persistent struct's last field: its row count (batch, rows)
     launched = 0  # launch() calls: launches, or launches recorded into a CUDA graph
 
     def scratch(self, cfg, capacity: int, B: int) -> dict:
@@ -763,6 +785,7 @@ class StepLauncher:
                        **({"part": plan["part"], "count": plan["sync"]} if persistent else {}))
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
+        self.x_emb = x_emb
         self.quant = k_kind != "fp"
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         self.args = self.args_type(
@@ -783,8 +806,8 @@ class StepLauncher:
             self.args.attn_splits, self.args.attn_rows = plan["splits"], plan["rows"]
             self.args.attn_part = ws.attn_part.data_ptr()
             self.args.sync = ws.attn_count.data_ptr()
-            if self.batched:
-                self.args.batch = B
+            if self.lead_field is not None:
+                setattr(self.args, self.lead_field, B)
             self._set_grid(grid)
 
     def _set_grid(self, grid: Optional[int]) -> None:
@@ -807,10 +830,12 @@ class StepLauncher:
                                f"block an SM x {self.sms} SMs, at most {LM_PARTS})")
         self.args.grid = full if grid is None else grid
 
-    def set_tokens(self, tok_in: torch.Tensor, tok_out: torch.Tensor) -> None:
+    def set_tokens(self, tok_in: Optional[torch.Tensor], tok_out: torch.Tensor) -> None:
         """Point the step at other token slots (views of one int32 buffer
-        that the launcher's owner keeps alive)."""
-        self.args.tok_in = tok_in.data_ptr()
+        that the launcher's owner keeps alive); tok_in None: a launcher of
+        `x_emb` rows keeps them."""
+        if tok_in is not None:
+            self.args.tok_in = tok_in.data_ptr()
         self.args.tok_out = tok_out.data_ptr()
 
     def library(self) -> ctypes.CDLL:
@@ -933,30 +958,66 @@ def gpt2_megaverify_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
     return (toks, k, v, logits) if return_logits else (toks, k, v)
 
 
-class GPT2VerifyArgs(ctypes.Structure):
-    """Mirror of `struct Gpt2VerifyArgs` in csrc/megaverify.cu: R, then
-    `MegaStepArgs`."""
+class GPT2VerifyArgs(Gpt2StepArgs):
+    """Mirror of `struct Gpt2VerifyArgs` in csrc/gpt2_megaverify.cu: the
+    single stream's `Gpt2StepArgs` over [R]-row tensors (its scratch sized
+    by `verify_scratch`), then R."""
 
-    _fields_ = [("rows", ctypes.c_int)] + MegaStepArgs._fields_
+    _fields_ = [("rows", ctypes.c_int)]
 
 
 _verify_lib = None
+_gpt2_verify_lib = None
 
 
 def verify_kernels() -> ctypes.CDLL:
-    """csrc/megaverify.cu, loaded with both entry points typed (the Llama
-    verify's struct is ops/megakernel_llama.py's)."""
+    """csrc/megaverify.cu (the Llama/Qwen verify; its struct is
+    ops/megakernel_llama.py's), loaded with its entry points typed."""
     global _verify_lib
     if _verify_lib is None:
         from .megakernel_llama import LlamaVerifyArgs
 
         lib = _build.load("megaverify")
-        for fn, args in ((lib.elit_gpt2_megaverify, GPT2VerifyArgs),
-                         (lib.elit_llama_megaverify, LlamaVerifyArgs)):
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        lib.elit_llama_megaverify.restype = ctypes.c_int
+        lib.elit_llama_megaverify.argtypes = [ctypes.POINTER(LlamaVerifyArgs), ctypes.c_void_p]
+        lib.elit_megaverify_kernels.restype = ctypes.c_longlong
+        lib.elit_megaverify_kernels.argtypes = []
         _verify_lib = lib
     return _verify_lib
+
+
+def gpt2_verify_kernels() -> ctypes.CDLL:
+    """The library of GPT-2's persistent verify (csrc/gpt2_megaverify.cu)."""
+    global _gpt2_verify_lib
+    if _gpt2_verify_lib is None:
+        lib = _build.load("gpt2_megaverify")
+        lib.elit_gpt2_megaverify.restype = ctypes.c_int
+        lib.elit_gpt2_megaverify.argtypes = [ctypes.POINTER(GPT2VerifyArgs), ctypes.c_void_p]
+        lib.elit_gpt2_megaverify_grid.restype = ctypes.c_int
+        lib.elit_gpt2_megaverify_grid.argtypes = [
+            ctypes.POINTER(GPT2VerifyArgs), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.elit_gpt2_megaverify_kernels.restype = ctypes.c_longlong
+        lib.elit_gpt2_megaverify_kernels.argtypes = []
+        _gpt2_verify_lib = lib
+    return _gpt2_verify_lib
+
+
+def verify_step_kernels() -> int:
+    """Kernels GPT-2's verify has launched in this process
+    (csrc/gpt2_megaverify.cu counts each launch): one a pass."""
+    return int(gpt2_verify_kernels().elit_gpt2_megaverify_kernels())
+
+
+def verify_scratch(cfg, capacity: int, R: int) -> dict:
+    """GPT-2's persistent verify: the single stream's attention plan (a
+    function of the capacity and the head count alone, so a row's bits do
+    not depend on R), the partials of R rows (`part` fp32: [R, H, splits,
+    D + 2]) and the zeroed counters (`sync` int32: the grid barrier, the LM
+    head's ticket, a finished-split count a head)."""
+    splits, rows = attention_plan(capacity, cfg.n_head)
+    return {"splits": splits, "rows": rows,
+            "part": R * cfg.n_head * splits * (cfg.head_dim + 2), "sync": 2 + cfg.n_head}
 
 
 class VerifyLayout:
@@ -976,10 +1037,28 @@ class VerifyLayout:
 
 
 class GPT2VerifyLauncher(VerifyLayout, StepLauncher):
-    """The prepared arguments of one GPT-2 verify pass (R rows)."""
+    """The prepared arguments of one GPT-2 verify pass (R rows): one
+    cooperative kernel of `grid` blocks, as the single stream's step (any
+    grid whose plan fits a block; tests: a row's bits do not depend on it),
+    with its scratch for R rows (`verify_scratch`)."""
 
     entry = {False: "elit_gpt2_megaverify"}
+    grid_entry = "elit_gpt2_megaverify_grid"
     args_type = GPT2VerifyArgs
+    lead_field = "rows"
+
+    def layout(self, k, rows: Optional[int]) -> tuple:
+        R, lead, n_len, _ = super().layout(k, rows)
+        return R, lead, n_len, ()  # R is the struct's last field
+
+    def scratch(self, cfg, capacity: int, B: int) -> dict:
+        return verify_scratch(cfg, capacity, B)
+
+    def least_grid(self, n_embd: int) -> int:
+        return 1
+
+    def library(self) -> ctypes.CDLL:
+        return gpt2_verify_kernels()
 
 
 def launch_verify(launcher, counter, packed, cfg, k, v, length, x):
@@ -1008,8 +1087,9 @@ def gpt2_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,
     capacity) and it attends the cache rows < length plus the verify rows
     j <= t; tokens[t] is its greedy argmax. k, v: [L, C, E] panes in the
     model dtype; length: int or int32 tensor; packed: of full-precision or
-    quantized weights. On a CUDA tensor it launches the chain of
-    `csrc/megaverify.cu` and counts one launch in `gpt2_megaverify.launches`
+    quantized weights. On a CUDA tensor it launches the persistent kernel
+    of `csrc/gpt2_megaverify.cu` (one a pass) and counts one launch in
+    `gpt2_megaverify.launches`
     (full-precision weights) or `gpt2_megaverify.tiers["int8" |
     "int4"].launches`; on a CPU tensor it runs `gpt2_megaverify_plain`.
     """

@@ -67,10 +67,11 @@ def mega_batch_supported(cfg, capacity: int, params: dict, batch: int) -> bool:
     capacity % 8 == 0, batch >= 1) and the kernel's limits: head_dim 64 or
     128, capacity <= 8192, batch <= MAX_BATCH, and a block's shared memory
     holding the batch's staged rows beside two ring slots (`smem_plan` at
-    the weights' dtype and tier: GPT-2 large in fp32 past 24 slots does not
-    fit). The JAX package's VMEM budget (`_pick_tps_batch`) is a TPU limit
-    and is not carried over. The weight gates are the single-stream step's
-    (`mk._weights_ok`: JAX's, and the kernels' G % 32 for int4)."""
+    the weights' dtype and tier: every registry geometry fits at every B;
+    a wider fp32 one may not). The JAX package's VMEM budget
+    (`_pick_tps_batch`) is a TPU limit and is not carried over. The weight
+    gates are the single-stream step's (`mk._weights_ok`: JAX's, and the
+    kernels' G % 32 for int4)."""
     return (mk.mega_supported(cfg, capacity, params) and _batch_ok(batch)
             and smem_fits(cfg, capacity, params, batch))
 
@@ -151,8 +152,8 @@ def batch_scratch(cfg, capacity: int, B: int) -> dict:
 
 # The batched step's shared memory (csrc/gpt2_megabatch.cu smem_plan, whose
 # constants tests/test_torch_gpt2_batch_plan.py holds against these): the
-# weight ring of tiles of 8 warps' rows, the B slots' staged input rows and
-# two buffers of the warps' sums for the slots' n8 tiles.
+# weight ring of tiles of `batch_tile_items` rows, the B slots' staged input
+# rows and two buffers of the warps' sums for the slots' n8 tiles.
 MAX_SLOTS, RING_BYTES = 64, 176 * 1024  # persistent_step.cuh kMaxSlots, kRingBytes
 DYN_SMEM, ROW_PAD, HOLD, MIN_SLOTS = 216 * 1024, 32, 2, 5  # gpt2_megabatch.cu
 WARPS = mk.STEP_THREADS // 32
@@ -174,9 +175,16 @@ def tile_items(dtype) -> int:
     return WARPS * (4 // _size(dtype))
 
 
+def batch_tile_items(dtype) -> int:
+    """Weight rows of one ring tile of the batched step (BTile<T, WK>::items):
+    the single stream's 16 in bf16, 4 in fp32 (so GPT-2 large's fp32 ring
+    keeps two slots beside 32 staged fp32 rows)."""
+    return 4 if _size(dtype) == 4 else tile_items(dtype)
+
+
 def red_rows(dtype) -> int:
     """A sums buffer's stride over a slot's rows (red_rows): a tile's rows + 1."""
-    return tile_items(dtype) + 1
+    return batch_tile_items(dtype) + 1
 
 
 def smem_plan(cfg, capacity: int, dtype, wkind: str, B: int) -> tuple:
@@ -185,7 +193,7 @@ def smem_plan(cfg, capacity: int, dtype, wkind: str, B: int) -> tuple:
     geometry: the most quarters (4, 2, 1) that leave the ring MIN_SLOTS
     slots. The kernel refuses fewer than two slots."""
     E = cfg.n_embd
-    tile = tile_items(dtype) * item_bytes(E, dtype, wkind)
+    tile = batch_tile_items(dtype) * item_bytes(E, dtype, wkind)
     np_ = 8 * -(-B // 8)
     red = 2 * WARPS * np_ * red_rows(dtype) * 4
     _, rows = mk.attention_plan(capacity, cfg.n_head)
@@ -210,8 +218,7 @@ def smem_fits(cfg, capacity: int, params: dict, batch: int) -> bool:
 
 
 # The bf16 Llama chain's tensor-core GEMV scratch, the tail of LlamaBatchArgs.
-TC_FIELDS = [("tc_part", ctypes.c_void_p), ("tc_part_len", ctypes.c_longlong),
-             ("tc_count", ctypes.c_void_p), ("tc_count_len", ctypes.c_int)]
+TC_FIELDS = ml.TC_FIELDS
 
 
 class LlamaBatchArgs(ctypes.Structure):
@@ -333,6 +340,7 @@ class GPT2BatchLauncher(mk.StepLauncher):
     args_type = GPT2BatchArgs
     batched = True
     max_rows = MAX_BATCH
+    lead_field = "batch"
 
     def layout(self, k, rows) -> tuple:
         B, lead = mk._slots(self, k)

@@ -65,12 +65,13 @@ from typing import Optional
 import torch
 
 from ..models.llama import WEIGHT_NAMES, _rms_norm, apply_rope, rope_cos_sin
-from . import _build
+from . import _build, _gemv_stream_tc
 from .megakernel import (
     _DTYPE_CODE,
     HEAD_DIMS,
     KIND_CODE,
     MAX_CAPACITY,
+    MAX_VERIFY_ROWS,
     StepLauncher,
     VerifyLayout,
     Workspace,
@@ -88,6 +89,7 @@ from .megakernel import (
     set_tier,
     tier_counts,
     tier_fields,
+    verify_kernels,
     verify_plain,
     verify_rows_check,
     weight_kind,
@@ -336,17 +338,19 @@ def llama_megastep_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
 ATTN_MIN_ROWS, ATTN_MAX_ROWS, ATTN_SCORES = 32, 512, 8192
 
 
-def attention_plan(capacity: int, n_head: int, n_kv_head: int, n_sm: int):
+def attention_plan(capacity: int, n_head: int, n_kv_head: int, n_sm: int, rows_of: int = 1):
     """(splits, rows) of the single-stream step's split-KV attention: the
     capacity cut into `splits` runs of `rows` rows (a multiple of 8), one
     block a K/V head and split, about one wave of `n_sm` SMs (the writer
     block is one more), each split at least ATTN_MIN_ROWS rows and at most
-    ATTN_MAX_ROWS or ATTN_SCORES / group. The grid depends on the capacity,
-    not the length, so a captured graph serves every length."""
+    ATTN_MAX_ROWS or ATTN_SCORES / (group x rows_of). The grid depends on
+    the capacity, not the length, so a captured graph serves every length.
+    The verify's plan (`verify_scratch`) takes rows_of = MAX_VERIFY_ROWS:
+    the scores of a group's query heads of every verify row, whatever R."""
     group = n_head // n_kv_head
     want = max(1, n_sm // n_kv_head)
     rows = max(ATTN_MIN_ROWS, -(-capacity // want))
-    cap = max(8, min(ATTN_MAX_ROWS, ATTN_SCORES // group // 8 * 8))
+    cap = max(8, min(ATTN_MAX_ROWS, ATTN_SCORES // (group * rows_of) // 8 * 8))
     rows = min(-(-rows // 8) * 8, cap)
     return -(-capacity // rows), rows
 
@@ -524,6 +528,7 @@ class LlamaStepLauncher(StepLauncher):
                        **({k: plan[k] for k in ("part", "count", "rope")} if single else {}))
         # keep every tensor the struct points at alive with the launcher
         self._refs = (packed, k, v, ks, vs, length, tok_in, x_emb, tok_out, ws)
+        self.x_emb = x_emb
         self.quant = k_kind != "fp"
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         self.args = self.args_type(
@@ -601,18 +606,72 @@ def llama_megaverify_plain(packed: dict, k: torch.Tensor, v: torch.Tensor,
     return (toks, k, v, logits) if return_logits else (toks, k, v)
 
 
+# The bf16 chains' tensor-core GEMV scratch (ops/_gemv_stream_tc.py), the
+# tail of LlamaVerifyArgs and ops/megakernel_batch.py's LlamaBatchArgs.
+TC_FIELDS = [("tc_part", ctypes.c_void_p), ("tc_part_len", ctypes.c_longlong),
+             ("tc_count", ctypes.c_void_p), ("tc_count_len", ctypes.c_int)]
+# The verify's split attention: its plan and scratch.
+VERIFY_ATTN_FIELDS = [("attn_splits", ctypes.c_int), ("attn_rows", ctypes.c_int),
+                      ("attn_part", ctypes.c_void_p), ("attn_count", ctypes.c_void_p)]
+
+
 class LlamaVerifyArgs(ctypes.Structure):
     """Mirror of `struct LlamaVerifyArgs` in csrc/megaverify.cu: R, then
-    `LlamaStepArgs`."""
+    `LlamaStepArgs`, then the split attention's plan and scratch
+    (`VERIFY_ATTN_FIELDS`, `verify_scratch`), then the bf16 chain's
+    tensor-core scratch (`TC_FIELDS`)."""
 
-    _fields_ = [("rows", ctypes.c_int)] + LlamaStepArgs._fields_
+    _fields_ = ([("rows", ctypes.c_int)] + LlamaStepArgs._fields_ + VERIFY_ATTN_FIELDS
+                + TC_FIELDS)
+
+
+def verify_scratch(cfg, capacity: int, R: int, n_sm: int) -> dict:
+    """The verify attention's plan and scratch: `attention_plan` with the
+    scores of all MAX_VERIFY_ROWS rows of a group in a block (so the plan,
+    and a row's bits, do not depend on R), the partials of R rows (`part`
+    fp32: [R, n_head, splits, D + 2]) and a zeroed counter a K/V head
+    (`count`)."""
+    splits, rows = attention_plan(capacity, cfg.n_head, cfg.n_kv_head, n_sm,
+                                  rows_of=MAX_VERIFY_ROWS)
+    return {"splits": splits, "rows": rows,
+            "part": R * cfg.n_head * splits * (cfg.head_dim + 2), "count": cfg.n_kv_head}
 
 
 class LlamaVerifyLauncher(VerifyLayout, LlamaStepLauncher):
-    """The prepared arguments of one Llama/Qwen verify pass (R rows)."""
+    """The prepared arguments of one Llama/Qwen verify pass (R rows), with
+    its split attention's scratch (`verify_scratch`) and, in bf16, the
+    tensor-core GEMVs' (`TC_FIELDS`, ops/_gemv_stream_tc.py `scratch_sizes`
+    at B = R), allocated once per launcher so a captured pass allocates
+    nothing and no two launchers share counters."""
 
     entry = {False: "elit_llama_megaverify"}
     args_type = LlamaVerifyArgs
+
+    def __init__(self, packed: dict, cfg, k, *args, **kw):
+        super().__init__(packed, cfg, k, *args, **kw)
+        a, dev = self.args, self.device
+        plan = verify_scratch(cfg, k.shape[-2], a.rows,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
+        count = torch.zeros(plan["count"], dtype=torch.int32, device=dev)
+        a.attn_splits, a.attn_rows = plan["splits"], plan["rows"]
+        a.attn_part, a.attn_count = part.data_ptr(), count.data_ptr()
+        self._refs = self._refs + (part, count)
+        if a.dtype != _DTYPE_CODE[torch.bfloat16]:
+            return
+        n_part, n_count = _gemv_stream_tc.scratch_sizes(cfg, a.rows)
+        tc_part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        tc_count = torch.zeros(n_count, dtype=torch.int32, device=dev)
+        self._refs = self._refs + (tc_part, tc_count)
+        a.tc_part, a.tc_part_len = tc_part.data_ptr(), n_part
+        a.tc_count, a.tc_count_len = tc_count.data_ptr(), n_count
+
+
+def verify_chain_kernels() -> int:
+    """Kernels the Llama/Qwen verify has launched in this process
+    (csrc/megaverify.cu counts each where it launches): a pass's launches,
+    6 L + 3, are the difference across the pass."""
+    return int(verify_kernels().elit_megaverify_kernels())
 
 
 def llama_megaverify(packed: dict, k: torch.Tensor, v: torch.Tensor, length,

@@ -56,7 +56,8 @@ and 64 new tokens through `generate_speculative` mode "ngram" (k = 8) and
 verify kernel, replayed from a CUDA graph), beside full_cache; n_rounds,
 tokens_per_round, host_syncs (reads of the emitted count a generation) and
 round_ms = (wall_ms - the wall of a 1-token full_cache generation) /
-n_rounds, with the eight kernels with the most device time.
+n_rounds, kernels_per_round (every kernel, copy and fill of the generation
+over n_rounds), with the eight kernels with the most device time.
 
 With `--server` it profiles the continuous-batching server instead
 (`MegaBatchServer.run`, the server protocol of scripts/measure_megaserver.py:
@@ -190,7 +191,7 @@ def profile_spec(model: str, wq=None) -> None:
         wall = statistics.median(walls)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
         print(json.dumps({
-            "model": model, "weight_quant": wq, "mode": mode, "k": k,
+            "model": model, "tree": str(_TREE), "weight_quant": wq, "mode": mode, "k": k,
             "wall_ms": wall, "wall_ms_runs": walls,
             "tokens_per_s": NEW_TOKENS / wall * 1e3,
             "full_cache_wall_ms": full,
@@ -201,6 +202,7 @@ def profile_spec(model: str, wq=None) -> None:
             "kernel_ms": kernel_ms,
             "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / wall,
             "kernels_per_generation": count,
+            "kernels_per_round": count / st["n_rounds"],
             "top": [{"name": n[:90], "count": c, "ms": ms} for n, (c, ms) in top],
         }), flush=True)
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of GPT-2's persistent steps goes, phase by phase, on one GPU.
 
-    python3 scripts/torch_gpt2_step_phases.py [--batch B[,B...]] [--bf16]
+    python3 scripts/torch_gpt2_step_phases.py [--batch B[,B...] | --verify R[,R...]] [--bf16]
 
-Builds a copy of csrc/gpt2_megastep.cu (with --batch: csrc/gpt2_megabatch.cu)
-and of the persistent-step header it includes, csrc/persistent_step.cuh,
+Builds a copy of csrc/gpt2_megastep.cu (with --batch: csrc/gpt2_megabatch.cu;
+with --verify: csrc/gpt2_megaverify.cu, the verify pass of R rows at cur =
+C - 16 of C = 344, token ids in) and of the persistent-step header it
+includes, csrc/persistent_step.cuh,
 with timestamps added (the %globaltimer of thread 0 of the first and the
 last block: at the step's start, after each phase's prologue, after each
 GEMV phase, on entering and on leaving each grid barrier; and, for block 0,
@@ -60,7 +62,7 @@ from torch_kernel_compare import device_ms  # noqa: E402
 PROBE = HERE / "build" / "probe"
 EVENTS = 1024  # timestamps a block records
 TAGS = {0: "start", 1: "pro", 2: "gemv", 3: "bar_in", 4: "bar_out", 5: "tile", 6: "mma",
-        7: "sync", 8: "items"}
+        7: "sync", 8: "items", 9: "staged"}
 PHASES = ("qkv", "attn", "proj", "fc", "fcp")
 LENGTHS = (0, 1, 7, 8, 100, 255, 318, 319)
 
@@ -73,6 +75,8 @@ CUTS = {
     "gpt2_megabatch": ("if (kk == 4 && vk == 4) return by_tier<T, 4, 4>(f);",
                        "if (kk == 8 && vk == 4) return by_tier<T, 8, 4>(f);",
                        "if (f.ba.s.a.dtype == 0) return by_panes<float>(f);"),
+    "gpt2_megaverify": ("if (D == 128) return f.run<T, WK, 128>();",
+                        "if (f.va.s.a.dtype == 0) return by_tier<float>(f);"),
 }
 
 
@@ -175,6 +179,27 @@ def instrument_batch(src: str) -> str:
     return _reader(src, "gpt2_megabatch")
 
 
+def instrument_verify(src: str) -> str:
+    """The verify pass's source with the phase markers added."""
+    anchor = "  S.fill();\n  const int cur = __ldcg(a.length);\n"
+    src = _rep(src, anchor, anchor + "  if (tid == 0) g_probe_i = 0;\n  PT(0);\n",
+               "gpt2_megaverify.cu")
+    src = _rep(src, "    const bool rows = S.plan[kind].tiles > 0;\n",
+               "    const bool rows = S.plan[kind].tiles > 0;\n    PT(9);\n", "gpt2_megaverify.cu")
+    src = _rep(src, "    gemv_phase<T, WK>(S, P, h, kind, l, cur, ys, s4s, bv, bi);\n",
+               "    PT(1);\n    gemv_phase<T, WK>(S, P, h, kind, l, cur, ys, s4s, bv, bi);\n"
+               "    PT(2);\n", "gpt2_megaverify.cu")
+    src = _rep(src, "    if (kind != K_HEAD) grid_sync(P.sync, P.grid);",
+               "    if (kind != K_HEAD) { PT(3); grid_sync(P.sync, P.grid); PT(4); }",
+               "gpt2_megaverify.cu")
+    src = _rep(src, "    if (!met) grid_sync(P.sync, P.grid);",
+               "    if (!met) { PT(3); grid_sync(P.sync, P.grid); PT(4); }", "gpt2_megaverify.cu")
+    src = _rep(src, "    __syncthreads();  // the next item reuses the shared memory\n  }\n",
+               "    __syncthreads();  // the next item reuses the shared memory\n  }\n  PT(8);\n",
+               "gpt2_megaverify.cu")
+    return _reader(src, "gpt2_megaverify")
+
+
 def build(name: str, source: str, header: str, which: str) -> ctypes.CDLL:
     """The probe library `name` built from csrc/ with csrc/<which>.cu's
     source and persistent_step.cuh replaced by `source` and `header`."""
@@ -189,9 +214,10 @@ def build(name: str, source: str, header: str, which: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(out))
-    args = mkb.GPT2BatchArgs if which == "gpt2_megabatch" else mk.Gpt2StepArgs
-    for fn in (getattr(lib, f"elit_{which}"), getattr(lib, f"elit_{which}_quant"),
-               getattr(lib, f"elit_{which}_skeleton")):
+    args = {"gpt2_megabatch": mkb.GPT2BatchArgs,
+            "gpt2_megaverify": mk.GPT2VerifyArgs}.get(which, mk.Gpt2StepArgs)
+    entries = ("",) if which == "gpt2_megaverify" else ("", "_quant", "_skeleton")
+    for fn in (getattr(lib, f"elit_{which}{e}") for e in entries):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
     grid = getattr(lib, f"elit_{which}_grid")
@@ -241,21 +267,49 @@ def run(B, libs, cfg, spec, params, weights_run) -> None:
                 mkb._gpt2_lib = lib
             step = launcher(packed, cfg, *panes, length, tok, x_emb=x)
             ms[name] = device_ms(step.launch, calls=20)
-        ev = (ctypes.c_longlong * (2 * 2 * EVENTS))()
-        acc = (ctypes.c_ulonglong * 4)()
-        libs["instrumented"].elit_probe_read(ev, acc)  # clears the counters
-        step.launch()
-        torch.cuda.synchronize()
-        libs["instrumented"].elit_probe_read(ev, acc)
-        events = np.array(ev[:], dtype=np.int64).reshape(2, 2 * EVENTS)
-        for b, block in enumerate((0, step.args.grid - 1)):
-            row = {"weights": weights, "B": rows, "block": block, "grid": step.args.grid,
-                   "ms": ms, "us": split(events[b])}
-            if b == 0:
-                row.update(issue_us=acc[0] / 1e3, issues=acc[1], tile_wait_us=acc[2] / 1e3,
-                           tiles=acc[3])
-            print(json.dumps(row), flush=True)
+        _probe(libs, step, {"weights": weights, "B": rows, "ms": ms})
         del packed
+
+
+def run_verify(R, libs, cfg, spec, params, weights_run) -> None:
+    """One verify pass's split at R rows over each weight tier."""
+    C = 344
+    g = torch.Generator().manual_seed(0)
+    panes = [(torch.randn((cfg.n_layer, C, cfg.n_embd), generator=g) * 0.5)
+             .to(torch.bfloat16).cuda() for _ in range(2)]
+    length = torch.tensor([C - 16], dtype=torch.int32, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (R,), generator=g).to(torch.int32).cuda()
+    tok = torch.zeros(R, dtype=torch.int32, device="cuda")
+    for weights in weights_run:
+        if weights == "bf16":
+            packed = mk.pack_gpt2_mega(params, cfg)
+        else:
+            _, mode, group = weight_quant_plan(spec, weights)
+            packed = mk.pack_gpt2_mega(quantize_weights(spec, params, mode, group), cfg)
+        ms = {}
+        for name, lib in libs.items():
+            mk._gpt2_verify_lib = lib
+            step = mk.GPT2VerifyLauncher(packed, cfg, *panes, length, tok, tok_in=ids, rows=R)
+            ms[name] = device_ms(step.launch, calls=20)
+        _probe(libs, step, {"weights": weights, "R": R, "ms": ms})
+        del packed
+
+
+def _probe(libs, step, head) -> None:
+    """One instrumented launch of `step`: a JSON line per probed block."""
+    ev = (ctypes.c_longlong * (2 * 2 * EVENTS))()
+    acc = (ctypes.c_ulonglong * 4)()
+    libs["instrumented"].elit_probe_read(ev, acc)  # clears the counters
+    step.launch()
+    torch.cuda.synchronize()
+    libs["instrumented"].elit_probe_read(ev, acc)
+    events = np.array(ev[:], dtype=np.int64).reshape(2, 2 * EVENTS)
+    for b, block in enumerate((0, step.args.grid - 1)):
+        row = {**head, "block": block, "grid": step.args.grid, "us": split(events[b])}
+        if b == 0:
+            row.update(issue_us=acc[0] / 1e3, issues=acc[1], tile_wait_us=acc[2] / 1e3,
+                       tiles=acc[3])
+        print(json.dumps(row), flush=True)
 
 
 def main() -> int:
@@ -265,9 +319,14 @@ def main() -> int:
     args = sys.argv[1:]
     batches = ([int(b) for b in args[args.index("--batch") + 1].split(",")]
                if "--batch" in args else [None])
+    verify = ([int(r) for r in args[args.index("--verify") + 1].split(",")]
+              if "--verify" in args else None)
     B = batches[0]
     weights_run = ("bf16",) if "--bf16" in args else ("bf16", "int8", "int4")
-    which = "gpt2_megastep" if B is None else "gpt2_megabatch"
+    which = ("gpt2_megaverify" if verify else
+             "gpt2_megastep" if B is None else "gpt2_megabatch")
+    marks = {"gpt2_megastep": instrument, "gpt2_megabatch": instrument_batch,
+             "gpt2_megaverify": instrument_verify}[which]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
@@ -278,14 +337,15 @@ def main() -> int:
     for cut in CUTS[which]:
         source = _rep(source, cut, "", which)
     libs = {"plain": build(f"{which}_plain", source, header, which),
-            "instrumented": build(f"{which}_phases", (instrument if B is None else
-                                                      instrument_batch)(source),
+            "instrumented": build(f"{which}_phases", marks(source),
                                   instrument_header(header), which)}
     cfg = gpt2_mod.GPT2Config.small()
     spec = spec_by_name("gpt2")
     params = gpt2_mod.init_gpt2_params(torch.Generator().manual_seed(42), cfg,
                                        torch.bfloat16, "cuda")
-    for B in batches:
+    for R in verify or ():
+        run_verify(R, libs, cfg, spec, params, weights_run)
+    for B in () if verify else batches:
         run(B, libs, cfg, spec, params, weights_run)
     return 0
 

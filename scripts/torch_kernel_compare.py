@@ -2,7 +2,7 @@
 """Time the whole-step, batched and verify kernels of two checkouts on one
 GPU, in turns.
 
-    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [--profile] [--single | --batch]
+    python3 scripts/torch_kernel_compare.py OTHER_CHECKOUT [--profile] [--single | --batch | --verify]
 
 Runs this checkout's and OTHER_CHECKOUT's efficient_llm_inference_tpu_torch
 (each built from its own sources into its own build/cuda/) in four worker
@@ -62,6 +62,16 @@ of the step ran), from a torch.profiler trace of one replay of a CUDA graph
 of 4 steps, with the launches of a step and how many of them start before
 the one before them ends; GPT-2's step is one kernel
 (scripts/torch_gpt2_step_phases.py --batch 8 splits it by phase).
+
+With --verify, only the single-sequence verify passes run: #10
+gpt2_megaverify at GPT-2 small's full width and #13 llama_megaverify at
+Llama-3.2-1B's (random weights from seed 42 drawn on the card), R = 4 and
+8 rows, cur = C - 16 of C = 344 (the speculation main path's capacity at k
+= 8), token ids in, bf16 over the model-dtype weights and over the int8,
+int4 and int4w8 tiers (as from_model_name(weight_quant=...) quantizes
+them); with --verify --profile, the bf16 R = 8 pass of each model also
+prints its device time by kernel name and its launches in order from a
+torch.profiler trace of one replay of a CUDA graph of 4 passes.
 """
 
 from __future__ import annotations
@@ -433,6 +443,63 @@ def batch_steps(tree: str, profile: bool) -> None:
     torch.cuda.empty_cache()
 
 
+VERIFY_PASS_C = 344  # the speculation main path's capacity at k = 8 (chip_smoke.py SPEC_C)
+
+
+def verify_passes(tree: str, profile: bool) -> None:
+    """#10 and #13 at R = 4 and 8 of this tree, bf16 and the weight tiers,
+    one JSON line each."""
+    import torch
+
+    from efficient_llm_inference_tpu_torch.engine.engine import (
+        quantize_weights,
+        weight_quant_plan,
+    )
+    from efficient_llm_inference_tpu_torch.models import gpt2 as gpt2_mod
+    from efficient_llm_inference_tpu_torch.models import llama as llama_mod
+    from efficient_llm_inference_tpu_torch.models.registry import spec_by_name
+    from efficient_llm_inference_tpu_torch.ops import megakernel as mk
+    from efficient_llm_inference_tpu_torch.ops import megakernel_llama as ml
+
+    models = {
+        "gpt2": (gpt2_mod.GPT2Config.small(), gpt2_mod.init_gpt2_params, mk.pack_gpt2_mega,
+                 mk.gpt2_megaverify),
+        "llama-3-1b": (llama_mod.LlamaConfig.llama3_1b(), llama_mod.init_llama_params,
+                       ml.pack_llama_mega, ml.llama_megaverify),
+    }
+    C = VERIFY_PASS_C
+    for name, (cfg, init, pack, verify) in models.items():
+        params = init(torch.Generator(device="cuda").manual_seed(42), cfg, torch.bfloat16,
+                      "cuda")
+        spec = spec_by_name(name)
+        W = cfg.n_kv_head * cfg.head_dim if name != "gpt2" else cfg.n_embd
+        g = torch.Generator().manual_seed(0)
+        panes = [(torch.randn((cfg.n_layer, C, W), generator=g) * 0.5).to(torch.bfloat16).cuda()
+                 for _ in range(2)]
+        for weights in ("bf16", "int8", "int4", "int4w8"):
+            if weights == "bf16":
+                pk = pack(params, cfg)
+            else:
+                _, mode, group = weight_quant_plan(spec, weights)
+                pk = pack(quantize_weights(spec, params, mode, group), cfg)
+            for R in (4, 8):
+                ids = torch.randint(0, cfg.vocab_size, (R,), generator=g).to(torch.int32).cuda()
+                length = torch.tensor([C - 16], dtype=torch.int32, device="cuda")
+
+                def run():
+                    verify(pk, *panes, length, ids, cfg=cfg)
+
+                row = {"tree": tree, "model": name, "verify_R": R, "weights": weights,
+                       "cur": C - 16, "C": C, "ms": device_ms(run)}
+                if profile and R == 8 and weights == "bf16":
+                    row["kernels"], row["launches"] = launches_in_order(run)
+                print(json.dumps(row), flush=True)
+            del pk
+            torch.cuda.empty_cache()
+        del params, panes
+        torch.cuda.empty_cache()
+
+
 def _cast(params, dtype):
     if isinstance(params, dict):
         return {k: _cast(v, dtype) for k, v in params.items()}
@@ -557,12 +624,16 @@ def main() -> int:
         if "--batch" in flags:
             batch_steps(tree, "--profile" in flags)
             return 0
+        if "--verify" in flags:
+            verify_passes(tree, "--profile" in flags)
+            return 0
         if "--single" not in flags:
             worker(tree, "--profile" in flags)
         single_stream(tree, "--profile" in flags)
         return 0
-    args = [a for a in sys.argv[1:] if a not in ("--profile", "--single", "--batch")]
-    flags = [a for a in sys.argv[1:] if a in ("--profile", "--single", "--batch")]
+    modes = ("--profile", "--single", "--batch", "--verify")
+    args = [a for a in sys.argv[1:] if a not in modes]
+    flags = [a for a in sys.argv[1:] if a in modes]
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2

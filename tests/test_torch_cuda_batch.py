@@ -226,6 +226,16 @@ def _gpt2_batch_launch(packed, cfg, state, x, mode, lengths, grid=None):
     return tok, panes, step.args.grid
 
 
+@pytest.mark.parametrize("mode", ["fp", "int8"])
+@pytest.mark.parametrize("B", [25, 32])
+def test_gpt2_large_fp32_past_24_slots(cuda, B, mode):
+    """GPT-2 large's width (2 layers) in fp32 at 25 and 32 slots, which the
+    batched step takes since its fp32 ring tile is 4 rows (the gates accept
+    it: tests/test_torch_gpt2_batch_plan.py): every slot's token is the plain
+    step's (or within a top-2 gap under 1e-4), its new rows within 1e-5."""
+    _check_megabatch(cuda, "gpt2-large-L2", mode, torch.float32, B)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wq", [None, "int8", "int4"])
 @pytest.mark.parametrize("mode", ["fp", "int8", "int4", "mixed"])

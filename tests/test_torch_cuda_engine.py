@@ -46,6 +46,7 @@ from torch_cuda_cases import (  # noqa: F401 (cuda: the fixture)
     _llama_params,
     _tree_to,
     cuda,
+    server_plain_logits,
 )
 
 pytestmark = pytest.mark.cuda
@@ -205,7 +206,8 @@ def test_server_graph_matches_cpu_server(cuda, spec, kv_mode):
                 tmk.gpt2_megaverify)
     runs = {}
     for dev in ("cpu", "cuda"):
-        srv = MegaBatchServer(spec_m, params[dev], pool=pool, spec=spec, kv_mode=kv_mode)
+        srv = MegaBatchServer(spec_m, params[dev], pool=pool, spec=spec, kv_mode=kv_mode,
+                              dtype=torch.float32)
         reqs = [Request(rid=i, prompt_ids=list(p.encode()), max_new_tokens=n)
                 for i, (p, n) in enumerate(zip(prompts, budgets))]
         before = [f.launches for f in counters]
@@ -232,6 +234,51 @@ def test_server_graph_matches_cpu_server(cuda, spec, kv_mode):
         assert g_[:first] == w_[:first], (p, first)
     if spec:
         assert runs["cpu"][3].spec_stats["rounds"] > 0
+
+
+@pytest.mark.parametrize("spec", [None, "ngram"])
+def test_server_bf16_pools_match_cpu_server(cuda, spec):
+    """MegaBatchServer at its default pool dtype, bf16, over fp32 weights
+    (the decode kernels over the weights cast once to bf16, GPT-2's rows
+    embedded in fp32 and rounded once) on the card against the same server
+    on the CPU (the plain batched step or verify over the same cast
+    weights), 4 slots of C = 128, the five requests of
+    test_server_graph_matches_cpu_server that fit the pane (the reference
+    below is the single-stream plain step): every request's tokens equal up
+    to its first parting, and there the CPU's token is the argmax of the
+    plain bf16 logits (server_plain_logits) and the card's is within 2e-2
+    of their maximum, the bf16 limit of the card tests; the batched step
+    (verify) launches once a step (round) dispatched."""
+    cfg = tgpt2.GPT2Config(vocab_size=256, n_positions=128, n_embd=256, n_layer=2, n_head=4)
+    spec_m = gpt2_spec(cfg)
+    params = {dev: tgpt2.init_gpt2_params(torch.Generator().manual_seed(0), cfg,
+                                          torch.float32, dev) for dev in ("cpu", "cuda")}
+    pool = MegaPoolConfig(n_slots=4, capacity=128, max_chunk=8, prompt_bucket=64)
+    prompts = ["the cat sat on the cat sat on the", "a b a b a b", "x",
+               "Every slot has its own length.", "abcabcabcabc"]
+    budgets = [20, 33, 9, 17, 25]
+    counter = tbv.gpt2_megabatch_verify if spec else tmb.gpt2_megabatch
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        srv = MegaBatchServer(spec_m, params[dev], pool=pool, spec=spec)
+        assert srv.k_pool.dtype == srv.packed["attn_w"].dtype == torch.bfloat16
+        reqs = [Request(rid=i, prompt_ids=list(p.encode()), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, budgets))]
+        before = counter.launches
+        steps = []
+        srv.run(reqs, progress=lambda n, _: steps.append(n))
+        runs[dev] = ([r.out_ids for r in reqs], counter.launches - before, steps, srv)
+    got, count, steps, _ = runs["cuda"]
+    want, _, _, srv = runs["cpu"]
+    assert count == steps[-1] > 0
+    for p, g_, w_ in zip(prompts, got, want):
+        if g_ == w_:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(g_, w_)) if a != b)
+        logits = server_plain_logits(spec_m, params["cpu"], srv.packed, list(p.encode()),
+                                     w_[:i + 1], pool.capacity, torch.bfloat16)[i]
+        assert int(torch.argmax(logits)) == w_[i], (p, i)
+        assert float(logits[g_[i]]) >= float(logits.max()) - 2e-2, (p, i)
 
 
 @pytest.mark.parametrize("mode", ["ngram", "self_draft", "draft"])

@@ -238,3 +238,89 @@ def test_tc_megabatch_verify_rows_independent(cuda, family, mode, wq):
         assert torch.equal(toks[b], runs[32][0][b]), (B, b)
         for p_, q_ in zip(panes, runs[32][1]):
             assert torch.equal(p_[:, b], q_[:, b]), (B, b)
+
+
+def _verify_kernel(kind):
+    return tmk.gpt2_megaverify if kind == "gpt2" else tml.llama_megaverify
+
+
+def _full_width_case(family, dtype, wq, device):
+    """(kind, packed, cfg) at GPT-2 small's or Llama-3.2-1B's width (2
+    layers): the weight tier `wq`, or (None) the weights in `dtype`."""
+    from torch_cuda_cases import _TIER_PARAMS, TIER_OF, _tier_packed, _tree_to
+    if wq is not None:
+        kind, cfg, packed = _tier_packed(TIER_OF[family], wq, dtype, device)
+        return kind, packed, cfg
+    kind, cfg, _ = _tier_packed(TIER_OF[family], "int8", dtype, device)
+    pack = tmk.pack_gpt2_mega if kind == "gpt2" else tml.pack_llama_mega
+    return kind, pack(_tree_to(_TIER_PARAMS[TIER_OF[family]][1], dtype), cfg), cfg
+
+
+@pytest.mark.parametrize("wq", [None, "int8", "int4"])
+@pytest.mark.parametrize("family,dtype", [("gpt2-full", torch.float32),
+                                          ("gpt2-full", torch.bfloat16),
+                                          ("llama-3-1b-L2", torch.bfloat16)])
+def test_megaverify_rows_independent(cuda, family, dtype, wq):
+    """Row t's bits do not depend on R or on the rows after it: a verify of
+    R = t + 1 rows and one of 8 over the same panes and tokens (cur = 40, C
+    = 64) propose the same token t and write the same K/V rows cur .. cur +
+    t bit for bit, at GPT-2 small's width (the persistent verify, bf16 and
+    fp32) and Llama-3.2-1B's (2 layers; the bf16 chain on the tensor-core
+    stream: the fp32 chain's gemv_batch.cuh GEMVs group their rows and sum
+    in an order that depends on R), over full-precision weights and the int8
+    / int4 weight tiers."""
+    kind, packed, cfg = _full_width_case(family, dtype, wq, cuda)
+    kern = _verify_kernel(kind)
+    L, C, cur = cfg.n_layer, 64, 40
+    W = cfg.n_embd if kind == "gpt2" else cfg.n_kv_head * cfg.head_dim
+    g = torch.Generator(device="cpu").manual_seed(5)
+    state = [(torch.randn((L, C, W), generator=g) * 0.5).to(dtype).to(cuda) for _ in range(2)]
+    ids = torch.randint(0, cfg.vocab_size, (8,), generator=g).to(torch.int32).to(cuda)
+    runs = {}
+    for R in range(1, 9):
+        panes = [t.clone() for t in state]
+        toks = kern(packed, *panes, torch.tensor([cur], dtype=torch.int32, device=cuda),
+                    ids[:R].clone(), cfg=cfg)[0]
+        runs[R] = (toks, panes)
+    torch.cuda.synchronize()
+    for R in range(1, 8):
+        toks, panes = runs[R]
+        assert torch.equal(toks, runs[8][0][:R]), R
+        for p_, q_ in zip(panes, runs[8][1]):
+            assert torch.equal(p_[:, :cur + R], q_[:, :cur + R]), R
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wq", [None, "int8", "int4w8"])
+@pytest.mark.parametrize("family", ["llama-3-1b-L2"])
+def test_llama_megaverify_launch_count(cuda, family, wq, dtype):
+    """#13 at R > 1 is the chain of 6 L + 3 kernels a pass (embed; per layer
+    the q|k|v GEMV, the rows' writer, the split attention, o, gate|up, down;
+    the LM head and the argmax), counted where each launches
+    (`verify_chain_kernels`: csrc/megaverify.cu's launch helpers add one a
+    launch), in every dtype and weight tier."""
+    kind, packed, cfg = _full_width_case(family, dtype, wq, cuda)
+    W = cfg.n_kv_head * cfg.head_dim
+    panes = [torch.zeros((cfg.n_layer, 64, W), dtype=dtype, device=cuda) for _ in range(2)]
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = tml.verify_chain_kernels()
+    tml.llama_megaverify(packed, *panes, 3, ids, cfg=cfg)
+    torch.cuda.synchronize()
+    assert tml.verify_chain_kernels() - before == 6 * cfg.n_layer + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wq", [None, "int8", "int4"])
+@pytest.mark.parametrize("R", [2, 8])
+def test_gpt2_megaverify_one_kernel_a_pass(cuda, R, wq, dtype):
+    """#10 is one cooperative kernel a verify pass at every R, dtype and
+    weight tier (csrc/gpt2_megaverify.cu counts its launches:
+    `verify_step_kernels`), at GPT-2 small's width."""
+    kind, packed, cfg = _full_width_case("gpt2-full", dtype, wq, cuda)
+    panes = [torch.zeros((cfg.n_layer, 64, cfg.n_embd), dtype=dtype, device=cuda)
+             for _ in range(2)]
+    ids = torch.zeros(R, dtype=torch.int32, device=cuda)
+    before = tmk.verify_step_kernels()
+    toks = tmk.gpt2_megaverify(packed, *panes, 5, ids, cfg=cfg)[0]
+    torch.cuda.synchronize()
+    assert tmk.verify_step_kernels() - before == 1 and toks.shape == (R,)

@@ -43,7 +43,7 @@ CFGS = {
 
 MAX_SLOTS, RING_BYTES = tmb.MAX_SLOTS, tmb.RING_BYTES
 DYN_SMEM, ROW_PAD, HOLD, MIN_SLOTS = tmb.DYN_SMEM, tmb.ROW_PAD, tmb.HOLD, tmb.MIN_SLOTS
-tile_items, red_rows, smem_plan = tmb.tile_items, tmb.red_rows, tmb.smem_plan
+tile_items, red_rows, smem_plan = tmb.batch_tile_items, tmb.red_rows, tmb.smem_plan
 
 
 def phases(cfg):
@@ -173,16 +173,14 @@ def test_smem_fits_a_block(cfg_name, dtype, wkind):
     """At every B and every capacity the kernels take: at least two ring
     slots (fc_proj holds HOLD = 2 tiles at once), the ring within
     RING_BYTES, and the ring, the staged rows and the two sums buffers with
-    the static shared memory within a block's 227 KB. One registry geometry
-    does not fit, and the gates refuse it (test_gates_refuse_what_a_block_
-    cannot_hold): GPT-2 large in fp32 past 24 slots."""
+    the static shared memory within a block's 227 KB. Every registry
+    geometry fits, GPT-2 large in fp32 at 25-32 slots included: its fp32
+    ring tile is 4 rows (20 KB), where the single stream's 8 (40 KB) left
+    no two slots beside 25 or more staged fp32 rows."""
     cfg = CFGS[cfg_name]
     for B in range(1, tmb.MAX_BATCH + 1):
         for C in (8, 128, 320, 1024, 8192):
             slots, tile, rs, smem, _ = smem_plan(cfg, C, dtype, wkind, B)
-            if (cfg_name, dtype, wkind) == ("gpt2-large", torch.float32, "fp") and B > 24:
-                assert slots < 2  # refused: two 40 KB fp32 slots and 25+ fp32 rows
-                continue
             assert max(2, HOLD) <= slots <= MAX_SLOTS and slots * tile <= RING_BYTES
             assert tile % 16 == 0 and rs % 16 == 0 and smem % 16 == 0
             assert smem <= DYN_SMEM and smem + STATIC_SMEM <= SMEM_LIMIT
@@ -211,25 +209,33 @@ def test_gates_refuse_what_a_block_cannot_hold():
     """The batched step's gates (fp and quantized panes) refuse exactly the
     geometries whose shared-memory plan keeps fewer than two ring slots,
     the launcher's own refusal, so the engine goes prompt by prompt and a
-    server refuses at construction instead of a launch raising: GPT-2 large
-    in fp32 past 24 slots; bf16 and its weight tiers take every B."""
+    server refuses at construction instead of a launch raising. GPT-2
+    large takes every B in fp32 and bf16 and over its weight tiers (fp32
+    past 24 slots since the 4-row fp32 tile); a wider fp32 geometry the
+    single stream takes (E = 2048: 32 staged rows are 257 KB) is still
+    refused past what a block holds."""
     from efficient_llm_inference_tpu_torch.ops import megakernel_batch_quant as tmbq
-    cfg = CFGS["gpt2-large"]
-    for dtype, wq in ((torch.float32, None), (torch.bfloat16, None),
-                      (torch.float32, "int8"), (torch.bfloat16, "int4")):
-        params = _params(dtype, wq)
-        for B in range(1, tmb.MAX_BATCH + 1):
-            fits = smem_plan(cfg, 320, dtype, wq or "fp", B)[0] >= 2
-            assert fits == (dtype != torch.float32 or wq is not None or B <= 24), (dtype, wq, B)
-            assert tmb.mega_batch_supported(cfg, 320, params, B) == fits, (dtype, wq, B)
-            for kv in ("int8", "mixed"):
-                assert tmbq.mega_batch_quant_supported(cfg, 320, params, B, kv) == fits
+    wide = tgpt2.GPT2Config(vocab_size=1000, n_positions=512, n_embd=2048, n_layer=1,
+                            n_head=16)
+    for name, cfg in (("gpt2-large", CFGS["gpt2-large"]), ("wide", wide)):
+        for dtype, wq in ((torch.float32, None), (torch.bfloat16, None),
+                          (torch.float32, "int8"), (torch.bfloat16, "int4")):
+            params = _params(dtype, wq)
+            for B in range(1, tmb.MAX_BATCH + 1):
+                fits = smem_plan(cfg, 320, dtype, wq or "fp", B)[0] >= 2
+                if name == "gpt2-large":
+                    assert fits, (dtype, wq, B)
+                elif (dtype, wq, B) == (torch.float32, None, 32):
+                    assert not fits
+                assert tmb.mega_batch_supported(cfg, 320, params, B) == fits, (name, dtype, wq, B)
+                for kv in ("int8", "mixed"):
+                    assert tmbq.mega_batch_quant_supported(cfg, 320, params, B, kv) == fits
 
 
 def test_engine_goes_prompt_by_prompt_past_the_plan():
-    """An fp32 GPT-2 large engine takes the batched step for 24 prompts and
-    not for 25 (`_mega_batch_spec` is None: generate_batch decodes prompt by
-    prompt, as past MAX_BATCH)."""
+    """An fp32 GPT-2 large engine takes the batched step for 24 and for
+    25-32 prompts (fp32's 4-row ring tile) and not past MAX_BATCH
+    (`_mega_batch_spec` is None: generate_batch decodes prompt by prompt)."""
     from efficient_llm_inference_tpu_torch import Config, InferenceEngine
     from efficient_llm_inference_tpu_torch.models.registry import gpt2_spec
     cfg = CFGS["gpt2-large"]
@@ -237,8 +243,10 @@ def test_engine_goes_prompt_by_prompt_past_the_plan():
         model_name="t", device="cpu", dtype=torch.float32, megakernel=True))
     eng._mega_packed = {}  # the gate alone decides; nothing is packed
     assert eng._mega_batch_spec(320, 24) is not None
-    assert eng._mega_batch_spec(320, 25) is None
-    assert eng._mega_batch_spec(320, 25, "int8") is None
+    for B in (25, 32):
+        assert eng._mega_batch_spec(320, B) is not None
+        assert eng._mega_batch_spec(320, B, "int8") is not None
+    assert eng._mega_batch_spec(320, tmb.MAX_BATCH + 1) is None
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -263,7 +271,10 @@ def test_c_constants_mirror_the_plan():
     assert int(_c_int("kMaxBatch", src)) == tmb.MAX_BATCH
     assert eval(_c_int("kDynSmem", src)) == DYN_SMEM  # "216 * 1024"
     assert int(_c_int("kRowPad", src)) == ROW_PAD
-    assert re.search(r"return (Tile<T, WK>::items \+ 1);", src)
+    assert re.search(r"return (BTile<T, WK>::items \+ 1);", src)
+    assert re.search(r"items = sizeof\(T\) == 4 \? 4 : Tile<T, WK>::items;", src)
+    assert tmb.batch_tile_items(torch.float32) == 4
+    assert tmb.batch_tile_items(torch.bfloat16) == tmb.tile_items(torch.bfloat16) == 16
     assert int(_c_int("kHold", src)) == HOLD
     assert int(_c_int("kMinSlots", src)) == MIN_SLOTS
     assert int(_c_int("kMaxSlots", shared)) == MAX_SLOTS

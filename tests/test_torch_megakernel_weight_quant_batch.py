@@ -214,17 +214,19 @@ def test_launcher_structs_carry_the_weight_tier():
     struct's fields, ending with its weight-tier fields, after its leading
     rows / batch fields; the batched verify's and the batched Llama step's
     then end with their bf16 chain's tensor-core scratch (the C structs'
-    trailing fields); GPT-2's batched step is the single stream's
+    trailing fields), the Llama verify's after its split attention's plan
+    and scratch; GPT-2's batched step and verify are the single stream's
     persistent-step struct (its grid, attention plan and scratch after the
-    weight tier) with B last."""
+    weight tier) with B or R last."""
     tc = [f[0] for f in tbv.TC_FIELDS]
     step_tail = [f[0] for f in tmk.Gpt2StepArgs._fields_]
     assert tc == ["xn", "tc_part", "tc_part_len", "tc_count"]
     tc_step = [f[0] for f in tmb.TC_FIELDS]
     assert tc_step == ["tc_part", "tc_part_len", "tc_count", "tc_count_len"]
     for struct, lead, base, tail in (
-            (tmk.GPT2VerifyArgs, ["rows"], tmk.MegaStepArgs, []),
-            (tml.LlamaVerifyArgs, ["rows"], tml.LlamaStepArgs, []),
+            (tmk.GPT2VerifyArgs, [], tmk.MegaStepArgs, step_tail + ["rows"]),
+            (tml.LlamaVerifyArgs, ["rows"], tml.LlamaStepArgs,
+             ["attn_splits", "attn_rows", "attn_part", "attn_count"] + tc_step),
             (tmb.GPT2BatchArgs, [], tmk.MegaStepArgs, step_tail + ["batch"]),
             (tmb.LlamaBatchArgs, ["batch"], tml.LlamaStepArgs, tc_step),
             (tbv.GPT2BatchVerifyArgs, ["batch", "rows"], tmk.MegaStepArgs, tc),

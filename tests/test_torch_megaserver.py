@@ -82,6 +82,12 @@ def family(name: str):
     return _FAMILIES[name]
 
 
+def jax_kw(kw):
+    """The port server's keywords for the JAX server (its dtype a jnp one)."""
+    return dict(kw, dtype={torch.float32: jnp.float32,
+                           torch.bfloat16: jnp.bfloat16}[kw.get("dtype", torch.bfloat16)])
+
+
 def _serve(server, request_type):
     """Run the five requests; returns (requests, R after each burst)."""
     tok = ByteTokenizer()
@@ -111,11 +117,12 @@ def check_server_matches_jax_server(name, spec, kv_mode):
     kw = dict(spec=spec, spec_k=8 if name == "llama" and kv_mode is None else 4,
               kv_mode=kv_mode)
     # the eos: a token inside request 0's own stream, so it truncates there
+    kw["dtype"] = torch.float32  # beside JAX's dtype=jnp.float32 (the pools' dtype)
     free, _ = _serve(MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), **kw), Request)
     eos = free[0].out_ids[len(free[0].out_ids) // 2]
     for eos_id in (None, eos) if (name, spec, kv_mode) == ("gpt2", "ngram", None) else (eos,):
-        want, want_r = _serve(JaxServer(jspec, jp, pool=JaxPool(**POOL), dtype=jnp.float32,
-                                        eos_id=eos_id, interpret=True, **kw), JaxRequest)
+        want, want_r = _serve(JaxServer(jspec, jp, pool=JaxPool(**POOL), eos_id=eos_id,
+                                        interpret=True, **jax_kw(kw)), JaxRequest)
         srv = MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), eos_id=eos_id, **kw)
         got, got_r = _serve(srv, Request)
         assert [r.out_ids for r in got] == [r.out_ids for r in want], (eos_id,)
@@ -140,7 +147,7 @@ def test_server_matches_per_prompt_generate(name, spec, kv_mode):
     eng = InferenceEngine(tspec, tp, config=Config(model_name="t", device="cpu",
                                                    dtype=torch.float32, megakernel=True))
     reqs, _ = _serve(MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), spec=spec,
-                                     kv_mode=kv_mode), Request)
+                                     kv_mode=kv_mode, dtype=torch.float32), Request)
     method = f"quant_{kv_mode}" if kv_mode else "full_cache"
     for i in FITS:
         want = eng.generate_ids(PROMPTS[i], method, BUDGETS[i])
@@ -150,7 +157,8 @@ def test_server_matches_per_prompt_generate(name, spec, kv_mode):
 
 def test_server_arguments_match_jax():
     """The JAX server's defaults, checks and messages; the port's own: pools
-    in the weights' dtype, and no shared-prefix cache yet."""
+    in bf16 or fp32 only (the kernels' dtypes), and no shared-prefix cache
+    yet. The pools' dtype is JAX's default, bf16, over fp32 weights too."""
     assert dataclasses.asdict(MegaPoolConfig()) == dataclasses.asdict(JaxPool())
     jspec, tspec, jp, tp = family("gpt2")
     tiny_j = jax_gpt2_spec(jgpt2.GPT2Config.tiny())
@@ -175,8 +183,16 @@ def test_server_arguments_match_jax():
         assert str(got.value) == str(want.value)
     with pytest.raises(AssertionError, match="8-aligned"):
         MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**dict(POOL, capacity=44)))
-    with pytest.raises(ValueError, match="weights' dtype"):
-        MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), dtype=torch.bfloat16)
+    import inspect
+    default = inspect.signature(MegaBatchServer).parameters["dtype"].default
+    assert default == torch.bfloat16
+    assert inspect.signature(JaxServer).parameters["dtype"].default == jnp.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), dtype=torch.float16)
+    for dtype in (torch.float32, torch.bfloat16):
+        srv = MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), dtype=dtype)
+        assert srv.k_pool.dtype == srv.v_pool.dtype == dtype
+        assert srv.packed["attn_w"].dtype == dtype and srv.packed["smalls"].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), enable_prefix_cache=True)
     srv = MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**POOL), kv_mode="int8",
@@ -209,7 +225,7 @@ def test_spec_server_of_32_slots_matches_jax():
     kw = dict(spec="ngram", spec_k=8, kv_mode="int8")
     want, want_r = _serve(JaxServer(jspec, jp, pool=JaxPool(**pool), dtype=jnp.float32,
                                     interpret=True, **kw), JaxRequest)
-    srv = MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**pool), **kw)
+    srv = MegaBatchServer(tspec, tp, pool=MegaPoolConfig(**pool), dtype=torch.float32, **kw)
     got, got_r = _serve(srv, Request)
     assert [r.out_ids for r in got] == [r.out_ids for r in want]
     assert got_r == want_r and srv.spec_stats["rounds"] > 0

@@ -382,7 +382,8 @@ def test_server_on_quantized_weights_raises(quantized_engine):
     now packs the tiers and serves its requests' greedy decodes."""
     eng = quantized_engine
     srv = MegaBatchServer(eng.model, eng.params,
-                          pool=MegaPoolConfig(n_slots=2, capacity=64, max_chunk=8))
+                          pool=MegaPoolConfig(n_slots=2, capacity=64, max_chunk=8),
+                          dtype=torch.float32)
     assert tmk.weight_kind(srv.packed) == "int4"
     reqs = [Request(0, list(PROMPT.encode()), 8), Request(1, [97], 8)]
     srv.run(reqs)

@@ -170,7 +170,7 @@ def test_server_matches_jax(engines, kv_mode, spec):
     method = f"quant_{kv_mode}" if kv_mode else "full_cache"
     srv = MegaBatchServer(teng.model, teng.params,
                           pool=MegaPoolConfig(n_slots=4, capacity=96, max_chunk=8),
-                          kv_mode=kv_mode, spec=spec, spec_k=K)
+                          kv_mode=kv_mode, spec=spec, spec_k=K, dtype=torch.float32)
     assert tmk.weight_kind(srv.packed) != "fp"
     reqs = [Request(i, list(p.encode()), N) for i, p in enumerate(PROMPTS)]
     srv.run(reqs)

@@ -1,13 +1,15 @@
 """Cases and helpers shared by the card tests (tests/test_torch_cuda_*.py):
 the `cuda` fixture, the model geometries, random inputs and packed weights
-of each chain, and the tolerance checks. No test lives here, and nothing
-here imports JAX."""
+of each chain, the tolerance checks, and the plain logits a server's
+request is held to (also used by tests/test_torch_megaserver_dtype.py). No
+test lives here, and nothing here imports JAX."""
 
 import dataclasses
 
 import pytest
 import torch
 
+from efficient_llm_inference_tpu_torch.cache.kvcache import DenseKV
 from efficient_llm_inference_tpu_torch.engine.engine import (
     quantize_weights,
     weight_quant_plan,
@@ -135,7 +137,8 @@ BATCH_LENGTHS = [0, 37, 127, 5, 64, 126, 1, 100]  # C = 128: no visible row, the
 def _batch_case(family, mode, dtype, B, device, wq=None):
     """(packed, cfg, panes and scales [L, B, C, W], x [B, E]) of a model of
     `family`: "gpt2" E = 256, head_dim 128; "gpt2-full" GPT-2 small at full
-    width (a 48 KB staged input at B = 8 in bf16: the shared-memory opt-in);
+    width (a 48 KB staged input at B = 8 in bf16: the shared-memory opt-in),
+    "gpt2-large-L2" GPT-2 large's width at 2 layers;
     "llama" G = 2, KW = 256; "llama-3-1b-L2" Llama-3.2-1B's widths at 2
     layers; "qwen2.5-7b-L1" / "llama-3-8b-L1" those models' widths at one
     layer (weights at the registry's std, drawn on the card). With `wq`, the
@@ -146,7 +149,9 @@ def _batch_case(family, mode, dtype, B, device, wq=None):
         W = cfg.n_embd if kind == "gpt2" else cfg.n_kv_head * cfg.head_dim
         E = cfg.n_embd if kind == "gpt2" else cfg.hidden_size
     elif family.startswith("gpt2"):
-        cfg = tgpt2.GPT2Config(**MEGA_CFGS["small-test" if family == "gpt2" else "gpt2"])
+        cfg = (dataclasses.replace(tgpt2.GPT2Config.large(), n_layer=2)
+               if family == "gpt2-large-L2" else
+               tgpt2.GPT2Config(**MEGA_CFGS["small-test" if family == "gpt2" else "gpt2"]))
         params = tgpt2.init_gpt2_params(torch.Generator().manual_seed(1), cfg,
                                         torch.float32, device)
         packed, W, E = tmk.pack_gpt2_mega(params, cfg), cfg.n_embd, cfg.n_embd
@@ -342,6 +347,37 @@ def _token_close(tok, logits, dtype, bf16_tol=2e-2):
     if dtype == torch.float32:
         return tok == int(logits.argmax()) or float(top2[0] - top2[1]) < 1e-4
     return float(logits[tok]) >= float(top2[0]) - bf16_tol
+
+
+def server_plain_logits(tspec, params, packed, prompt, out, capacity, dtype):
+    """The plain single-stream logits (fp32, [len(out), V]) of one request
+    that `MegaBatchServer` serves at pools of `dtype` over `params`,
+    teacher-forced on its tokens `out`: row 0 the prefill's (its cache
+    written in `dtype`), row j the plain step over `packed` (the server's
+    weights, cast to the pools' dtype) fed out[j - 1], embedded as the
+    server embeds it (from `packed`: GPT-2's wte and wpe rows summed in
+    fp32, the sum rounded). The request must fit the pane: prompt +
+    len(out) <= capacity."""
+    gpt2 = tspec.name == "gpt2"
+    emb = packed["wte"] if gpt2 else packed["embed"]
+    dev, cfg, T = emb.device, tspec.config, len(prompt)
+    strategy = DenseKV(n_layer=tspec.n_layer, n_head=tspec.n_kv_head, head_dim=tspec.head_dim,
+                       capacity=capacity, batch=1, dtype=dtype, device=dev)
+    toks = torch.tensor([prompt], dtype=torch.long, device=dev)
+    pos = torch.arange(T, device=dev)[None]
+    logits, cache = tspec.forward(params, toks, pos, strategy.init(), strategy, None)
+    rows = [logits[0, -1].float()]
+    k = tmb.to_mega_layout_batch(cache["k"])[:, 0].contiguous()
+    v = tmb.to_mega_layout_batch(cache["v"])[:, 0].contiguous()
+    step = tmk.gpt2_megastep_plain if gpt2 else tml.llama_megastep_plain
+    for j in range(len(out) - 1):
+        cur = T + j
+        t = torch.tensor([out[j]], device=dev)
+        x = (emb[t].float() + packed["wpe"][min(cur, tspec.n_positions - 1)].float()
+             if gpt2 else emb[t])
+        rows.append(step(packed, k, v, cur, x.to(dtype), cfg=cfg,
+                         return_logits=True)[3].float())
+    return torch.stack(rows)
 
 
 def _rows_close(got, want, dtype):
